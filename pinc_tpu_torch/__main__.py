@@ -5,8 +5,9 @@ The interface of ``python -m pinc_tpu`` (the reference's ``iniOpen``,
 src/io.c:254-311): a positional ini file, any number of
 ``section:key=value`` overrides, and ``getnp``, which prints the number of
 subdomains the deck wants and exits.  The run mode comes from
-``methods:mode`` (src/main.c:32-36).  The run takes the CUDA card when
-there is one, else the CPU, and names the device in its first STATUS line.
+``methods:mode`` (src/main.c:32-36).  The run takes the CUDA card (and
+raises when there is none; ``main(..., device="cpu")`` runs on the CPU),
+and names the device in its first STATUS line.
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ from .registry import RUN_MODES
 from .utils.logging import STATUS, msg
 
 
-def main(argv=None, out: Optional[dict] = None) -> int:
+def main(argv=None, out: Optional[dict] = None, device=None) -> int:
     """Run the deck.  ``out``, when given, receives the run mode's result
     (for the regular mode: the energy histories, timings, drop counts and
-    the simulation object under ``"sim"``)."""
+    the simulation object under ``"sim"``).  ``device``: the CUDA card by
+    default (checked only when a run starts), or e.g. ``"cpu"``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print("usage: python -m pinc_tpu_torch <input.ini> [getnp] "
@@ -52,7 +54,8 @@ def main(argv=None, out: Optional[dict] = None) -> int:
             mf.write("parsedump", "%s = %s\n", key, cfg.get_str(key))
         mf.close()
 
-    device = simulation.default_device()
+    device = (simulation.default_device() if device is None
+              else torch.device(device))
     run = RUN_MODES.select(cfg, "methods:mode", default="regular")
     msg(STATUS, "PINC-TPU-torch started: %s on %s", ini_path,
         device if device.type == "cpu"

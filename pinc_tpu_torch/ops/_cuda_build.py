@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``pinc_tpu_torch/csrc``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``)
+— one ``nvcc -c`` per source, all started together — and links the objects
 into one shared library with a plain C interface,
-``pinc_tpu_torch/_build/libpinc_tiled-<hash>.so``, where ``<hash>`` is a
+``pinc_tpu_torch/_build/libpinc_kernels-<hash>.so``, where ``<hash>`` is a
 content hash of the sources and the flags: an edited source builds anew,
 an unchanged one is loaded from the previous build.  The library is bound
 with ``ctypes``: every pointer and the stream are ``c_void_p``, and each
@@ -27,13 +28,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-#: C signatures of csrc/tiled.cu, in argument order
+#: C signatures of csrc/*.cu, in argument order
 SIGNATURES = {
+    # -- csrc/tiled.cu
     # xyz, value, tiles, NT, B, P, M, order, bf16, stream
     "pinc_tiled_deposit": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # xyz, vel, alive, q, tiles, new_xyz, nout, NT, B, P, M, order, bf16,
@@ -46,6 +48,14 @@ SIGNATURES = {
     # vel_out, vdot, NT, B, P, M, order, bf16, stream
     "pinc_tiled_gather_kick": [_P, _P, _P, _P, _F, _P, _I, _P, _P,
                                _I, _I, _I, _I, _I, _I, _P],
+    # -- csrc/gather_exchange.cu
+    # alive, x, y, z, vx, vy, vz, buf, alive_out, NT, B, kind, Ks, T, stream
+    "pinc_gx_extract": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    # inc, settled, extras0..5, NT, W, Ke, naxes, T, stream
+    "pinc_gx_cleanup": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
+    # alive, inc, x, y, z, vx, vy, vz, table (host: off, w pairs), nblocks,
+    # NT, B, KT, stream
+    "pinc_gx_merge": [_P] * 9 + [_I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -77,7 +87,17 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libpinc_tiled-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libpinc_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands concurrently and wait for every one; returns
+    [(cmd, returncode, output)]."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    done = [(cmd, proc.communicate()[0], proc) for cmd, proc in procs]
+    return [(cmd, proc.returncode, text) for cmd, text, proc in done]
 
 
 def build(verbose: bool = False) -> Path:
@@ -88,22 +108,27 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources()]]
-    if verbose:
-        cmd.insert(1, "--ptxas-options=-v")
-    t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.monotonic() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, file=sys.stderr)
-    os.replace(tmp, out)
+    nvcc = nvcc_path()
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        objs = [tmp / f"{src.stem}.o" for src in _sources()]
+        compiles = [[nvcc, *(["--ptxas-options=-v"] if verbose else []),
+                     *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(_sources(), objs)]
+        lib = tmp / out.name
+        link = [nvcc, *ARCH, "-shared", "-o", str(lib), *map(str, objs)]
+        t0 = time.monotonic()
+        for step in (compiles, [link]):
+            for cmd, rc, text in _run_all(step):
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n"
+                                       f"{' '.join(cmd)}\n{text}")
+                if verbose:
+                    print(text, file=sys.stderr)
+        build_seconds = time.monotonic() - t0
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 

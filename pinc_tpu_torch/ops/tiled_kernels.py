@@ -256,12 +256,14 @@ def _planes_shape(xyz: torch.Tensor, ts: TileSpec) -> Tuple[int, int]:
     return NT, B
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, fn, *args, counts: Optional[dict] = None) -> None:
+    """Call the C entry point fn(*args), raise on a nonzero launch error,
+    and add one to counts[name] (default: this module's LAUNCHES)."""
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {err})")
-    LAUNCHES[name] += 1
+    (LAUNCHES if counts is None else counts)[name] += 1
 
 
 def _is_cpu(t: torch.Tensor, name: str) -> bool:

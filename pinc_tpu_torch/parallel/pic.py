@@ -16,9 +16,10 @@ AUTO_TILED_SLOTS = 24_000_000
 
 
 def make_simulation(cfg: PincConfig, seed: int = 1,
-                    device="cpu") -> Simulation:
+                    device=None) -> Simulation:
     """Tiled layout when methods:layout = tiled, or automatically for decks
-    too big for the flat working set; plain single-block otherwise."""
+    too big for the flat working set; plain single-block otherwise.
+    device: the CUDA card by default, or e.g. "cpu"."""
     if required_np(cfg) > 1:
         raise NotImplementedError(
             f"grid:nSubdomains > 1 (the multi-device layer, parallel/) is "

@@ -92,14 +92,16 @@ class StepOutput:
 class Simulation:
     """Owns the configuration, the static problem setup and the step on
     the flat layout.  Mirrors the lifetime of regular() in the reference.
-    ``device`` is where every tensor of the run lives."""
+    ``device`` is where every tensor of the run lives: the CUDA card by
+    default, the CPU only when the caller passes ``device="cpu"``."""
 
     _DEFER_PARTICLES = False
 
-    def __init__(self, cfg: PincConfig, seed: int = 1, device="cpu"):
+    def __init__(self, cfg: PincConfig, seed: int = 1, device=None):
         check_supported(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = (default_device() if device is None
+                       else torch.device(device))
         self.units: Units = alloc_and_normalize(cfg)
         self.spec = GridSpec.from_config(cfg)
 
@@ -191,8 +193,14 @@ class Simulation:
 # ---------------------------------------------------------------------------
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA card, where the port's entry points run unless the caller
+    passes ``device="cpu"``.  Raises when there is no card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card (torch.cuda.is_available() is false): "
+            "pinc_tpu_torch runs on the card; pass device=\"cpu\" to run "
+            "the kernels' plain PyTorch versions on the CPU")
+    return torch.device("cuda")
 
 
 @RUN_MODES.register("regular")

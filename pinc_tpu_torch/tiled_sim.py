@@ -13,9 +13,15 @@ Deck knobs, section ``[tiles]``: ``tileSize`` (default 8), ``margin``
 (default 1 when the velocity scale allows a re-bucket cadence >= 4, else
 2), ``slack`` (bucket head room, default 1.25), ``rebucketEvery``
 (default: per species, from the velocity scale), ``mxuDtype`` (f32 or
-bf16 weights) and ``rebucket``.  Re-bucketing is the stable sort of
-``ops/tiled.bucket``: the deck must say ``tiles:rebucket = sort``, since
-the exchange re-bucket (the 3-D default of ``pinc_tpu``) is not ported.
+bf16 weights) and ``rebucket``.  Re-bucketing is, by default, the gather
+exchange of ``ops/exchange.py`` (kernels K8-K10): live slots that left
+their tile move to the neighbouring tile through per-row buffers, tuned by
+``exchangeCap`` (face cap), ``exchangeRows``, ``exchangeFused``,
+``exchangeImpl`` and ``exchangeTotalCap``.  ``tiles:rebucket = sort``
+selects the stable sort of ``ops/tiled.bucket`` instead.  Decks on which
+pinc_tpu would take its one-hot exchange (K11: B % 1024 != 0, or the
+per-row gate fails) raise ``NotImplementedError`` unless they ask for the
+sort.
 
 Not ported yet: the mega-fused scan (``make_scan_steps``); decks with
 bounded walls, objects, checkpoints or output are refused.
@@ -33,6 +39,8 @@ import torch
 
 from .config import PincConfig
 from .grid import gradient, potential_energy
+from .ops import exchange as ex
+from .ops import gather_exchange as gx
 from .ops import tiled as tl
 from .ops import tiled_kernels as tk
 from .population import Particles
@@ -53,18 +61,12 @@ class TiledSimulation(Simulation):
     _DEFER_PARTICLES = True    # bucket from per-species generation at
                                # giant populations (see Simulation)
 
-    def __init__(self, cfg: PincConfig, seed: int = 1, device="cpu"):
+    def __init__(self, cfg: PincConfig, seed: int = 1, device=None):
         nd = cfg.get_int("grid:ndims")
         if nd != 3:
             raise NotImplementedError(
                 f"methods:layout=tiled on a {nd}-D deck is {_TODO}: the "
                 f"tiled port covers 3-D decks (use methods:layout=flat)")
-        rebucket = cfg.get_str("tiles:rebucket", "exchange").lower()
-        if rebucket != "sort":
-            raise NotImplementedError(
-                f"tiles:rebucket={rebucket} (the exchange re-bucket, the "
-                f"default for 3-D decks) is {_TODO}; run with the override "
-                f"tiles:rebucket=sort")
         super().__init__(cfg, seed=seed, device=device)
         # physics-method routing: the kernels honor the same deck
         # selections as the flat path through the registry closures'
@@ -141,6 +143,21 @@ class TiledSimulation(Simulation):
         self.ts = tl.TileSpec(grid=self.spec.global_size, T=T, M=M, B=B)
         self.ts.validate()
 
+        # re-bucket: the exchange (pinc_tpu's 3-D default) or the sort
+        self._rebucket_mode = cfg.get_str("tiles:rebucket", "exchange").lower()
+        # per-face transfer capacity: the mean leavers per face over one
+        # cadence is ~1% of ppt at M=1; ppt*M/(8T) is ~1.5x that mean with
+        # +5 Poisson sigmas of head room (overflow is counted as drops)
+        ppt_est = ppt if ppt > 0 else 128
+        cap = int(math.ceil(ppt_est * max(M, 1) / (8.0 * T) / 128.0)) * 128
+        cap = max(128, min(cap, (B // 8) * 8))
+        self._exchange_cap = cfg.get_int("tiles:exchangecap", cap)
+        self._cap_escalation = 1.0        # retune()'s factor after drops
+        self._exchange_rows = self._rows_default(B, ppt)
+        if self._rebucket_mode == "exchange":
+            ex.require_gather(B, self.ts.ntiles, self._exchange_rows,
+                              cfg.get_str("tiles:exchangeimpl", "auto"))
+
         # per-species re-bucket cadences; slow cadences snap down to a
         # multiple of the fastest
         if "tiles:rebucketevery" in cfg:
@@ -167,26 +184,31 @@ class TiledSimulation(Simulation):
             if cap_all * ns > 32_000_000:
                 self.particles = None
         msg(STATUS, "tiled layout: %s tiles of %d^%d cells, bucket=%d, "
-            "margin=%d, rebucket every %s steps, device %s",
-            self.ts.ntiles, T, nd, B, M, self.rebucket_every_s, self.device)
+            "margin=%d, %s re-bucket every %s steps, device %s",
+            self.ts.ntiles, T, nd, B, M, self._rebucket_mode,
+            self.rebucket_every_s, self.device)
 
     # ------------------------------------------------------------- layout
-    def retune(self, st: Optional[TiledState] = None) -> bool:
+    def retune(self, st: Optional[TiledState] = None, drops: int = 0) -> bool:
         """Re-estimate the per-species velocity scales from the current
-        state and refresh the re-bucket cadences (called by run() after a
-        drop or a margin hit).  Returns True if a cadence changed."""
+        state and refresh the re-bucket cadences and the exchange face cap
+        (called by run() after a drop or a margin hit).  drops: the
+        re-bucket drops seen since the last retune; any drop escalates the
+        face cap 1.5x, and the per-row gate is evaluated again under the
+        new cap.  Returns True if anything changed."""
         st = self.state if st is None else st
         S, D, NT, B = st.vel.shape
         stride = max(1, NT // 64)
         vel_np = st.vel[:, :, ::stride].abs().cpu().numpy()
         alive_np = st.alive[:, ::stride].cpu().numpy() > 0.5
         M = self.ts.M
+        v_s = [0.0] * S
         R_s = list(self.rebucket_every_s)
         for s in range(S):
             vs = vel_np[s].reshape(D, -1)[:, alive_np[s].reshape(-1)]
             if vs.size:
-                v = max(float(np.percentile(vs, 99.9)) * 1.5, 1e-3)
-                R_s[s] = max(1, min(int(M / v), 200))
+                v_s[s] = max(float(np.percentile(vs, 99.9)) * 1.5, 1e-3)
+                R_s[s] = max(1, min(int(M / v_s[s]), 200))
         Re = min(R_s)
         R_s = [R if R == Re else max(Re, R // Re * Re) for R in R_s]
         changed = False
@@ -201,7 +223,45 @@ class TiledSimulation(Simulation):
             msg(WARNING, "retune: cadence hit %d — the velocity scale has "
                 "outgrown margin M=%d (raise tiles:margin)",
                 self.rebucket_every, M)
+        # face cap: the hottest species' drift per cadence (cadence * v ~= M
+        # by construction, more once the cadence clamps at 1), times 1.5 for
+        # every retune that follows drops
+        ppt = self._capacity * (self.ts.T ** self.ts.n_dims) \
+            / self.spec.global_volume
+        drift = max(max(R * v for R, v in zip(self.rebucket_every_s, v_s)),
+                    float(max(M, 1)))
+        self._cap_escalation *= 1.5 if drops else 1.0
+        cap = int(math.ceil(max(ppt, 128) * drift * self._cap_escalation
+                            / (8.0 * self.ts.T) / 128.0)) * 128
+        cap = max(128, min(cap, (self.ts.B // 8) * 8))
+        if "tiles:exchangecap" not in self.cfg and cap != self._exchange_cap:
+            msg(STATUS, "retune: exchange face cap %d -> %d%s",
+                self._exchange_cap, cap, " (after drops)" if drops else "")
+            self._exchange_cap = cap
+            changed = True
+        if changed and "tiles:exchangerows" not in self.cfg:
+            rows = self._rows_default(self.ts.B, ppt)
+            if rows != self._exchange_rows:
+                msg(STATUS, "retune: per-row exchange %s",
+                    "enabled" if rows else "disabled (cap outgrew rows)")
+                self._exchange_rows = rows
         return changed
+
+    def _rows_default(self, B: int, ppt: float) -> bool:
+        """Default of tiles:exchangeRows.  The gather exchange spills a
+        row's arrivals into the tile's other rows, so only the tile needs
+        head room: free slots >= 2x the rounded row face cap (and
+        B % 1024 == 0).  pinc_tpu's one-hot row kernels (K11, not ported)
+        need it in every row."""
+        if "tiles:exchangerows" in self.cfg:
+            return self.cfg.get_bool("tiles:exchangerows")
+        if B % 8:
+            return False
+        ks = ex.default_row_cap(self._exchange_cap, B)
+        free_per_row = (B - ppt) / 8.0
+        if gx.supported(B):
+            return 8 * free_per_row >= 2 * gx.round_cap(ks)
+        return free_per_row >= 2 * ks
 
     def _empty_state(self, S: int) -> TiledState:
         D, NT, B = self.ts.n_dims, self.ts.NT, self.ts.B
@@ -247,30 +307,38 @@ class TiledSimulation(Simulation):
             del v, tid
         return st
 
-    def _rebucket_one(self, lpos_s, vel_s, alive_s):
-        """Re-bucket one species by the stable sort: (D,NT,B) x2 + (NT,B)
-        -> the same + dropped count."""
+    def _rebucket_one(self, lpos_s, vel_s, alive_s) -> int:
+        """Re-bucket one species in place: lpos_s, vel_s (D, NT, B) and
+        alive_s (NT, B) are views of the state.  Returns the drop count."""
+        if self._rebucket_mode == "exchange":
+            cfg = self.cfg
+            _, al, d_n = ex.rebucket_exchange_planes(
+                tuple(lpos_s) + tuple(vel_s), alive_s, self.ts.ntiles,
+                self.ts.T, K=self._exchange_cap, rows=self._exchange_rows,
+                fused=cfg.get_bool("tiles:exchangefused", True),
+                impl=cfg.get_str("tiles:exchangeimpl", "auto"),
+                ku=(cfg.get_int("tiles:exchangetotalcap")
+                    if "tiles:exchangetotalcap" in cfg else None))
+            alive_s.copy_(al > 0.5)
+            return int(d_n)
         D = self.ts.n_dims
         gpos = tl.global_positions(lpos_s.permute(1, 2, 0),
                                    self.ts).reshape(-1, D)
         vel = vel_s.reshape(D, -1).T
         lp, lv, la, d_n = tl.bucket(gpos, vel, alive_s.reshape(-1) > 0.5,
                                     self.ts)
-        return lp.permute(2, 0, 1), lv.permute(2, 0, 1), la.float(), d_n
+        lpos_s.copy_(lp.permute(2, 0, 1))
+        vel_s.copy_(lv.permute(2, 0, 1))
+        alive_s.copy_(la)
+        return int(d_n)
 
     def _rebucket(self, st: TiledState,
                   species=None) -> Tuple[TiledState, int]:
         """Re-bucket the given species (default: all), in place."""
-        S = st.lpos.shape[0]
-        species = range(S) if species is None else species
+        species = range(st.lpos.shape[0]) if species is None else species
         dropped = 0
         for s in species:
-            lp, lv, la, d_n = self._rebucket_one(st.lpos[s], st.vel[s],
-                                                 st.alive[s])
-            st.lpos[s] = lp
-            st.vel[s] = lv
-            st.alive[s] = la
-            dropped += int(d_n)
+            dropped += self._rebucket_one(st.lpos[s], st.vel[s], st.alive[s])
         return st, dropped
 
     def to_particles(self, st: TiledState) -> Particles:
@@ -427,7 +495,7 @@ class TiledSimulation(Simulation):
                         "overflow (raise tiles:slack)", n, dropped)
                     total_dropped += dropped
                 if dropped or lost:
-                    self.retune(st)
+                    self.retune(st, drops=dropped)
             ke = diag.kin_energy.cpu().numpy()
             pe = float(diag.pot_energy)
             step_seconds.append(time.monotonic() - t0)

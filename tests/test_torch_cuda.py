@@ -10,7 +10,9 @@ port is installed (the test conftest imports jax; skip it there):
 
 Tolerances: deposits max|kernel - plain| <= 1e-5 * max|plain| (atomics
 add in another order); gathered fields and velocities atol 1e-5; moved
-planes and n_out exact; vdot rtol 1e-5.  The slice on the card vs the CPU:
+planes and n_out exact; vdot rtol 1e-5.  The exchange kernels (extract,
+cleanup, merge) and the exchange drivers are exact: they copy bits and add
++-T in f32 as the plain versions do.  The slice on the card vs the CPU:
 energies rtol 1e-4 and state atol 1e-4 (cuFFT vs pocketfft and
 atomic-order sums, over 6 steps)."""
 
@@ -19,6 +21,8 @@ import pytest
 import torch
 
 from pinc_tpu_torch.config import PincConfig
+from pinc_tpu_torch.ops import exchange as ex
+from pinc_tpu_torch.ops import gather_exchange as gx
 from pinc_tpu_torch.ops import tiled_kernels as tk
 from pinc_tpu_torch.ops.tiled import TileSpec, bucket
 
@@ -104,6 +108,109 @@ def test_wrappers_check_their_inputs(cuda):
         tk.deposit_move(d["xyz"], d["vel"].cpu(), d["alive"], 1.0, ts)
 
 
+def _exchange_fixture(dev, seed=0):
+    """8 tiles (2x2x2 of 4^3 cells), B = 2048 (rows of 256 slots): 80% of
+    the slots alive, spread over [-1.5, T+1.5); in tile 0 the first 200
+    slots of every row leave through -x, past the 128-wide row caps."""
+    rng = np.random.default_rng(seed)
+    NT, B = 8, 2048
+    alive = (rng.uniform(size=(NT, B)) < 0.8).astype(np.float32)
+    planes = [rng.uniform(-1.5, 5.5, (NT, B)).astype(np.float32)
+              for _ in range(3)]
+    planes += [rng.normal(size=(NT, B)).astype(np.float32) for _ in range(3)]
+    planes[0][0].reshape(8, 256)[:, :200] = -0.5
+    alive[0].reshape(8, 256)[:, :200] = 1.0
+    return (torch.from_numpy(alive).to(dev),
+            tuple(torch.from_numpy(p).to(dev) for p in planes))
+
+
+def _clone(alive, planes):
+    return alive.clone(), tuple(p.clone() for p in planes)
+
+
+def _equal(a, b):
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_exchange_kernels_match_plain(cuda):
+    alive, planes = _exchange_fixture(cuda)
+    before = dict(gx.LAUNCHES)
+    extracts = {
+        "dim0": (lambda a, p: gx.extract_rows_g(0, a, p, 128, 4),
+                 lambda a, p: gx.extract_rows_g_plain(0, a, p, 128, 4)),
+        "dim2": (lambda a, p: gx.extract_rows_g(2, a, p, 128, 4),
+                 lambda a, p: gx.extract_rows_g_plain(2, a, p, 128, 4)),
+        "all": (lambda a, p: gx.extract_all_rows_g(a, p, 128, 4),
+                lambda a, p: gx.extract_all_rows_g_plain(a, p, 128, 4)),
+        "compact": (lambda a, p: gx.extract_compact_rows_g(a, p, 128, 4),
+                    lambda a, p: gx.extract_compact_rows_g_plain(a, p, 128,
+                                                                 4)),
+    }
+    for name, (kern, plain) in extracts.items():
+        b, a2 = kern(alive, planes)
+        br, a2r = plain(alive, planes)
+        assert _equal(b, br) and _equal(a2, a2r), name
+        if name != "dim2":     # tile 0 overflows its x-minus (first) run
+            assert float(b[0, 6, :, :128].sum()) == 8 * 128, name
+    buf, _ = gx.extract_compact_rows_g(alive, planes, 384, 4)
+    for axes in ((0, 1, 2), (1, 2), (2,)):
+        st, e = gx.cleanup_rows_g(buf, 128, 4, axes)
+        str_, er = gx.cleanup_rows_g_plain(buf, 128, 4, axes)
+        assert _equal(st, str_) and all(map(_equal, e, er)), axes
+    _, faces = gx.cleanup_rows_g(buf, 128, 4, (0, 1, 2))
+    inc = torch.cat(faces, -1)
+    blocks = tuple((128 * i, 128) for i in range(6))
+    # rows 0-3 full, rows 4-7 empty: rows 0-3's arrivals spill, and the
+    # tiles have less room than arrivals, so some are dropped
+    room = torch.zeros((8, 8, 256), device=cuda)
+    room[:, :4] = 1.0
+    a_k, p_k = _clone(room.reshape(8, 2048), planes)
+    a_p, p_p = _clone(room.reshape(8, 2048), planes)
+    gx.merge_rows_g(a_k, inc, p_k, blocks)
+    gx.merge_rows_g_plain(a_p, inc, p_p, blocks)
+    assert _equal(a_k, a_p) and all(map(_equal, p_k, p_p))
+    placed = a_k.reshape(8, 8, 256)[:, 4:].sum(-1)
+    assert float(placed.sum()) < float(inc[:, 6].sum())
+    assert bool((placed == 256).any()) and bool((placed > inc[:, 6, 4:].sum(-1)).any())
+    torch.cuda.synchronize()
+    assert {k: gx.LAUNCHES[k] - before[k] for k in before} == {
+        "extract": 5, "cleanup": 4, "merge": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "per_dim"])
+def test_exchange_drivers_match_cpu(cuda, fused):
+    """The drivers on the card (kernels) and on the CPU (plain versions):
+    planes, alive and the drop count, bit for bit, including tile 0's
+    overflow drops."""
+    alive, planes = _exchange_fixture("cpu", seed=1)
+    outs = {}
+    for dev in ("cpu", cuda):
+        a, p = _clone(alive.to(dev), tuple(q.to(dev) for q in planes))
+        outs[str(dev)] = ex.rebucket_exchange_planes(
+            p, a, (2, 2, 2), 4, K=256, rows=True, fused=fused)
+    (p_c, a_c, d_c), (p_g, a_g, d_g) = outs.values()
+    assert int(d_g) == int(d_c) > 0
+    assert torch.equal(a_g.cpu(), a_c)
+    assert all(torch.equal(g.cpu(), c) for g, c in zip(p_g, p_c))
+
+
+@pytest.mark.cuda
+def test_exchange_wrappers_check_their_inputs(cuda):
+    alive, planes = _exchange_fixture(cuda)
+    with pytest.raises(ValueError, match="B % 1024"):
+        gx.extract_compact_rows_g(alive[:, :1536].contiguous(),
+                                  tuple(p[:, :1536].contiguous()
+                                        for p in planes), 384, 4)
+    with pytest.raises(ValueError, match="axes"):
+        gx.cleanup_rows_g(torch.zeros((8, 7, 8, 128), device=cuda), 128, 4,
+                          (0, 2))
+    with pytest.raises(ValueError, match="is on"):
+        gx.merge_rows_g(alive, torch.zeros((8, 7, 8, 128)), planes,
+                        ((0, 128),))
+
+
 DECK = """
 [time]
 nTimeSteps = 6
@@ -141,19 +248,27 @@ rebucket = sort
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rebucket", ["sort", "exchange"])
 @pytest.mark.parametrize("dt", list(MXU))
-def test_slice_on_the_card_matches_cpu(cuda, dt):
+def test_slice_on_the_card_matches_cpu(cuda, dt, rebucket):
     from pinc_tpu_torch.tiled_sim import TiledSimulation
     deck = DECK + f"mxuDtype = {dt}\n"
+    if rebucket == "exchange":     # the default; B = 1024 at slack 2.0
+        deck = deck.replace("rebucket = sort\n", "slack = 2.0\n")
     runs = {}
     for dev in ("cpu", cuda):
         tk.reset_launches()
+        gx.reset_launches()
         sim = TiledSimulation(PincConfig.from_string(deck), seed=3, device=dev)
-        runs[str(dev)] = (sim.run(progress_every=0), sim, dict(tk.LAUNCHES))
+        runs[str(dev)] = (sim.run(progress_every=0), sim,
+                          {**tk.LAUNCHES, **gx.LAUNCHES})
     (h_cpu, s_cpu, n_cpu), (h_gpu, s_gpu, n_gpu) = runs.values()
+    assert s_gpu._rebucket_mode == rebucket
     assert n_cpu == {k: 0 for k in n_cpu}
+    events = 2 * 3 if rebucket == "exchange" else 0   # 2 species x 3 events
     assert n_gpu == {"deposit": 2, "gather": 2, "deposit_move": 12,
-                     "gather_kick": 12}
+                     "gather_kick": 12, "extract": events,
+                     "cleanup": 3 * events, "merge": events}
     assert s_gpu.state.lpos.is_cuda and h_gpu["dropped"] == 0
     np.testing.assert_allclose(h_gpu["kinetic"], h_cpu["kinetic"], rtol=1e-4)
     np.testing.assert_allclose(h_gpu["potential"], h_cpu["potential"],

@@ -1,9 +1,11 @@
 """The slice as a whole: pinc_tpu_torch's TiledSimulation.run() against
-pinc_tpu's, on tests/test_tiled.py's deck with tiles:rebucket=sort,
-rebucketEvery=2 and nTimeSteps=6.  The JAX side runs its fused step
-(tiles:backend=pallas) with the Pallas kernels in interpret mode; the port
-runs the kernels' plain versions on the CPU.  Both start from the same
-host initial conditions, so the tiled states compare slot for slot.
+pinc_tpu's, on tests/test_tiled.py's deck with rebucketEvery=2 and
+nTimeSteps=6, re-bucketed by the sort (tiles:rebucket=sort) and by the
+default gather exchange (with slack 2.0, so that B = 1024 and the per-row
+gate holds).  The JAX side runs its fused step (tiles:backend=pallas) with
+the Pallas kernels in interpret mode; the port runs the kernels' plain
+versions on the CPU.  Both start from the same host initial conditions, so
+the tiled states compare slot for slot.
 
 Tolerances: energies rtol 1e-5 and the final lpos/vel atol 1e-5 with f32
 weights (float32 sums in another order); with bf16 weights rtol 1e-4 on
@@ -16,6 +18,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -23,11 +26,14 @@ import torch
 from pinc_tpu.__main__ import main as jmain
 from pinc_tpu.config import PincConfig as JConfig
 from pinc_tpu.registry import RUN_MODES as JRUN_MODES
+from pinc_tpu.ops import pallas_exchange as pex
 from pinc_tpu.simulation import Simulation as JSimulation
 from pinc_tpu.tiled_sim import TiledSimulation as JTiledSimulation
+from pinc_tpu.tiled_sim import TiledState as JTiledState
 from pinc_tpu_torch import compat
 from pinc_tpu_torch.__main__ import main
 from pinc_tpu_torch.config import PincConfig
+from pinc_tpu_torch.ops import exchange as ex
 from pinc_tpu_torch.simulation import Simulation
 from pinc_tpu_torch.tiled_sim import TiledSimulation
 
@@ -157,6 +163,55 @@ FLAT = DECK.replace("layout = tiled", "layout = flat").replace(
     "8 pc", "4 pc")
 
 
+EXCHANGE = DECK.replace("rebucket = sort\n", "slack = 2.0\n") + "mxuDtype = f32\n"
+
+
+def _spy(monkeypatch, module, name):
+    """Count the calls of module.name."""
+    calls = []
+    fn = getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return fn(*args, **kw)
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def test_tiled_exchange_run_matches_pinc_tpu(monkeypatch):
+    """The default re-bucket, the gather exchange, on both sides: energies,
+    the final state, alive and the drop count."""
+    jsim = JTiledSimulation(JConfig.from_string(EXCHANGE), seed=3)
+    assert jsim._rebucket_mode == "exchange" and jsim._exchange_rows
+    assert jsim.ts.B == 1024 and jsim._use_fused
+    jcalls = _spy(monkeypatch, pex, "rebucket_exchange_planes")
+    # jsim._rebucket inlines both species' exchanges into one compile; the
+    # same calls, with one species' exchange compiled once and reused
+    one = jax.jit(jsim._rebucket_one)
+
+    def rebucket(st, species):
+        lpos, vel, alive = st.lpos, st.vel, st.alive
+        dropped = 0
+        for s in species:
+            lp, lv, la, d_n = one(lpos[s], vel[s], alive[s])
+            lpos, vel = lpos.at[s].set(lp), vel.at[s].set(lv)
+            alive = alive.at[s].set(la)
+            dropped = dropped + d_n
+        return JTiledState(lpos=lpos, vel=vel, alive=alive), dropped
+    jsim._rebucket_jit = rebucket
+    ref = dict(hist=jsim.run(progress_every=0),
+               final=tuple(np.asarray(getattr(jsim.state, k))
+                           for k in ("lpos", "vel", "alive")))
+    assert jcalls
+    calls = _spy(monkeypatch, ex, "rebucket_exchange_planes")
+    sim = TiledSimulation(PincConfig.from_string(EXCHANGE), seed=3,
+                          device="cpu")
+    assert sim._rebucket_mode == "exchange" and sim._exchange_rows
+    hist = sim.run(progress_every=0)
+    assert len(calls) == 2 * 3          # 2 species x steps 2, 4, 6
+    _compare(ref, hist, sim, "f32")
+
+
 def test_flat_run_matches_pinc_tpu():
     """The flat layout, started from pinc_tpu's particles through
     compat.particles_from_numpy (identical to the port's own host ICs)."""
@@ -182,7 +237,7 @@ def test_smode_and_msgfiles_match_pinc_tpu(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     args = [str(deck), "methods:mode=sMode"]
     out = {}
-    assert main(args, out=out) == 0
+    assert main(args, out=out, device="cpu") == 0
     mine = (tmp_path / "dump.txt").read_text()
     assert jmain(args) == 0                 # rewrites dump.txt
     assert (tmp_path / "dump.txt").read_text() == mine
@@ -197,9 +252,24 @@ def test_cli_runs_the_tiled_slice(tmp_path):
     deck = tmp_path / "deck.ini"
     deck.write_text(_deck("f32"))
     out = {}
-    assert main([str(deck), "time:nTimeSteps=2"], out=out) == 0
+    assert main([str(deck), "time:nTimeSteps=2"], out=out,
+                device="cpu") == 0
     assert isinstance(out["sim"], TiledSimulation)
+    assert out["sim"].state.lpos.device.type == "cpu"
     assert out["kinetic"].shape == (3, 2)
+    assert main([str(deck), "getnp"]) == 0
+
+
+def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """Without a card, a run that does not pass device="cpu" raises before
+    it starts; getnp needs no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    deck = tmp_path / "deck.ini"
+    deck.write_text(_deck("f32"))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        main([str(deck), "time:nTimeSteps=2"], out={})
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TiledSimulation(PincConfig.from_string(_deck("f32")), seed=3)
     assert main([str(deck), "getnp"]) == 0
 
 
@@ -218,7 +288,7 @@ def test_unported_features_raise(tmp_path, override, match):
     deck = tmp_path / "deck.ini"
     deck.write_text(_deck("f32"))
     with pytest.raises(NotImplementedError, match=match):
-        main([str(deck), override])
+        main([str(deck), override], device="cpu")
 
 
 def test_no_jax_import():
@@ -227,6 +297,7 @@ def test_no_jax_import():
         import pinc_tpu_torch, pinc_tpu_torch.__main__, pinc_tpu_torch.compat
         import pinc_tpu_torch.tiled_sim, pinc_tpu_torch.parallel.pic
         import pinc_tpu_torch.ops.tiled_kernels, pinc_tpu_torch.ops._cuda_build
+        import pinc_tpu_torch.ops.gather_exchange, pinc_tpu_torch.ops.exchange
         import pinc_tpu_torch.utils.timer
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pinc_tpu")]
