@@ -9,11 +9,15 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    times both by CUDA events: deposit, deposit_move, gather, gather_kick at
    the test fixture's size and at the bench deck's production shape (128^3
    grid: 4096 tiles of 8^3 cells, margin 1, 17,408 slots), with f32 and
-   bf16 weights; the exchange kernels extract, cleanup and merge at the
-   fixture size (with forced overflow, spill and drops) and at the
-   production shape, on the calls one whole exchange makes on a bucketed
-   state moved by one K2 drift of bench-like velocities (bit for bit).  It
-   also times one whole exchange re-bucket per species.
+   bf16 weights; pic_step at the fixture (f32/bf16, CIC/NGP, leapfrog,
+   Boris, e_ext, and tests/test_margin_schedule.py's margin sets at M = 2)
+   and at the production shape at M = 1 and M = 2; efield_tiles and
+   fold_global at M = 1, 2 and a T <= 2M+1 layout, and at 128^3 (bit for
+   bit); the exchange kernels extract, cleanup and merge at the fixture
+   size (with forced overflow, spill and drops) and at the production
+   shape, on the calls one whole exchange makes on a bucketed state moved
+   by one K2 drift of bench-like velocities (bit for bit).  It also times
+   one whole exchange re-bucket per species.
 3. Runs the CLI entry point, pinc_tpu_torch.__main__.main, on bench.py's
    deck (128^3, 2 x 67,108,864 particles, sSolve, puAcc3D1KE, puDistr3D1,
    tiles 8 / bf16 / slack 1.0625) with methods:layout=tiled: 20 steps with
@@ -23,17 +27,27 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    just after), that the state stayed on the card, that no particle was
    lost or dropped, and that the energies are finite and conserved.
 4. Times each part of one step of the exchange run (the two kernel pairs,
-   fold, FFT solve, gradient, E padding, state stacking, and each
+   the K7 fold, FFT solve, gradient, E padding, state stacking, and each
    species' exchange and sort re-bucket of a state moved by one cadence)
    with CUDA events, and the device time of one electron exchange by
    operation with torch.profiler.
+5. Runs the window bench.py times, TiledSimulation.make_scan_steps(n,
+   donate=True, fresh=True) (the mega-fused scan: K5 pic_step, K7, FFT,
+   K6 a step), on two decks: bench.py's headline deck (vth 0.1/0.0023:
+   margin 2, the per-step margin schedule, the window sized to the slow
+   cadence) and its margin-1 aux deck (phase 3's deck with
+   tiles:rebucketEvery = 10, a 40-step window).  Per deck one untimed
+   window, then a timed one, each checked as phase 3's runs (launches,
+   state on the card, drops, alive count, energy); then a CUDA-event split
+   of one mega step and each species' exchange.
 
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
-JSON object with each kernel's numbers (launches on the exchange run of
-phase 3, max error against the plain version, kernel and plain ms, and
-bound_ms: the bytes the call must move at 3.35 TB/s, from this run's
-inputs); the last line is
+JSON object with each kernel's numbers (launches on the path that runs
+it: phase 3's exchange run, or for pic_step, efield_tiles and fold_global
+the headline scan window of phase 5; max error against the plain version;
+kernel and plain ms; and bound_ms: the bytes the call must move at 3.35
+TB/s, from this run's inputs); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -58,6 +72,9 @@ ENERGY_DRIFT = 0.01    # |E_tot(end) - E_tot(0)| / |E_tot(0)| on the main path
 MAIN_STEPS = 20        # two electron re-bucket events (cadence 10) on this deck
 SORT_STEPS = 10        # one electron event with tiles:rebucket=sort
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+SCAN_STEPS = 40        # bench.py:281, then sized to the slow cadence (:97-101)
+HEADLINE_VTH = "0.1,0.0023"   # bench.py:294-295, the Debye-resolved deck
+AUX_REBUCKET = 10      # bench.py:307-308, the margin-1 aux deck
 
 BENCH_DECK = """
 [time]
@@ -209,6 +226,132 @@ def compare(tk, ts, d, mdt, order: int, q: float, qm: float, kicks,
         errs["gather_kick"] = max(errs["gather_kick"], e)
     torch.cuda.synchronize()
     print(f"  {label}: ok", flush=True)
+
+
+STEP_KICKS = {
+    "leapfrog": dict(),
+    "boris": dict(boris_T=((0.01, -0.02, 0.03), (0.001, 0.002, 0.003)),
+                  boris_S=((0.0199, -0.0398, 0.0597), (0.002, 0.004, 0.006))),
+    "e_ext": dict(e_ext=(0.05, 0.0, -0.02)),
+}
+# tests/test_margin_schedule.py:38's margin sets (M = 2)
+MARGIN_SETS = (((1, 1), (1, 1)), ((1, 2), (2, 2)), ((0, 1), (1, 1)))
+
+
+def step_inputs(ts, gen, dev, vth: float, live: float, wander=None):
+    """Two species in the layout of the scan: live slots anywhere in the
+    wander envelope [-M, T+M) (or [-w, T+w) for a given wander w), dead
+    ones parked at -2M-2; velocities N(0, vth); random E tiles."""
+    import torch
+    NT, B, P = ts.NT, ts.B, ts.P
+    w = ts.M if wander is None else wander
+    alive = (torch.rand((2, NT, B), generator=gen, device=dev) < live).float()
+    lpos = torch.rand((2, 3, NT, B), generator=gen, device=dev) * (
+        ts.T + 2 * w - 1e-3) - w
+    lpos = torch.where(alive.bool()[:, None], lpos,
+                       torch.full((), -2.0 * ts.M - 2.0, device=dev))
+    vel = vth * torch.randn((2, 3, NT, B), generator=gen, device=dev)
+    E = torch.randn((NT, 3 * P, P * P), generator=gen, device=dev)
+    return dict(lpos=lpos.contiguous(), vel=vel, alive=alive, E=E)
+
+
+def compare_step(tk, ts, d, mdt, orders, kicks, margin_sets, charge, qm,
+                 errs: dict, label: str) -> None:
+    """K5 against its plain version on the same CUDA tensors: positions,
+    velocities and n_out exact, tiles and vdot within the deposit and
+    kick tolerances."""
+    import torch
+    E = d["E"].to(mdt)
+    for oa, od in orders:
+        for name, kw in kicks.items():
+            for margins in margin_sets:
+                args = (E, d["lpos"], d["vel"], d["alive"], charge, qm, ts)
+                opts = dict(mxu_dtype=mdt, order_acc=oa, order_distr=od,
+                            margins=margins, **kw)
+                t, x, v, vd, n = tk.pic_step(*args, **opts)
+                tr, xr, vr, vdr, nr = tk.pic_step_plain(*args, **opts)
+                e = (t - tr).abs().max().item()
+                what = f"pic_step {label} order {oa}{od} {name} {margins}"
+                check(e <= DEPOSIT_RTOL * tr.abs().max().item(),
+                      f"{what}: tiles max err {e}")
+                check(torch.equal(x, xr) and torch.equal(v, vr),
+                      f"{what}: new positions or velocities differ")
+                check(torch.equal(n, nr), f"{what}: n_out {n} != {nr}")
+                rel = ((vd - vdr).abs() / vdr.abs()).max().item()
+                check(rel <= VDOT_RTOL, f"{what}: vdot rel err {rel}")
+                errs["pic_step"] = max(errs["pic_step"], e)
+                del t, x, v, tr, xr, vr
+    torch.cuda.synchronize()
+    print(f"  pic_step {label}: ok", flush=True)
+
+
+def compare_field(fk, ts, gen, dev, errs: dict, label: str):
+    """K6 (f32 and bf16 out) and K7 against their plain versions, bit for
+    bit.  Returns the phi and tiles used."""
+    import torch
+    phi = torch.randn(ts.grid, generator=gen, device=dev)
+    tiles = torch.randn((ts.NT, ts.P, ts.P * ts.P), generator=gen, device=dev)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = fk.efield_tiles(phi, ts, out_dtype=out_dtype)
+        want = fk.efield_tiles_plain(phi, ts, out_dtype=out_dtype)
+        check(same(got, want), f"efield_tiles {label} {out_dtype}: differs "
+              f"from its plain version")
+    check(same(fk.fold_global(tiles, ts), fk.fold_global_plain(tiles, ts)),
+          f"fold_global {label}: differs from its plain version")
+    errs["efield_tiles"] = errs["fold_global"] = 0.0
+    torch.cuda.synchronize()
+    print(f"  efield_tiles, fold_global {label}: ok (bit-equal)", flush=True)
+    return phi, tiles
+
+
+def step_bytes(ts, S: int, e_bytes: int) -> float:
+    """Bytes K5 must move: per slot and species x, v, alive read (28 B)
+    and x, v written (24 B); the E tiles read, the density blocks and the
+    (S, NT) partials written."""
+    return (S * ts.NT * ts.B * 52.0 + ts.NT * 3 * ts.P ** 3 * e_bytes
+            + ts.NT * ts.P ** 3 * 4.0 + 2 * S * ts.NT * 4.0)
+
+
+def time_step_and_field(tk, fk, ts, gen, dev, card: str, charge, qm,
+                        errs: dict):
+    """Phase 2 at a production shape: K5 (bf16, two species), K6 and K7
+    against their plain versions, then timed.  Returns {name: (ms,
+    plain_ms, bound_ms)}."""
+    import torch
+    mdt = torch.bfloat16
+    d = step_inputs(ts, gen, dev, 0.05, 16384 / 17408)
+    compare_step(tk, ts, d, mdt, [(1, 1)], {"leapfrog": dict()},
+                 [None] + ([((1, 2), (2, 2))] if ts.M == 2 else []),
+                 charge, qm, errs, f"production {ts.NT}x{ts.B} M={ts.M}")
+    phi, tiles = compare_field(fk, ts, gen, dev, errs,
+                               f"production {ts.grid} M={ts.M}")
+    E = d["E"].to(mdt)
+    args = (E, d["lpos"], d["vel"], d["alive"], charge, qm, ts)
+    grid_bytes = float(math.prod(ts.grid)) * 4
+    blk = ts.NT * ts.P ** 3
+    out = {
+        "pic_step": (lambda: tk.pic_step(*args, mxu_dtype=mdt),
+                     lambda: tk.pic_step_plain(*args, mxu_dtype=mdt),
+                     step_bytes(ts, 2, 2)),
+        "efield_tiles": (lambda: fk.efield_tiles(phi, ts, out_dtype=mdt),
+                         lambda: fk.efield_tiles_plain(phi, ts,
+                                                       out_dtype=mdt),
+                         grid_bytes + 3 * blk * 2.0),
+        "fold_global": (lambda: fk.fold_global(tiles, ts),
+                        lambda: fk.fold_global_plain(tiles, ts),
+                        blk * 4.0 + grid_bytes),
+    }
+    res = {}
+    for name, (kern, plain, nbytes) in out.items():
+        ms = cuda_ms(kern, reps=20, warmup=3)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        res[name] = (ms, plain_ms, bound_ms(nbytes))
+        print(f"  time {name} at {ts.NT}x{ts.B}, M={ts.M} (P={ts.P}) bf16: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{res[name][2]:.4f} ms ({card})", flush=True)
+    del d, E, args, out, phi, tiles
+    torch.cuda.empty_cache()
+    return res
 
 
 def same(a, b) -> bool:
@@ -496,6 +639,10 @@ def check_main_path(label, rc, out, launches, wall, steps, prod, card,
           and launches["gather_kick"] == S * steps,
           f"{label}: deposit_move/gather_kick ran {launches}, expected {S} "
           f"per step")
+    check(launches["fold_global"] == steps + 1 and launches["pic_step"] == 0
+          and launches["efield_tiles"] == 0,
+          f"{label}: expected fold_global once a step and the half kick, "
+          f"no pic_step/efield_tiles: {launches}")
     events = sum(steps // R for R in sim.rebucket_every_s)
     check(events >= 1 and out["n_lost"] == 0,
           f"{label}: {events} re-bucket events, {out['n_lost']} margin hits")
@@ -533,7 +680,7 @@ def check_main_path(label, rc, out, launches, wall, steps, prod, card,
           f"{S * per_species / step_s:.4e} particle-steps/s, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
           f"({card})", flush=True)
-    return sim
+    return sim, step_s * 1e3, S * per_species / step_s
 
 
 def step_breakdown(sim, card: str) -> None:
@@ -542,7 +689,7 @@ def step_breakdown(sim, card: str) -> None:
     with its arguments), and each species' sort re-bucket."""
     import torch
     from pinc_tpu_torch.grid import gradient
-    from pinc_tpu_torch.ops import tiled as tl
+    from pinc_tpu_torch.ops import field_kernels as fk
     from pinc_tpu_torch.ops import tiled_kernels as tk
     st, ts = sim.state, sim.ts
     S = st.lpos.shape[0]
@@ -560,8 +707,8 @@ def step_breakdown(sim, card: str) -> None:
                                boris=sim._boris(s)) for s in range(S)]
 
     moved = moves()
-    tiles = sum(m[0] for m in moved).reshape((ts.NT,) + (ts.P,) * 3)
-    rho = tl.fold_to_global(tiles, ts).to(sim.spec.dtype)
+    tiles = sum(m[0] for m in moved)
+    rho = fk.fold_global(tiles, ts).to(sim.spec.dtype)
     phi = sim.solver(rho)
     E = -gradient(phi)
     ep5 = sim._field_tiles(E)
@@ -571,7 +718,7 @@ def step_breakdown(sim, card: str) -> None:
         "whole step (no re-bucket)": (lambda: sim._tiled_step_fused(st), 5,
                                       None),
         f"K2 deposit_move x {S}": (moves, 10, None),
-        "fold": (lambda: tl.fold_to_global(tiles, ts), 10, None),
+        "K7 fold_global": (lambda: fk.fold_global(tiles, ts), 10, None),
         "FFT solve": (lambda: sim.solver(rho), 10, None),
         "gradient": (lambda: gradient(phi), 10, None),
         "pad E tiles": (lambda: sim._field_tiles(E), 10, None),
@@ -631,6 +778,156 @@ def exchange_profile(sim, card: str) -> None:
     del drifted, args
 
 
+def scan_deck(vth: str, rebucket=None) -> str:
+    """bench.py's deck with the given thermal velocities (and a pinned
+    uniform re-bucket cadence, as bench.py's aux deck)."""
+    deck = BENCH_DECK.replace("thermalVelocity = 0.02,0.0005",
+                              f"thermalVelocity = {vth}")
+    if rebucket:
+        deck += f"rebucketEvery = {rebucket}\n"
+    return deck
+
+
+def run_scan(label: str, deck: str, modules, card: str, expect: dict):
+    """Phase 5: the window bench.py:bench_pic times, through
+    TiledSimulation.make_scan_steps(steps, donate=True, fresh=True) on the
+    card: one untimed warm window, then a timed one, with the launch counts
+    set to 0 just before each and read just after.  Returns (sim, state,
+    result)."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.tiled_sim import TiledSimulation
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    sim = TiledSimulation(PincConfig.from_string(deck), seed=1)
+    carry = sim.state
+    sim.state = None
+    S = carry.alive.shape[0]
+    n_particles = int((carry.alive > 0.5).sum())
+    Rs = sim.rebucket_every_s
+    Ri, Re = max(Rs), min(Rs)
+    steps = SCAN_STEPS
+    if Ri % Re == 0 and Ri <= 400:
+        steps = Ri * max(1, round(steps / Ri))
+    run_n = sim.make_scan_steps(steps, donate=True, fresh=True)
+    sched = any(m is not None for kind, m in run_n.plan if kind == "step")
+    events = [a for kind, a in run_n.plan if kind == "rebucket"]
+    n_events = sum(len(a) for a in events)
+    print(f"phase 5 {label}: M={sim.ts.M}, cadences {Rs}, window {steps} "
+          f"steps, margin schedule {'on' if sched else 'off'}, "
+          f"{n_events} species re-bucket events a window, {sim.ts.ntiles} "
+          f"tiles of {sim.ts.T}^3, B={sim.ts.B}, face cap "
+          f"{sim._exchange_cap}, rows {sim._exchange_rows}, "
+          f"{n_particles} particles, set-up {time.monotonic() - t0:.1f} s",
+          flush=True)
+    got = dict(M=sim.ts.M, cadences=list(Rs), steps=steps, sched=sched,
+               B=sim.ts.B)
+    check(all(got[k] == v for k, v in expect.items()),
+          f"{label}: derived {got}, expected {expect}")
+    for window in ("warm", "timed"):
+        for m in modules:
+            m.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        carry, (ke, pe, dropped) = run_n(carry)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+        print(f"  {window} window: {wall:.3f} s, launches {launches}",
+              flush=True)
+        want = {"deposit": S, "pic_step": steps, "fold_global": steps + 1,
+                "efield_tiles": steps + 1, "extract": n_events,
+                "cleanup": 3 * n_events, "merge": n_events}
+        check({k: v for k, v in launches.items() if v} == want,
+              f"{label} {window}: launches {launches}, expected {want}")
+        on_card = all(t.is_cuda for t in (carry.lpos, carry.vel, carry.alive,
+                                          ke, pe, dropped))
+        check(on_card, f"{label}: a tensor of the window left the card")
+        n_alive = int((carry.alive > 0.5).sum())
+        check(int(dropped) == 0, f"{label} {window}: {int(dropped)} dropped")
+        check(n_alive == n_particles, f"{label} {window}: alive "
+              f"{n_particles} -> {n_alive}")
+        ke_np, pe_np = ke.cpu().numpy(), pe.cpu().numpy()
+        etot = ke_np.sum(axis=1) + pe_np
+        finite = bool(torch.isfinite(ke).all() and torch.isfinite(pe).all())
+        check(finite and ke_np.shape == (steps, S),
+              f"{label} {window}: non-finite energies")
+        drift = abs(etot[-1] - etot[0]) / abs(etot[0])
+        check(drift <= ENERGY_DRIFT, f"{label} {window}: total energy "
+              f"drifted {drift:.3e}")
+    res = dict(wall=wall, steps=steps, ms_step=wall / steps * 1e3,
+               psteps=n_particles * steps / wall, launches=launches,
+               drift=drift, n_particles=n_particles, events=n_events,
+               peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"  timed window: {res['ms_step']:.4f} ms/step, "
+          f"{res['psteps']:.4e} particle-steps/s; state on cuda; 0 "
+          f"dropped; alive {n_alive} of {n_particles}; total energy "
+          f"{etot[0]:.9g} -> {etot[-1]:.9g}: relative change {drift:.3e} "
+          f"(limit {ENERGY_DRIFT}); peak device memory {res['peak']:.2f} GiB "
+          f"({card})", flush=True)
+    return sim, carry, res
+
+
+def mega_breakdown(sim, st, card: str) -> None:
+    """Device time of each part of one mega step (CUDA events) on the
+    window's final state, and each species' exchange re-bucket on it
+    drifted by one cadence."""
+    import torch
+    from pinc_tpu_torch.grid import potential_energy
+    from pinc_tpu_torch.ops import field_kernels as fk
+    from pinc_tpu_torch.ops import tiled_kernels as tk
+    ts, mdt = sim.ts, sim._mxu_dtype
+    S = st.lpos.shape[0]
+    print(f"  mega step breakdown, CUDA events ({card}):", flush=True)
+    # the exchanges first: the window's final state is freshly re-bucketed,
+    # and the timed steps below move it in place
+    for s in range(S):
+        R = sim.rebucket_every_s[s]
+        drifted = st.lpos[s] + float(R) * st.vel[s]
+        ms = cuda_ms_fresh(lambda: (drifted.clone(), st.vel[s].clone(),
+                                    st.alive[s].clone()),
+                           sim._rebucket_one, reps=3)
+        print(f"    exchange re-bucket, species {s}: {ms:.4f} ms, every {R} "
+              f"steps: {ms / R:.4f} ms/step", flush=True)
+        del drifted
+    mass = torch.tensor(sim._mass, dtype=torch.float32,
+                        device=st.lpos.device)
+    rho0 = sim._deposit_rho(st)
+    E = fk.efield_tiles(sim.solver(rho0), ts, out_dtype=mdt)
+
+    def k5():
+        return tk.pic_step(E, st.lpos, st.vel, st.alive, sim._charge,
+                           sim._qm, ts, mxu_dtype=mdt,
+                           order_acc=sim._acc_order,
+                           order_distr=sim._distr_order, e_ext=sim._e_ext,
+                           boris_T=sim._boris_T, boris_S=sim._boris_S,
+                           inplace=True)
+    tiles, _, _, vdot, _ = k5()
+    rho = fk.fold_global(tiles, ts)
+    phi = sim.solver(rho)
+
+    def whole():
+        t, _, _, vd, _ = k5()
+        r = fk.fold_global(t, ts)
+        p = sim.solver(r)
+        return (fk.efield_tiles(p, ts, out_dtype=mdt), potential_energy(r, p),
+                0.5 * mass * vd)
+    parts = {
+        "whole mega step (no re-bucket)": whole,
+        f"K5 pic_step ({S} species, in place)": k5,
+        "K7 fold_global": lambda: fk.fold_global(tiles, ts),
+        "FFT solve": lambda: sim.solver(rho),
+        "K6 efield_tiles": lambda: fk.efield_tiles(phi, ts, out_dtype=mdt),
+        "energy sums (0.5 m vdot, 0.5 sum rho phi)": lambda: (
+            0.5 * mass * vdot, potential_energy(rho, phi)),
+    }
+    for name, fn in parts.items():
+        print(f"    {name}: {cuda_ms(fn, reps=10, warmup=2):.4f} ms",
+              flush=True)
+    del tiles, rho, phi, E, rho0
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -640,6 +937,7 @@ def main() -> int:
     from pinc_tpu_torch.__main__ import main as cli_main
     from pinc_tpu_torch.ops import _cuda_build
     from pinc_tpu_torch.ops import exchange as ex
+    from pinc_tpu_torch.ops import field_kernels as fk
     from pinc_tpu_torch.ops import gather_exchange as gx
     from pinc_tpu_torch.ops import tiled_kernels as tk
     from pinc_tpu_torch.ops.tiled import TileSpec, bucket
@@ -689,6 +987,34 @@ def main() -> int:
         for order in (1, 0):
             compare(tk, fx, small, mdt, order, 1.3, -0.37, kicks, errs,
                     f"fixture {str(mdt)[6:]} order {order}")
+    # K5 at the fixture: two species (tests/test_torch_pic_step.py's), f32
+    # and bf16, CIC and NGP, leapfrog, Boris and e_ext, full margins and a
+    # scheduled pair; then at M = 2 with tests/test_margin_schedule.py's
+    # margin sets on a state inside each set's envelope
+    two = dict(E=torch.randn((fx.NT, 3 * fx.P, fx.P ** 2), generator=gen,
+                             device=dev),
+               lpos=torch.stack([small["xyz"], small["xyz"] + 0.01]),
+               vel=torch.stack([small["vel"], -small["vel"]]),
+               alive=torch.stack([small["alive"], small["alive"]]))
+    for mdt in (torch.float32, torch.bfloat16):
+        compare_step(tk, fx, two, mdt, [(1, 1), (0, 0)], STEP_KICKS,
+                     [None, ((1, 1), (0, 1))], (-1.0, 1.5), (-0.5, 0.25),
+                     errs, f"fixture {str(mdt)[6:]}")
+    fx2 = TileSpec(grid=(16, 16, 16), T=4, M=2, B=128)
+    for margins in MARGIN_SETS:
+        d2 = step_inputs(fx2, gen, dev, 0.05, 0.7,
+                         wander=0.4 if min(m for m, _ in margins) else 0.0)
+        for mdt in (torch.float32, torch.bfloat16):
+            compare_step(tk, fx2, d2, mdt, [(1, 1)], {"leapfrog": dict()},
+                         [margins], (-1.0, 1.0), (-1.0, 1.0 / 1836.0), errs,
+                         f"fixture M=2 {str(mdt)[6:]}")
+    # K6 and K7 at tests/test_pallas_field.py's grid, M = 1 and 2, and a
+    # T <= 2M+1 layout (tiles that overlap from both sides)
+    for fts in (TileSpec(grid=(16, 24, 32), T=8, M=1, B=128),
+                TileSpec(grid=(16, 24, 32), T=8, M=2, B=128),
+                TileSpec(grid=(16, 8, 24), T=4, M=2, B=128)):
+        compare_field(fk, fts, gen, dev, errs,
+                      f"fixture {fts.grid} T={fts.T} M={fts.M}")
     errs = {k: 0.0 for k in tk.LAUNCHES}
     # the production shape of the bench deck: M=1 (derived from its
     # electron thermal velocity), B=17408, 16384 live slots per tile on
@@ -738,16 +1064,27 @@ def main() -> int:
               f"({card})", flush=True)
     del xyz, vel, palive, field, big, value, timed
     torch.cuda.empty_cache()
+    # K5, K6, K7 at the production shapes of phase 5's two decks: M = 1
+    # (the aux deck) and M = 2 (the headline deck); electrons and ions of
+    # the bench deck
+    prods = {M: TileSpec(grid=(128, 128, 128), T=8, M=M, B=17408)
+             for M in (1, 2)}
+    step_times = {M: time_step_and_field(tk, fk, ts, gen, dev, card,
+                                         (q_e, -q_e), (-1.0, 1.0 / 1836.0),
+                                         errs)
+                  for M, ts in prods.items()}
+    for name, (ms, plain_ms, bound) in step_times[2].items():
+        times[name], bounds[name] = (ms, plain_ms), bound
     check_exchange_fixture(gx, ex, gen, dev)
     check_exchange_bench(gx, ex, prod, gen, dev, card, times, bounds)
     errs.update({k: 0.0 for k in gx.LAUNCHES})      # checked bit-equal
 
     # -- phase 3: the main path through the CLI, default re-bucket --------
-    modules = (tk, gx)
+    modules = (tk, fk, gx)
     res = run_main_path(cli_main, modules, [], MAIN_STEPS)
     launches = res[2]
-    sim = check_main_path("exchange run (default)", *res, MAIN_STEPS, prod,
-                          card, "exchange")
+    sim, run_ms, run_psteps = check_main_path(
+        "exchange run (default)", *res, MAIN_STEPS, prod, card, "exchange")
     # -- phase 4: where the time of a step goes ---------------------------
     step_breakdown(sim, card)
     del sim, res
@@ -757,6 +1094,28 @@ def main() -> int:
                         SORT_STEPS)
     check_main_path("sort run", *res, SORT_STEPS, prod, card, "sort")
     del res
+    torch.cuda.empty_cache()
+
+    # -- phase 5: the scan window bench.py times, on the card -------------
+    scans = {}
+    for key, label, deck, M in (
+            ("headline", f"headline deck (vth {HEADLINE_VTH})",
+             scan_deck(HEADLINE_VTH), 2),
+            ("aux", f"aux deck (phase 3's, rebucketEvery {AUX_REBUCKET})",
+             scan_deck("0.02,0.0005", AUX_REBUCKET), 1)):
+        sim, st, scans[key] = run_scan(label, deck, modules, card,
+                                       dict(M=M, B=prods[M].B, sched=M >= 2))
+        mega_breakdown(sim, st, card)
+        del sim, st
+        torch.cuda.empty_cache()
+    aux = scans["aux"]
+    print(f"  aux deck on this card: scan window {aux['ms_step']:.4f} "
+          f"ms/step, {aux['psteps']:.4e} particle-steps/s; phase 3's run() "
+          f"{run_ms:.4f} ms/step, {run_psteps:.4e} particle-steps/s "
+          f"({card})", flush=True)
+    # K5-K7 run on the scan path: their launches are the headline window's
+    for name in ("pic_step", "efield_tiles", "fold_global"):
+        launches[name] = scans["headline"]["launches"][name]
 
     rows = [{"name": name, "route": "cuda", "source": m.SOURCE,
              "replaces": m.REPLACES[name], "launches": launches[name],
@@ -764,8 +1123,8 @@ def main() -> int:
              "plain_ms": times[name][1], "bound_ms": bounds[name],
              "bound_by": "bytes", "library_ms": None}
             for m in modules for name in m.LAUNCHES]
-    check(len(rows) == 7 and all(r["launches"] > 0 for r in rows),
-          f"expected 7 kernels, each launched on the main path: {rows}")
+    check(len(rows) == 10 and all(r["launches"] > 0 for r in rows),
+          f"expected 10 kernels, each launched on its path: {rows}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

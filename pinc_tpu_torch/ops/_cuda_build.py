@@ -48,6 +48,16 @@ SIGNATURES = {
     # vel_out, vdot, NT, B, P, M, order, bf16, stream
     "pinc_tiled_gather_kick": [_P, _P, _P, _P, _F, _P, _I, _P, _P,
                                _I, _I, _I, _I, _I, _I, _P],
+    # E, e_bf16, lpos, vel, alive, params (host: per species q, qm, T[3],
+    # S[3], mg, md; then e_ext[3]), S, boris, tiles, lpos_out, vel_out,
+    # vdot, nout, NT, B, P, M, order_acc, order_distr, bf16, stream
+    "pinc_tiled_pic_step": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                            _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # -- csrc/field.cu
+    # phi, out, X, Y, Z, T, M, out_bf16, stream
+    "pinc_field_efield": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # tiles, rho, X, Y, Z, T, M, stream
+    "pinc_field_fold": [_P, _P, _I, _I, _I, _I, _I, _P],
     # -- csrc/gather_exchange.cu
     # alive, x, y, z, vx, vy, vz, buf, alive_out, NT, B, kind, Ks, T, stream
     "pinc_gx_extract": [_P] * 9 + [_I, _I, _I, _I, _F, _P],

@@ -11,6 +11,9 @@ same signature and layout beside it:
 ``gather``        K3, replaces ``pallas_tiled.gather`` (``_gather_kernel``)
 ``gather_kick``   K4, replaces ``pallas_tiled.gather_kick``
                   (``_gather_kick_kernel`` + ``_kick_rows``)
+``pic_step``      K5, replaces ``pallas_tiled.pic_step``
+                  (``_pic_step_kernel``): gather, kick, drift and deposit
+                  of every species in one pass
 ================  ==========================================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -20,7 +23,8 @@ current stream, raises on a nonzero launch error, and adds one to
 version.
 
 Weights are those of ``pallas_tiled._w1d`` (CIC hat or NGP indicator over
-the padded node offsets -M..T+M); with ``mxu_dtype=torch.bfloat16`` they
+the padded node offsets -M..T+M, or -m..T+m at a working margin m <= M);
+with ``mxu_dtype=torch.bfloat16`` they
 are rounded to bf16 at the TPU kernels' points (``wx*value`` and ``wy*wz``
 in the deposit, the field and ``wy*wz`` in the gather), sums in float32.
 """
@@ -36,7 +40,8 @@ from . import _cuda_build
 from .tiled import TileSpec
 
 #: kernel launches per wrapper since the last reset_launches()
-LAUNCHES = {"deposit": 0, "deposit_move": 0, "gather": 0, "gather_kick": 0}
+LAUNCHES = {"deposit": 0, "deposit_move": 0, "gather": 0, "gather_kick": 0,
+            "pic_step": 0}
 
 #: the TPU kernel each CUDA kernel replaces (file:line of the function
 #: that reaches pl.pallas_call)
@@ -45,6 +50,7 @@ REPLACES = {
     "deposit_move": "pinc_tpu/ops/pallas_tiled.py:264",
     "gather": "pinc_tpu/ops/pallas_tiled.py:331",
     "gather_kick": "pinc_tpu/ops/pallas_tiled.py:735",
+    "pic_step": "pinc_tpu/ops/pallas_tiled.py:530",
 }
 
 SOURCE = "pinc_tpu_torch/csrc/tiled.cu"
@@ -74,10 +80,13 @@ def _round(w: torch.Tensor, bf16: bool) -> torch.Tensor:
     return w.bfloat16().float() if bf16 else w
 
 
-def _nodes(x: torch.Tensor, M: int, T: int, order: int):
+def _nodes(x: torch.Tensor, M: int, T: int, order: int,
+           margin: Optional[int] = None):
     """The candidate nodes floor(x), floor(x)+1 of one coordinate plane:
-    [(index into the padded block, weight)] with pallas_tiled._w1d's
-    weights, zero for a node outside [-M, T+M]."""
+    [(index into the padded block of layout margin M, weight)] with
+    pallas_tiled._w1d's weights, zero for a node outside [-m, T+m], m the
+    working margin (default M)."""
+    m = M if margin is None else margin
     f = torch.floor(x)
     out = []
     for k in (0, 1):
@@ -87,7 +96,7 @@ def _nodes(x: torch.Tensor, M: int, T: int, order: int):
             w = ((d >= -0.5) & (d < 0.5)).to(x.dtype)
         else:
             w = torch.clamp(1.0 - d.abs(), min=0.0)
-        inside = (n >= -M) & (n <= T + M)
+        inside = (n >= -m) & (n <= T + m)
         w = torch.where(inside, w, torch.zeros_like(w))
         idx = torch.where(inside, n + M, torch.zeros_like(n)).long()
         out.append((idx, w))
@@ -109,9 +118,10 @@ def _check_order(order: int) -> None:
 # ---------------------------------------------------------------------------
 
 def deposit_plain(xyz: torch.Tensor, value: torch.Tensor, ts: TileSpec,
-                  mxu_dtype=torch.float32, order: int = 1) -> torch.Tensor:
+                  mxu_dtype=torch.float32, order: int = 1,
+                  margin: Optional[int] = None) -> torch.Tensor:
     """xyz (3, NT, B) tile-local planes, value (NT, B) -> padded tile
-    densities (NT, P, P*P)."""
+    densities (NT, P, P*P), on the nodes within ``margin`` (default M)."""
     _check_order(order)
     bf16 = _is_bf16(mxu_dtype)
     _, NT, B = xyz.shape
@@ -121,7 +131,7 @@ def deposit_plain(xyz: torch.Tensor, value: torch.Tensor, ts: TileSpec,
         x, y, z = (xyz[d, t0:t1] for d in range(3))
         val = value[t0:t1]
         base = (torch.arange(t0, t1, device=xyz.device) * P ** 3)[:, None]
-        nx, ny, nz = (_nodes(c, M, T, order) for c in (x, y, z))
+        nx, ny, nz = (_nodes(c, M, T, order, margin) for c in (x, y, z))
         for ia, wa in nx:
             wa = _round(wa * val, bf16)
             for ib, wb in ny:
@@ -148,9 +158,11 @@ def deposit_move_plain(xyz: torch.Tensor, vel: torch.Tensor,
 
 
 def gather_plain(field_pad: torch.Tensor, xyz: torch.Tensor, ts: TileSpec,
-                 mxu_dtype=torch.float32, order: int = 1) -> torch.Tensor:
+                 mxu_dtype=torch.float32, order: int = 1,
+                 margin: Optional[int] = None) -> torch.Tensor:
     """field_pad (NT, P, P, P, C), xyz (3, NT, B) -> (C, NT, B) field at
-    the slots: sum_a wx_a * sum_bc E[a, b, c] * wy_b wz_c."""
+    the slots: sum_a wx_a * sum_bc E[a, b, c] * wy_b wz_c, over the nodes
+    within ``margin`` (default M)."""
     _check_order(order)
     bf16 = _is_bf16(mxu_dtype)
     _, NT, B = xyz.shape
@@ -161,7 +173,7 @@ def gather_plain(field_pad: torch.Tensor, xyz: torch.Tensor, ts: TileSpec,
     for t0, t1 in _tile_chunks(NT, B):
         x, y, z = (xyz[d, t0:t1] for d in range(3))
         base = (torch.arange(t0, t1, device=xyz.device) * P ** 3)[:, None]
-        nx, ny, nz = (_nodes(c, M, T, order) for c in (x, y, z))
+        nx, ny, nz = (_nodes(c, M, T, order, margin) for c in (x, y, z))
         e = None
         for ia, wa in nx:
             g = None
@@ -225,6 +237,68 @@ def gather_kick_plain(field_pad: torch.Tensor, xyz: torch.Tensor,
     return new_vel, torch.sum(vdot * alive)
 
 
+def _margins(margins, S: int, ts: TileSpec):
+    """Per-species (mg, md) working margins, each checked against the
+    layout margin: 0 <= mg <= M, 1 <= md <= M (default (M, M))."""
+    if margins is None:
+        return [(ts.M, ts.M)] * S
+    out = [(int(mg), int(md)) for mg, md in margins]
+    if len(out) != S or not all(0 <= mg <= ts.M and 1 <= md <= ts.M
+                                for mg, md in out):
+        raise ValueError(f"margins must be {S} pairs (mg, md) with "
+                         f"0 <= mg <= {ts.M} and 1 <= md <= {ts.M}, got "
+                         f"{margins}")
+    return out
+
+
+def _species_boris(boris_T, boris_S, s: int):
+    if boris_T is None:
+        return None
+    return (tuple(float(v) for v in boris_T[s]),
+            tuple(float(v) for v in boris_S[s]))
+
+
+def pic_step_plain(E: torch.Tensor, lpos: torch.Tensor, vel: torch.Tensor,
+                   alive: torch.Tensor, charge, qm_dt, ts: TileSpec,
+                   mxu_dtype=torch.float32, order_acc: int = 1,
+                   order_distr: int = 1, e_ext=None, boris_T=None,
+                   boris_S=None, margins=None, inplace: bool = False):
+    """Per species: gather E(x) at nodes within mg, + e_ext, the kick of
+    kick_planes, v + alive (v' - v), the drift x + v of every slot, the
+    count of live slots outside [-md, T+md), and the deposit of alive*q at
+    the new x on nodes within md.  Returns (tiles (NT, P, P*P) summed over
+    species, new lpos, new vel, vdot (S,), n_out (S,)); with inplace=True
+    the new lpos and vel are written into lpos and vel."""
+    _check_order(order_acc)
+    _check_order(order_distr)
+    S, _, NT, B = lpos.shape
+    P, T = ts.P, ts.T
+    field = E.float().reshape(NT, 3, P, P, P).permute(0, 2, 3, 4, 1)
+    ext = (0.0, 0.0, 0.0) if e_ext is None else tuple(float(v) for v in e_ext)
+    new_lpos = lpos if inplace else torch.empty_like(lpos)
+    new_vel = vel if inplace else torch.empty_like(vel)
+    tiles, vdots, nouts = None, [], []
+    for s, (mg, md) in enumerate(_margins(margins, S, ts)):
+        Ep = gather_plain(field, lpos[s], ts, mxu_dtype=mxu_dtype,
+                          order=order_acc, margin=mg)
+        vs = [vel[s, c] for c in range(3)]
+        outs, vdot = kick_planes(vs, [Ep[c] + ext[c] for c in range(3)],
+                                 float(qm_dt[s]),
+                                 _species_boris(boris_T, boris_S, s))
+        al = alive[s]
+        vn = torch.stack([v + al * (o - v) for v, o in zip(vs, outs)])
+        xn = lpos[s] + vn
+        out = ((xn < -float(md)) | (xn >= float(T + md))).any(dim=0)
+        nouts.append(torch.where(out, al, torch.zeros_like(al)).sum())
+        vdots.append(torch.sum(vdot * al))
+        t = deposit_plain(xn, al * float(charge[s]), ts, mxu_dtype=mxu_dtype,
+                          order=order_distr, margin=md)
+        tiles = t if tiles is None else tiles + t
+        new_vel[s] = vn
+        new_lpos[s] = xn
+    return tiles, new_lpos, new_vel, torch.stack(vdots), torch.stack(nouts)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -234,11 +308,13 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...],
-           device: torch.device) -> None:
+           device: torch.device, dtypes=(torch.float32,)) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be "
+                        f"{' or '.join(str(d)[6:] for d in dtypes)}, got "
+                        f"{t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -424,3 +500,74 @@ def gather_kick(field_pad: torch.Tensor, xyz: torch.Tensor,
                 int(bo is not None), _ptr(vel_out), _ptr(vdot), NT, B, ts.P,
                 ts.M, order, int(bf16), _stream(dev))
     return vel_out, vdot.sum()
+
+
+def pic_step(E: torch.Tensor, lpos: torch.Tensor, vel: torch.Tensor,
+             alive: torch.Tensor, charge, qm_dt, ts: TileSpec,
+             mxu_dtype=torch.float32, order_acc: int = 1,
+             order_distr: int = 1, e_ext: Optional[Sequence[float]] = None,
+             boris_T=None, boris_S=None, margins=None,
+             inplace: bool = False):
+    """K5: one leapfrog step of the particles of every species.  E
+    (NT, 3P, P*P) f32 or bf16, efield_tiles' layout; lpos, vel
+    (S, 3, NT, B) f32; alive (S, NT, B) f32 0/1; charge, qm_dt (S,)
+    floats; e_ext an optional 3-sequence; boris_T, boris_S optional (S, 3)
+    rotation vectors; margins optional per-species (mg, md) working
+    margins (default (M, M)).  Returns (tiles (NT, P, P*P) f32 summed over
+    species, new lpos, new vel, vdot (S,), n_out (S,)).  inplace=True
+    writes the new lpos and vel into lpos and vel (each slot is read before
+    it is written) and returns them.
+
+    Replaces pinc_tpu/ops/pallas_tiled.py ``pic_step``.  Bound on the card:
+    the slots' 28 bytes read and 24 written per species, plus the E tiles
+    and the density blocks (2.2 ms at the bench deck's 2 x 71,303,168
+    slots).  Design: one block per tile, the species loop inside it; the
+    tile's E block is loaded into shared memory once for every species and
+    its density block accumulates in shared memory across species (shared
+    atomics) and is written once; the TPU kernel's embed matmuls become
+    the node range test at (mg, md); vdot and n_out are reduced per block
+    into (S, NT) partials and summed by torch, in a fixed order."""
+    if _is_cpu(lpos, "pic_step"):
+        return pic_step_plain(E, lpos, vel, alive, charge, qm_dt, ts,
+                              mxu_dtype=mxu_dtype, order_acc=order_acc,
+                              order_distr=order_distr, e_ext=e_ext,
+                              boris_T=boris_T, boris_S=boris_S,
+                              margins=margins, inplace=inplace)
+    _check_order(order_acc)
+    _check_order(order_distr)
+    bf16 = _is_bf16(mxu_dtype)
+    if lpos.dim() != 4 or lpos.shape[1] != 3 or ts.n_dims != 3:
+        raise ValueError("pic_step is 3-D: lpos must be (S, 3, NT, B)")
+    S, _, NT, B = lpos.shape
+    if NT != ts.NT or B == 0 or not 1 <= S <= 8:
+        raise ValueError(f"lpos has {S} species x {NT} tiles x {B} slots; "
+                         f"the kernel takes 1..8 species and the "
+                         f"TileSpec's {ts.NT} tiles")
+    P = ts.P
+    dev = lpos.device
+    _check(E, "E", (NT, 3 * P, P * P), dev,
+           dtypes=(torch.float32, torch.bfloat16))
+    _check(lpos, "lpos", (S, 3, NT, B), dev)
+    _check(vel, "vel", (S, 3, NT, B), dev)
+    _check(alive, "alive", (S, NT, B), dev)
+    ext = (0.0, 0.0, 0.0) if e_ext is None else tuple(float(v) for v in e_ext)
+    params = []
+    for s, (mg, md) in enumerate(_margins(margins, S, ts)):
+        bo = _species_boris(boris_T, boris_S, s) or ((0.0,) * 3, (0.0,) * 3)
+        params += [float(charge[s]), float(qm_dt[s]), *bo[0], *bo[1],
+                   float(mg), float(md)]
+    params = (ctypes.c_float * (10 * S + 3))(*params, *ext)
+    tiles = torch.empty((NT, P, P * P), dtype=torch.float32, device=dev)
+    lpos_out = lpos if inplace else torch.empty_like(lpos)
+    vel_out = vel if inplace else torch.empty_like(vel)
+    vdot = torch.empty((S, NT), dtype=torch.float32, device=dev)
+    nout = torch.empty((S, NT), dtype=torch.float32, device=dev)
+    lib = _cuda_build.load()
+    with torch.cuda.device(dev):
+        _launch("pic_step", lib.pinc_tiled_pic_step, _ptr(E),
+                int(E.dtype == torch.bfloat16), _ptr(lpos), _ptr(vel),
+                _ptr(alive), params, S, int(boris_T is not None),
+                _ptr(tiles), _ptr(lpos_out), _ptr(vel_out), _ptr(vdot),
+                _ptr(nout), NT, B, P, ts.M, order_acc, order_distr,
+                int(bf16), _stream(dev))
+    return tiles, lpos_out, vel_out, vdot.sum(dim=1), nout.sum(dim=1)

@@ -23,8 +23,17 @@ pinc_tpu would take its one-hot exchange (K11: B % 1024 != 0, or the
 per-row gate fails) raise ``NotImplementedError`` unless they ask for the
 sort.
 
-Not ported yet: the mega-fused scan (``make_scan_steps``); decks with
-bounded walls, objects, checkpoints or output are refused.
+``make_scan_steps(n)`` is the production long-run path (the counterpart of
+pinc_tpu's ``make_scan_steps``): n steps with the per-species re-bucket schedule
+applied between them, no host sync inside the window.  By default
+(``tiles:mega``, true) each step is one K5 ``pic_step`` for every species
+(gather with the previous step's field, kick, drift, deposit), then the
+K7 fold, the FFT solve and the K6 E tiles (``ops/field_kernels.py``); on
+decks with margin >= 2 and ``fresh=True`` the steps run at the per-step
+margin schedule (``tiles:marginSchedule``, true).  ``tiles:mega = false``
+scans the kernel-pair step of ``run()``.
+
+Decks with bounded walls, objects, checkpoints or output are refused.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 from .config import PincConfig
 from .grid import gradient, potential_energy
 from .ops import exchange as ex
+from .ops import field_kernels as fk
 from .ops import gather_exchange as gx
 from .ops import tiled as tl
 from .ops import tiled_kernels as tk
@@ -307,9 +317,10 @@ class TiledSimulation(Simulation):
             del v, tid
         return st
 
-    def _rebucket_one(self, lpos_s, vel_s, alive_s) -> int:
+    def _rebucket_one(self, lpos_s, vel_s, alive_s) -> torch.Tensor:
         """Re-bucket one species in place: lpos_s, vel_s (D, NT, B) and
-        alive_s (NT, B) are views of the state.  Returns the drop count."""
+        alive_s (NT, B) are views of the state.  Returns the drop count,
+        a 0-d integer tensor on the state's device (no host sync)."""
         if self._rebucket_mode == "exchange":
             cfg = self.cfg
             _, al, d_n = ex.rebucket_exchange_planes(
@@ -320,7 +331,7 @@ class TiledSimulation(Simulation):
                 ku=(cfg.get_int("tiles:exchangetotalcap")
                     if "tiles:exchangetotalcap" in cfg else None))
             alive_s.copy_(al > 0.5)
-            return int(d_n)
+            return d_n
         D = self.ts.n_dims
         gpos = tl.global_positions(lpos_s.permute(1, 2, 0),
                                    self.ts).reshape(-1, D)
@@ -330,7 +341,7 @@ class TiledSimulation(Simulation):
         lpos_s.copy_(lp.permute(2, 0, 1))
         vel_s.copy_(lv.permute(2, 0, 1))
         alive_s.copy_(la)
-        return int(d_n)
+        return d_n
 
     def _rebucket(self, st: TiledState,
                   species=None) -> Tuple[TiledState, int]:
@@ -338,7 +349,8 @@ class TiledSimulation(Simulation):
         species = range(st.lpos.shape[0]) if species is None else species
         dropped = 0
         for s in species:
-            dropped += self._rebucket_one(st.lpos[s], st.vel[s], st.alive[s])
+            dropped += int(self._rebucket_one(st.lpos[s], st.vel[s],
+                                              st.alive[s]))
         return st, dropped
 
     def to_particles(self, st: TiledState) -> Particles:
@@ -357,7 +369,8 @@ class TiledSimulation(Simulation):
 
     # --------------------------------------------------------------- step
     def _deposit_rho(self, st: TiledState) -> torch.Tensor:
-        """Deposit every species with K1, sum the padded blocks, fold once."""
+        """Deposit every species with K1, sum the padded blocks, fold once
+        (K7)."""
         tiles = None
         for s in range(st.lpos.shape[0]):
             value = torch.where(st.alive[s] != 0,
@@ -366,10 +379,7 @@ class TiledSimulation(Simulation):
             t = tk.deposit(st.lpos[s], value, self.ts,
                            mxu_dtype=self._mxu_dtype, order=self._distr_order)
             tiles = t if tiles is None else tiles + t
-        P = self.ts.P
-        rho = tl.fold_to_global(tiles.reshape((self.ts.NT,) + (P,) * 3),
-                                self.ts)
-        return rho.to(self.spec.dtype)
+        return fk.fold_global(tiles, self.ts).to(self.spec.dtype)
 
     def _fields(self, st: TiledState):
         rho = self._deposit_rho(st)
@@ -427,9 +437,9 @@ class TiledSimulation(Simulation):
             n_lost=torch.zeros((), dtype=torch.int32))
 
     def _tiled_step_fused(self, st: TiledState):
-        """One step: per species drift + margin count + deposit (K2); fold,
-        solve, E = -grad(phi), padded E tiles; per species gather + kick +
-        KE sum (K4)."""
+        """One step: per species drift + margin count + deposit (K2); fold
+        (K7), solve, E = -grad(phi), padded E tiles; per species gather +
+        kick + KE sum (K4)."""
         S = st.lpos.shape[0]
         tiles = None
         new_lpos = []
@@ -441,9 +451,7 @@ class TiledSimulation(Simulation):
             tiles = t if tiles is None else tiles + t
             new_lpos.append(nxyz)
             n_out = n_o if n_out is None else n_out + n_o
-        P = self.ts.P
-        rho = tl.fold_to_global(tiles.reshape((self.ts.NT,) + (P,) * 3),
-                                self.ts).to(self.spec.dtype)
+        rho = fk.fold_global(tiles, self.ts).to(self.spec.dtype)
         del tiles
         phi = self.solver(rho)
         E = -gradient(phi)
@@ -513,3 +521,227 @@ class TiledSimulation(Simulation):
         return {"kinetic": np.stack(ke_hist), "potential": np.asarray(pe_hist),
                 "wall_time": wall, "step_seconds": np.asarray(step_seconds),
                 "dropped": total_dropped, "n_lost": total_lost}
+
+    # --------------------------------------------------------------- scan
+    @property
+    def _use_mega(self) -> bool:
+        """The mega-fused scan body (K5 pic_step: every species' kick,
+        drift and deposit in one kernel a step).  Scan path only: the kick
+        uses the previous step's field, so run() keeps the reference's
+        in-step kick ordering."""
+        return self.cfg.get_bool("tiles:mega", True)
+
+    def _rebucket_schedule(self, n: int):
+        """step -> species due, from the per-species cadences."""
+        events = {}
+        for s, R in enumerate(self.rebucket_every_s):
+            for k in range(R, n + 1, R):
+                events.setdefault(k, []).append(s)
+        return events
+
+    def _plan_generic(self, n: int) -> list:
+        """The steps and re-bucket events of pinc_tpu's
+        _scan_with_rebuckets over n steps, in its order, as a list of
+        ("step", None) and ("rebucket", species tuple) items.  Nested
+        cadences (at most two, the slow a multiple of the fast, n >= 2
+        fast cadences) run fast windows with the fast species re-bucketed
+        after each and the slow ones after each slow cycle; the rest
+        follows the per-species schedule, which pinc_tpu collapses to
+        "every species every fast cadence" when a non-nested schedule has
+        more than 64 events (a bound on its program size that changes the
+        result; kept for parity)."""
+        Rs = list(self.rebucket_every_s)
+        distinct = sorted(set(Rs))
+        Re, Ri = distinct[0], distinct[-1]
+        fast = tuple(s for s, R in enumerate(Rs) if R == Re)
+        slow = tuple(s for s, R in enumerate(Rs) if R != Re)
+        plan = []
+        done = 0
+        nested = len(distinct) <= 2 and Ri % Re == 0 and n >= 2 * Re
+        if nested:
+            window = [("step", None)] * Re + [("rebucket", fast)]
+            if slow:
+                n_outer = n // Ri
+                plan += (window * (Ri // Re) + [("rebucket", slow)]) * n_outer
+                done = n_outer * Ri
+            n_mid = (n - done) // Re
+            plan += window * n_mid
+            done += n_mid * Re
+        events = {k: v for k, v in self._rebucket_schedule(n).items()
+                  if k > done}
+        if not nested and len(events) > 64:
+            events = {k: list(range(len(Rs)))
+                      for k in range(self.rebucket_every, n + 1,
+                                     self.rebucket_every) if k > done}
+        prev = done
+        for k in sorted(set(events) | {n}):
+            if k > n:
+                break
+            if k > prev:
+                plan += [("step", None)] * (k - prev)
+                prev = k
+            plan += [("rebucket", (s,)) for s in events.get(k, [])]
+        return plan
+
+    def _mid_margins(self, q: int, slow_full: bool):
+        """Per-step margin tuples for fast-window index q since the slow
+        species' last re-bucket (fresh entry).  Fast species get the
+        per-step schedule (their wander k steps after a re-bucket is
+        bounded by k*M/cadence); slow species a per-window constant
+        bound; slow_full forces them to the layout margin."""
+        M = self.ts.M
+        Rs = self.rebucket_every_s
+        Re = min(Rs)
+        plans = []
+        for k in range(Re):
+            out = []
+            for s, R in enumerate(Rs):
+                if R == Re:
+                    j = k + 1
+                    md = min(M, max(1, math.ceil(j * M / R)))
+                    mg = min(M, math.ceil((j - 1) * M / R))
+                elif slow_full:
+                    mg = md = M
+                else:
+                    j_end = (q + 1) * Re
+                    mg = md = min(M, max(1, math.ceil(j_end * M / R)))
+                out.append((mg, md))
+            plans.append(tuple(out))
+        return tuple(plans)
+
+    def _plan_sched(self, n: int) -> list:
+        """pinc_tpu's _scan_sched as a plan: the margin-scheduled windows
+        of the mega path ("step" items carry the per-species (mg, md)
+        margins), for a state whose species are all freshly re-bucketed.
+        Each fast window takes the margins of _mid_margins for its index
+        in the slow cycle; what the windows cannot cover (less than one
+        fast window, or non-nested cadences) runs _plan_generic at the
+        full margin."""
+        Rs = list(self.rebucket_every_s)
+        Re, Ri = min(Rs), max(Rs)
+        fast = tuple(s for s, R in enumerate(Rs) if R == Re)
+        slow = tuple(s for s, R in enumerate(Rs) if R != Re)
+
+        def window(plans):
+            return [("step", m) for m in plans] + [("rebucket", fast)]
+        plan = []
+        done = 0
+        if slow and Ri % Re == 0:
+            cycle = [self._mid_margins(q, slow_full=False)
+                     for q in range(Ri // Re)]
+            n_cyc = n // Ri
+            for _ in range(n_cyc):
+                for plans in cycle:
+                    plan += window(plans)
+                plan.append(("rebucket", slow))
+            done = n_cyc * Ri
+            mids_left = (n - done) // Re
+            for plans in cycle[:mids_left]:
+                plan += window(plans)
+            done += mids_left * Re
+        elif not slow:
+            plans = self._mid_margins(0, slow_full=False)
+            for _ in range(n // Re):
+                plan += window(plans)
+            done = n // Re * Re
+        if done < n:
+            plan += self._plan_generic(n - done)
+        return plan
+
+    def _run_plan(self, plan, body, carry):
+        """body(carry, margins) -> (carry, out) at each step; the listed
+        species of carry[0] re-bucketed in place at each event.  Returns
+        (carry, outs, dropped), dropped a 0-d tensor on the device."""
+        outs = []
+        dropped = torch.zeros((), dtype=torch.int64, device=self.device)
+        for kind, arg in plan:
+            if kind == "step":
+                carry, out = body(carry, arg)
+                outs.append(out)
+                continue
+            st = carry[0]
+            for s in arg:
+                dropped = dropped + self._rebucket_one(st.lpos[s], st.vel[s],
+                                                       st.alive[s])
+        return carry, outs, dropped
+
+    @staticmethod
+    def _owned(st: TiledState, donate: bool) -> TiledState:
+        if donate:
+            return st
+        return TiledState(lpos=st.lpos.clone(), vel=st.vel.clone(),
+                          alive=st.alive.clone())
+
+    def make_scan_steps(self, n: int, donate: bool = False,
+                        fresh: bool = False):
+        """A window of n steps with the per-species re-bucket schedule
+        applied between them.  Returns run_n(st) -> (state, (ke (n, S),
+        pe (n,), dropped)), every number left on the device: the window
+        makes no host sync.  donate=True lets the window update st's
+        tensors in place (st is consumed); with donate=False st is left as
+        it was.  fresh=True asserts that every species of st is freshly
+        re-bucketed (true after the initial bucketing, and after a window
+        whose n is a multiple of every cadence): on margin >= 2 decks with
+        n a multiple of the fast cadence, the mega path then runs the
+        per-step margin schedule.  run_n.plan is the window's sequence of
+        steps and re-bucket events."""
+        if self._use_mega:
+            return self._make_scan_steps_mega(n, donate, fresh)
+        plan = self._plan_generic(n)
+
+        def body(carry, margins):
+            st, rho, phi, E, diag = self._tiled_step_fused(carry[0])
+            return (st,), (diag.kin_energy, diag.pot_energy)
+
+        def run_n(st: TiledState):
+            carry, outs, dropped = self._run_plan(
+                plan, body, (self._owned(st, donate),))
+            return carry[0], _stack_outs(outs, dropped)
+        run_n.plan = plan
+        return run_n
+
+    def _make_scan_steps_mega(self, n: int, donate: bool = False,
+                              fresh: bool = False):
+        """The mega-fused window: per step one K5 pic_step (kick with the
+        previous step's field, drift, deposit; the state updated in place),
+        the K7 fold, the FFT solve and the K6 E tiles, which ride the carry
+        to the next step.  The (ke, pe) pair of slot k is centered on step
+        k-1: ke of slot k's kick and pe of the previous solve, the
+        window-start solve giving the first pe."""
+        ts = self.ts
+        mass = torch.tensor(self._mass, dtype=torch.float32,
+                            device=self.device)
+        use_sched = (fresh and ts.M >= 2
+                     and n % min(self.rebucket_every_s) == 0
+                     and self.cfg.get_bool("tiles:marginschedule", True))
+        plan = self._plan_sched(n) if use_sched else self._plan_generic(n)
+
+        def solve(rho):
+            phi = self.solver(rho)
+            return (fk.efield_tiles(phi, ts, out_dtype=self._mxu_dtype),
+                    potential_energy(rho, phi))
+
+        def body(carry, margins):
+            st, e_tiles, pe_prev = carry
+            tiles, _, _, vdot, _ = tk.pic_step(
+                e_tiles, st.lpos, st.vel, st.alive, self._charge, self._qm,
+                ts, mxu_dtype=self._mxu_dtype, order_acc=self._acc_order,
+                order_distr=self._distr_order, e_ext=self._e_ext,
+                boris_T=self._boris_T, boris_S=self._boris_S,
+                margins=margins, inplace=True)
+            rho = fk.fold_global(tiles, ts).to(self.spec.dtype)
+            return (st,) + solve(rho), (0.5 * mass * vdot, pe_prev)
+
+        def run_n(st: TiledState):
+            st = self._owned(st, donate)
+            carry = (st,) + solve(self._deposit_rho(st))
+            carry, outs, dropped = self._run_plan(plan, body, carry)
+            return carry[0], _stack_outs(outs, dropped)
+        run_n.plan = plan
+        return run_n
+
+
+def _stack_outs(outs, dropped):
+    """[(ke (S,), pe ())] per step -> (ke (n, S), pe (n,), dropped)."""
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]), dropped)

@@ -10,11 +10,15 @@ port is installed (the test conftest imports jax; skip it there):
 
 Tolerances: deposits max|kernel - plain| <= 1e-5 * max|plain| (atomics
 add in another order); gathered fields and velocities atol 1e-5; moved
-planes and n_out exact; vdot rtol 1e-5.  The exchange kernels (extract,
-cleanup, merge) and the exchange drivers are exact: they copy bits and add
-+-T in f32 as the plain versions do.  The slice on the card vs the CPU:
-energies rtol 1e-4 and state atol 1e-4 (cuFFT vs pocketfft and
-atomic-order sums, over 6 steps)."""
+planes and n_out exact; vdot rtol 1e-5.  pic_step's new positions and
+velocities are exact too (it rounds each product and sum on its own, in
+the plain version's order), its tiles and vdot as the deposits' and the
+kicks'.  efield_tiles and fold_global are exact (the same float32
+operations in the same order).  The exchange kernels (extract, cleanup,
+merge) and the whole exchange re-bucket are exact: they copy bits and add
++-T in f32 as the plain versions do.  The slice and the scan on the card vs the
+CPU: energies rtol 1e-4 and state atol 1e-4 (cuFFT vs pocketfft and
+atomic-order sums, over 6 or 8 steps)."""
 
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ import torch
 
 from pinc_tpu_torch.config import PincConfig
 from pinc_tpu_torch.ops import exchange as ex
+from pinc_tpu_torch.ops import field_kernels as fk
 from pinc_tpu_torch.ops import gather_exchange as gx
 from pinc_tpu_torch.ops import tiled_kernels as tk
 from pinc_tpu_torch.ops.tiled import TileSpec, bucket
@@ -93,7 +98,8 @@ def test_kernels_match_plain(cuda, dt, order):
         assert abs(float(vd) - float(vdr)) <= 1e-5 * abs(float(vdr))
     torch.cuda.synchronize()
     assert {k: tk.LAUNCHES[k] - before[k] for k in before} == {
-        "deposit": 1, "deposit_move": 1, "gather": 1, "gather_kick": 3}
+        "deposit": 1, "deposit_move": 1, "gather": 1, "gather_kick": 3,
+        "pic_step": 0}
 
 
 @pytest.mark.cuda
@@ -106,6 +112,108 @@ def test_wrappers_check_their_inputs(cuda):
                   .transpose(1, 2), ts)
     with pytest.raises(ValueError, match="is on"):
         tk.deposit_move(d["xyz"], d["vel"].cpu(), d["alive"], 1.0, ts)
+
+
+def _step_fixture(dev):
+    """Two species on _fixture's layout (as tests/test_torch_pic_step.py),
+    and random E tiles in efield_tiles' layout."""
+    ts, d = _fixture(dev)
+    rng = np.random.default_rng(1)
+    E = rng.normal(size=(ts.NT, 3 * ts.P, ts.P ** 2)).astype(np.float32)
+    vel = 0.3 * d["vel"]
+    return ts, dict(E=torch.from_numpy(E).to(dev),
+                    lpos=torch.stack([d["xyz"], d["xyz"] + 0.01]),
+                    vel=torch.stack([vel, -vel]),
+                    alive=torch.stack([d["alive"], d["alive"]]),
+                    charge=(-1.0, 1.5), qm=(-0.5, 0.25))
+
+
+STEP_KICKS = {
+    "leapfrog": dict(),
+    "boris_eext": dict(e_ext=(0.05, 0.0, -0.02),
+                       boris_T=((0.01, -0.02, 0.03), (0.001, 0.002, 0.003)),
+                       boris_S=((0.0199, -0.0398, 0.0597),
+                                (0.002, 0.004, 0.006))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [(1, 1), (0, 0), (1, 0)],
+                         ids=["cic", "ngp", "cic_ngp"])
+@pytest.mark.parametrize("dt", list(MXU))
+def test_pic_step_matches_plain(cuda, dt, order):
+    ts, d = _step_fixture(cuda)
+    mdt = MXU[dt]
+    E = d["E"].to(mdt)
+    before = tk.LAUNCHES["pic_step"]
+    calls = 0
+    for kw in STEP_KICKS.values():
+        for margins in (None, ((1, 1), (0, 1))):
+            args = (E, d["lpos"], d["vel"], d["alive"], d["charge"],
+                    d["qm"], ts)
+            opts = dict(mxu_dtype=mdt, order_acc=order[0],
+                        order_distr=order[1], margins=margins, **kw)
+            t, x, v, vd, n = tk.pic_step(*args, **opts)
+            tr, xr, vr, vdr, nr = tk.pic_step_plain(*args, **opts)
+            calls += 1
+            assert _max_err(t, tr) <= 1e-5 * tr.abs().max().item()
+            assert torch.equal(x, xr) and torch.equal(v, vr)
+            assert torch.equal(n, nr) and float(n[0]) > 0
+            assert torch.allclose(vd, vdr, rtol=1e-5, atol=0)
+    lpos, vel = d["lpos"].clone(), d["vel"].clone()
+    t2, x2, v2, _, _ = tk.pic_step(E, lpos, vel, d["alive"], d["charge"],
+                                   d["qm"], ts, mxu_dtype=mdt,
+                                   order_acc=order[0], order_distr=order[1],
+                                   inplace=True)
+    calls += 1
+    assert x2 is lpos and v2 is vel
+    xr = tk.pic_step_plain(E, d["lpos"], d["vel"], d["alive"], d["charge"],
+                           d["qm"], ts, mxu_dtype=mdt, order_acc=order[0],
+                           order_distr=order[1])[1]
+    assert torch.equal(lpos, xr)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["pic_step"] - before == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, M, shape", [(8, 1, (16, 24, 32)),
+                                         (8, 2, (16, 24, 32)),
+                                         (4, 2, (16, 8, 24))])
+def test_field_kernels_match_plain(cuda, T, M, shape):
+    ts = TileSpec(grid=shape, T=T, M=M, B=128)
+    rng = np.random.default_rng(T + M)
+    phi = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    tiles = torch.from_numpy(rng.normal(size=(ts.NT, ts.P, ts.P ** 2))
+                             .astype(np.float32)).to(cuda)
+    before = dict(fk.LAUNCHES)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = fk.efield_tiles(phi, ts, out_dtype=out_dtype)
+        assert got.dtype == out_dtype
+        assert torch.equal(got, fk.efield_tiles_plain(phi, ts,
+                                                      out_dtype=out_dtype))
+    assert torch.equal(fk.fold_global(tiles, ts),
+                       fk.fold_global_plain(tiles, ts))
+    torch.cuda.synchronize()
+    assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
+        "efield_tiles": 2, "fold_global": 1}
+
+
+@pytest.mark.cuda
+def test_step_and_field_wrappers_check_their_inputs(cuda):
+    ts, d = _step_fixture(cuda)
+    args = (d["lpos"], d["vel"], d["alive"], d["charge"], d["qm"], ts)
+    with pytest.raises(TypeError, match="E must be"):
+        tk.pic_step(d["E"].half(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.pic_step(d["E"], d["lpos"].transpose(2, 3).contiguous()
+                    .transpose(2, 3), *args[1:])
+    with pytest.raises(ValueError, match="is on"):
+        tk.pic_step(d["E"].cpu(), *args)
+    with pytest.raises(ValueError, match="shape"):
+        fk.fold_global(torch.zeros((ts.NT, ts.P, ts.P), device=cuda), ts)
+    with pytest.raises(TypeError, match="float32"):
+        fk.efield_tiles(torch.zeros(ts.grid, dtype=torch.float64,
+                                    device=cuda), ts)
 
 
 def _exchange_fixture(dev, seed=0):
@@ -257,17 +365,18 @@ def test_slice_on_the_card_matches_cpu(cuda, dt, rebucket):
         deck = deck.replace("rebucket = sort\n", "slack = 2.0\n")
     runs = {}
     for dev in ("cpu", cuda):
-        tk.reset_launches()
-        gx.reset_launches()
+        for m in (tk, fk, gx):
+            m.reset_launches()
         sim = TiledSimulation(PincConfig.from_string(deck), seed=3, device=dev)
         runs[str(dev)] = (sim.run(progress_every=0), sim,
-                          {**tk.LAUNCHES, **gx.LAUNCHES})
+                          {**tk.LAUNCHES, **fk.LAUNCHES, **gx.LAUNCHES})
     (h_cpu, s_cpu, n_cpu), (h_gpu, s_gpu, n_gpu) = runs.values()
     assert s_gpu._rebucket_mode == rebucket
     assert n_cpu == {k: 0 for k in n_cpu}
     events = 2 * 3 if rebucket == "exchange" else 0   # 2 species x 3 events
     assert n_gpu == {"deposit": 2, "gather": 2, "deposit_move": 12,
-                     "gather_kick": 12, "extract": events,
+                     "gather_kick": 12, "pic_step": 0, "efield_tiles": 0,
+                     "fold_global": 7, "extract": events,
                      "cleanup": 3 * events, "merge": events}
     assert s_gpu.state.lpos.is_cuda and h_gpu["dropped"] == 0
     np.testing.assert_allclose(h_gpu["kinetic"], h_cpu["kinetic"], rtol=1e-4)
@@ -278,3 +387,47 @@ def test_slice_on_the_card_matches_cpu(cuda, dt, rebucket):
                                s_cpu.state.lpos.numpy(), rtol=0, atol=1e-4)
     np.testing.assert_allclose(s_gpu.state.vel.cpu().numpy(),
                                s_cpu.state.vel.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mega, fresh", [(True, True), (True, False),
+                                         (False, True)],
+                         ids=["sched", "generic", "pairs"])
+def test_scan_on_the_card_matches_cpu(cuda, mega, fresh):
+    """make_scan_steps on tests/test_torch_scan.py's window (8 steps,
+    cadences [2, 4], M = 2) with the default exchange re-bucket (slack 2.0,
+    B = 1024), on the card and on the CPU."""
+    from pinc_tpu_torch.tiled_sim import TiledSimulation
+    deck = (DECK.replace("rebucket = sort\n", "slack = 2.0\n")
+            .replace("rebucketEvery = 2\n", "") + "mxuDtype = f32\n"
+            + ("" if mega else "mega = false\n"))
+    runs = {}
+    for dev in ("cpu", cuda):
+        sim = TiledSimulation(PincConfig.from_string(deck), seed=3, device=dev)
+        sim.rebucket_every_s, sim.rebucket_every = [2, 4], 2
+        run_n = sim.make_scan_steps(8, donate=True, fresh=fresh)
+        for m in (tk, fk, gx):
+            m.reset_launches()
+        st, out = run_n(sim.state)
+        runs[str(dev)] = (st, out, run_n.plan,
+                          {**tk.LAUNCHES, **fk.LAUNCHES, **gx.LAUNCHES})
+    (s_c, o_c, plan, n_c), (s_g, o_g, plan_g, n_g) = runs.values()
+    assert plan == plan_g and n_c == {k: 0 for k in n_c}
+    events = sum(len(arg) for kind, arg in plan if kind == "rebucket")
+    assert events == 6
+    want = {"extract": events, "cleanup": 3 * events, "merge": events}
+    if mega:
+        want.update(deposit=2, pic_step=8, fold_global=9, efield_tiles=9)
+    else:
+        want.update(deposit_move=16, gather_kick=16, fold_global=8)
+    assert {k: v for k, v in n_g.items() if v} == want
+    assert s_g.lpos.is_cuda and int(o_g[2]) == int(o_c[2]) == 0
+    np.testing.assert_allclose(o_g[0].cpu().numpy(), o_c[0].numpy(),
+                               rtol=1e-4)
+    np.testing.assert_allclose(o_g[1].cpu().numpy(), o_c[1].numpy(),
+                               rtol=1e-4)
+    assert torch.equal(s_g.alive.cpu(), s_c.alive)
+    np.testing.assert_allclose(s_g.lpos.cpu().numpy(), s_c.lpos.numpy(),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(s_g.vel.cpu().numpy(), s_c.vel.numpy(),
+                               rtol=0, atol=1e-4)

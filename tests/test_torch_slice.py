@@ -298,6 +298,7 @@ def test_no_jax_import():
         import pinc_tpu_torch.tiled_sim, pinc_tpu_torch.parallel.pic
         import pinc_tpu_torch.ops.tiled_kernels, pinc_tpu_torch.ops._cuda_build
         import pinc_tpu_torch.ops.gather_exchange, pinc_tpu_torch.ops.exchange
+        import pinc_tpu_torch.ops.field_kernels
         import pinc_tpu_torch.utils.timer
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pinc_tpu")]
