@@ -17,15 +17,30 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    size (with forced overflow, spill and drops) and at the production
    shape, on the calls one whole exchange makes on a bucketed state moved
    by one K2 drift of bench-like velocities (bit for bit).  It also times
-   one whole exchange re-bucket per species.
+   one whole exchange re-bucket per species, and the electrons' through
+   the one-hot exchange (tiles:exchangeImpl=onehot) in turns with the
+   gather.  The one-hot exchange kernels (K11: extract, cleanup and merge
+   in each of their modes) are held bit pattern for bit pattern against
+   their plain versions at the fixture (leaver caps, edge caps and free
+   slots overflowing; B % 8 != 0 for the ranked modes; the drivers against
+   the CPU) and on the calls of one exchange at the one-hot decks'
+   production shapes (4096 tiles, B = 7680 for the fused row exchange, B =
+   6528 for the per-tile sweeps), each timed with its bound, then the
+   whole exchange.
 3. Runs the CLI entry point, pinc_tpu_torch.__main__.main, on bench.py's
    deck (128^3, 2 x 67,108,864 particles, sSolve, puAcc3D1KE, puDistr3D1,
    tiles 8 / bf16 / slack 1.0625) with methods:layout=tiled: 20 steps with
    the default re-bucket (the gather exchange), then 10 steps with
-   tiles:rebucket=sort.  For each run it checks that every kernel of its
-   path ran (the launch counts are set to 0 just before the run and read
-   just after), that the state stayed on the card, that no particle was
-   lost or dropped, and that the energies are finite and conserved.
+   tiles:rebucket=sort; then 20 steps on each one-hot deck (the headline
+   deck of phase 5 at 12 per cell, 2 x 25,165,824 particles: the default
+   slack gives B = 7680 and the fused one-hot row exchange, slack 1.0625
+   B = 6528 and, the row gate false, the per-tile one-hot sweeps).  For
+   each run it checks that every exchange kernel of its path ran and no
+   other (the launch counts are set to 0 just before the run and read just
+   after), that the state stayed on the card, that no particle was
+   dropped, and that the energies are finite and conserved; particles
+   reaching the margin (re-bucketed early) are allowed on the one-hot
+   decks only.
 4. Times each part of one step of the exchange run (the two kernel pairs,
    the K7 fold, FFT solve, gradient, E padding, state stacking, and each
    species' exchange and sort re-bucket of a state moved by one cadence)
@@ -33,10 +48,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    operation with torch.profiler.
 5. Runs the window bench.py times, TiledSimulation.make_scan_steps(n,
    donate=True, fresh=True) (the mega-fused scan: K5 pic_step, K7, FFT,
-   K6 a step), on two decks: bench.py's headline deck (vth 0.1/0.0023:
+   K6 a step), on three decks: bench.py's headline deck (vth 0.1/0.0023:
    margin 2, the per-step margin schedule, the window sized to the slow
-   cadence) and its margin-1 aux deck (phase 3's deck with
-   tiles:rebucketEvery = 10, a 40-step window).  Per deck one untimed
+   cadence), its margin-1 aux deck (phase 3's deck with
+   tiles:rebucketEvery = 10, a 40-step window) and the fused one-hot
+   deck of phase 3.  Per deck one untimed
    window, then a timed one, each checked as phase 3's runs (launches,
    state on the card, drops, alive count, energy); then a CUDA-event split
    of one mega step and each species' exchange.
@@ -44,8 +60,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
 JSON object with each kernel's numbers (launches on the path that runs
-it: phase 3's exchange run, or for pic_step, efield_tiles and fold_global
-the headline scan window of phase 5; max error against the plain version;
+it: phase 3's exchange run, its one-hot runs for the one-hot kernels (the
+row kernels the B = 7680 run, the per-tile ones the B = 6528 run), or for
+pic_step, efield_tiles and fold_global the headline scan window of phase
+5; max error against the plain version;
 kernel and plain ms; and bound_ms: the bytes the call must move at 3.35
 TB/s, from this run's inputs); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -69,12 +87,30 @@ DEPOSIT_RTOL = 1e-5    # max |tiles - plain| <= 1e-5 * max |plain|
 FIELD_ATOL = 1e-5      # gathered fields and kicked velocities, absolute
 VDOT_RTOL = 1e-5       # the kick's sum of alive * vdot
 ENERGY_DRIFT = 0.01    # |E_tot(end) - E_tot(0)| / |E_tot(0)| on the main path
-MAIN_STEPS = 20        # two electron re-bucket events (cadence 10) on this deck
+MAIN_STEPS = 20        # two electron re-bucket events (cadence 10) on the
+                       # bench deck, five (cadence 4) on the one-hot decks
 SORT_STEPS = 10        # one electron event with tiles:rebucket=sort
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 SCAN_STEPS = 40        # bench.py:281, then sized to the slow cadence (:97-101)
 HEADLINE_VTH = "0.1,0.0023"   # bench.py:294-295, the Debye-resolved deck
 AUX_REBUCKET = 10      # bench.py:307-308, the margin-1 aux deck
+# the one-hot decks: the headline deck at 12 particles per cell per species
+# (B % 1024 != 0); the default slack 1.25 gives B = 7680 with the row gate
+# true (the fused row exchange, v5), slack 1.0625 B = 6528 with the gate
+# false (the per-tile sweeps, v3)
+ONEHOT_PC = 12
+ONEHOT_SLACK = {"onehot_rows": None, "onehot_tile": 1.0625}
+ONEHOT_B = {"onehot_rows": 7680, "onehot_tile": 6528}
+
+# exchange kernel launches per species event, by route
+ROUTE_CALLS = {
+    "sort": {},
+    "gather": {"extract": 1, "cleanup": 3, "merge": 1},
+    "onehot_rows": {"onehot_extract_rows": 1, "onehot_cleanup": 2,
+                    "onehot_merge_rows": 1},
+    "onehot_tile": {"onehot_extract_tile": 3, "onehot_merge_tile": 3},
+}
+EXCHANGE_KERNELS = sorted({k for v in ROUTE_CALLS.values() for k in v})
 
 BENCH_DECK = """
 [time]
@@ -359,6 +395,16 @@ def same(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def same_bits(a, b) -> bool:
+    """Same shape and bits (float32 compared as int32: -0.0 != +0.0)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
 def leaves(x) -> list:
     """The tensors of a nested tuple, in order."""
     return ([t for y in x for t in leaves(y)] if isinstance(x, tuple)
@@ -456,14 +502,15 @@ def check_exchange_fixture(gx, ex, gen, dev) -> None:
           flush=True)
 
 
-def bench_species(prod, gen, dev, vth: float, cadence: int, q: float):
-    """A bucketed species at the production layout, moved by one K2 drift
-    of cadence x its velocities: 16,384 uniform particles per tile on
+def bench_species(prod, gen, dev, vth: float, cadence: int, q: float,
+                  per_tile: int = 16384):
+    """A bucketed species at a production layout, moved by one K2 drift
+    of cadence x its velocities: per_tile uniform particles per tile on
     average, velocities N(0, vth).  Returns (alive, 6 planes)."""
     import torch
     from pinc_tpu_torch.ops import tiled_kernels as tk
     from pinc_tpu_torch.ops.tiled import bucket
-    n = 16384 * prod.NT
+    n = per_tile * prod.NT
     pos = torch.rand((n, 3), generator=gen, device=dev) * torch.tensor(
         prod.grid, dtype=torch.float32, device=dev)
     vel = torch.randn((n, 3), generator=gen, device=dev) * vth
@@ -480,30 +527,51 @@ def bench_species(prod, gen, dev, vth: float, cadence: int, q: float):
     return alive, tuple(moved) + tuple(v)
 
 
-def capture_exchange(gx, ex, alive, planes, ntiles, T, K):
-    """Run one exchange and record each kernel call's inputs (cloned, since
-    the merge writes in place).  Returns {kernel: [(fn, plain, args)]}."""
-    calls = {"extract": [], "cleanup": [], "merge": []}
-    names = {"extract_compact_rows_g": "extract", "cleanup_rows_g": "cleanup",
-             "merge_rows_g": "merge"}
-    orig = {n: getattr(gx, n) for n in names}
+def capture_calls(mod, names: dict, run) -> dict:
+    """Call run() with the functions of mod named in names spied: each
+    call's inputs are recorded (cloned, since the merges write in place).
+    Returns {kernel: [(fn, plain, args)]}, kernel = names[function]; the
+    plain version of f is mod.f_plain."""
+    calls = {k: [] for k in names.values()}
+    orig = {n: getattr(mod, n) for n in names}
 
     def spy(n):
         def fn(*args, **kw):
             args = args + tuple(kw.values())
-            calls[names[n]].append((orig[n], getattr(gx, n + "_plain"),
+            calls[names[n]].append((orig[n], getattr(mod, n + "_plain"),
                                     fresh_copy(args)))
             return orig[n](*args)
         return fn
     try:
         for n in names:
-            setattr(gx, n, spy(n))
-        ex.rebucket_exchange_planes(tuple(p.clone() for p in planes),
-                                    alive.clone(), ntiles, T, K=K, rows=True)
+            setattr(mod, n, spy(n))
+        run()
     finally:
         for n, f in orig.items():
-            setattr(gx, n, f)
+            setattr(mod, n, f)
     return calls
+
+
+def capture_exchange(gx, ex, alive, planes, ntiles, T, K):
+    """The kernel calls of one gather exchange."""
+    return capture_calls(
+        gx, {"extract_compact_rows_g": "extract", "cleanup_rows_g": "cleanup",
+             "merge_rows_g": "merge"},
+        lambda: ex.rebucket_exchange_planes(
+            tuple(p.clone() for p in planes), alive.clone(), ntiles, T, K=K,
+            rows=True))
+
+
+def merge_prefix(alive, inc) -> float:
+    """Slots of alive the one-hot merge must read: in each segment (row,
+    or tile for R = 1) up to the free slot its last placed arrival takes."""
+    import torch
+    NT, B = alive.shape
+    R = inc.shape[2]
+    free = (alive <= 0.5).reshape(NT, R, B // R)
+    need = torch.minimum((inc[:, 6] > 0.5).sum(-1), free.sum(-1))
+    return float(((torch.cumsum(free, -1) < need[..., None]).sum(-1)
+                  + (need > 0)).sum())
 
 
 def exchange_bytes(kind: str, args, out) -> float:
@@ -515,20 +583,64 @@ def exchange_bytes(kind: str, args, out) -> float:
         buf, alive2 = out
         leavers = float((alive > 0.5).sum() - (alive2 > 0.5).sum())
         return alive.numel() * 20.0 + leavers * 12.0 + buf.numel() * 4.0
-    if kind == "cleanup":
+    if kind in ("onehot_extract_rows", "onehot_extract_tile"):
+        # (coord, alive, planes, ...) for one axis, (planes, alive, ...)
+        # for all axes: 4 B of alive and 4 (one axis) or 12 B of coordinates
+        # read and alive written a slot; the other payloads of a copied
+        # leaver read; the buffer written
+        alive, buf = args[1], out[0]
+        one_axis = isinstance(args[0], torch.Tensor)
+        copied = float((buf[:, 6] > 0.5).sum())
+        return (alive.numel() * (12.0 if one_axis else 20.0)
+                + copied * (20.0 if one_axis else 12.0) + buf.numel() * 4.0)
+    if kind in ("cleanup", "onehot_cleanup"):
         inc = args[0]
         settled, extras = out
         valid = float((inc[:, 6] > 0.5).sum())
         return (inc[:, 6].numel() * 4.0 + valid * 24.0
                 + (settled.numel() + sum(e.numel() for e in extras)) * 4.0)
-    alive, inc = args[0], args[1]                      # merge
-    NT, B = alive.shape
+    alive, inc = args[0], args[1]
+    placed = float((out[1] > 0.5).sum() - (alive > 0.5).sum())
+    if kind.startswith("onehot_merge"):
+        return (merge_prefix(alive, inc) * 4.0 + inc[:, 6].numel() * 4.0
+                + placed * 52.0)
+    NT, B = alive.shape                                 # the gather merge
     free = (alive <= 0.5).reshape(NT, 8, B // 8)
     need = torch.minimum((inc[:, 6] > 0.5).sum(-1), free.sum(-1))
     prefix = (torch.cumsum(free, -1) < need[..., None]).sum(-1) + (need > 0)
-    placed = float((out[1] > 0.5).sum() - (alive > 0.5).sum())
     return (float(prefix.sum()) * 4.0 + inc[:, 6].numel() * 4.0
             + placed * 52.0)
+
+
+def time_calls(calls: dict, where: str, card: str, times: dict,
+               bounds: dict, equal=same) -> None:
+    """Each recorded call against its plain version (equal), then timed
+    (kernel, plain) by CUDA events on fresh copies of its inputs, with its
+    bound from the bytes it must move; per kernel the mean over its
+    calls."""
+    for kind, recorded in calls.items():
+        ms = plain_ms = nbytes = 0.0
+        for fn, plain, args in recorded:
+            def fresh(args=args):
+                return fresh_copy(args)
+            out = fn(*fresh())
+            got, want = leaves(out), leaves(plain(*fresh()))
+            check(len(got) == len(want) and all(map(equal, got, want)),
+                  f"{kind} at {where}: differs from its plain version")
+            nbytes += exchange_bytes(kind, args, out)
+            if "merge" in kind:
+                ms += cuda_ms_fresh(fresh, fn, reps=10)
+                plain_ms += cuda_ms_fresh(fresh, plain, reps=2)
+            else:
+                ms += cuda_ms(lambda: fn(*args), reps=10, warmup=2)
+                plain_ms += cuda_ms(lambda: plain(*args), reps=2, warmup=1)
+        n = len(recorded)
+        times[kind] = (ms / n, plain_ms / n)
+        bounds[kind] = bound_ms(nbytes / n)
+        print(f"  time {kind} at {where} (mean of {n} call(s) of one "
+              f"electron exchange): kernel {ms / n:.4f} ms, plain "
+              f"{plain_ms / n:.4f} ms, bound {bounds[kind]:.4f} ms ({card})",
+              flush=True)
 
 
 def check_exchange_bench(gx, ex, prod, gen, dev, card: str, times: dict,
@@ -545,30 +657,7 @@ def check_exchange_bench(gx, ex, prod, gen, dev, card: str, times: dict,
     calls = capture_exchange(gx, ex, alive, planes, prod.ntiles, prod.T, K)
     check([len(calls[k]) for k in ("extract", "cleanup", "merge")]
           == [1, 3, 1], f"one exchange made {calls}")
-    for kind, recorded in calls.items():
-        ms = plain_ms = nbytes = 0.0
-        for fn, plain, args in recorded:
-            def fresh(args=args):
-                return fresh_copy(args)
-            out = fn(*fresh())
-            got, want = leaves(out), leaves(plain(*fresh()))
-            check(len(got) == len(want) and all(map(same, got, want)),
-                  f"{kind} at {prod.NT}x{prod.B}: differs from its plain "
-                  f"version")
-            nbytes += exchange_bytes(kind, args, out)
-            if kind == "merge":
-                ms += cuda_ms_fresh(fresh, fn, reps=10)
-                plain_ms += cuda_ms_fresh(fresh, plain, reps=2)
-            else:
-                ms += cuda_ms(lambda: fn(*args), reps=10, warmup=2)
-                plain_ms += cuda_ms(lambda: plain(*args), reps=2, warmup=1)
-        n = len(recorded)
-        times[kind] = (ms / n, plain_ms / n)
-        bounds[kind] = bound_ms(nbytes / n)
-        print(f"  time {kind} at {prod.NT}x{prod.B} ({caps}; mean of {n} "
-              f"call(s) of one electron exchange): kernel {ms / n:.4f} ms, "
-              f"plain {plain_ms / n:.4f} ms, bound {bounds[kind]:.4f} ms "
-              f"({card})", flush=True)
+    time_calls(calls, f"{prod.NT}x{prod.B} ({caps})", card, times, bounds)
     del calls
     for name, (vth, cadence, q) in species.items():
         if name != "electrons":
@@ -577,26 +666,252 @@ def check_exchange_bench(gx, ex, prod, gen, dev, card: str, times: dict,
             alive, planes = bench_species(prod, gen, dev, vth, cadence, q)
         leavers = int(((alive > 0.5) & torch.stack(
             [(c < 0) | (c >= prod.T) for c in planes[:3]]).any(0)).sum())
-        ms = cuda_ms_fresh(
-            lambda: (tuple(p.clone() for p in planes), alive.clone()),
-            lambda p, a: ex.rebucket_exchange_planes(
-                p, a, prod.ntiles, prod.T, K=K, rows=True), reps=5)
+        # the electrons also through the one-hot exchange
+        # (tiles:exchangeImpl=onehot: the fused row exchange at Ks = 64,
+        # Ke = 16), in turns with the gather
+        impls = ("auto", "onehot", "onehot", "auto") if name == "electrons" \
+            else ("auto",)
+        ms = {impl: [] for impl in impls}
+        for impl in impls:
+            ms[impl].append(cuda_ms_fresh(
+                lambda: (tuple(p.clone() for p in planes), alive.clone()),
+                lambda p, a, impl=impl: ex.rebucket_exchange_planes(
+                    p, a, prod.ntiles, prod.T, K=K, rows=True, impl=impl),
+                reps=5))
+        if name == "electrons":
+            _, a1, d1 = ex.rebucket_exchange_planes(
+                tuple(p.clone() for p in planes), alive.clone(), prod.ntiles,
+                prod.T, K=K, rows=True, impl="onehot")
+            check(int(d1) == 0 and int((a1 > 0.5).sum())
+                  == int((alive > 0.5).sum()),
+                  f"the one-hot exchange of the bench electrons dropped "
+                  f"{int(d1)}")
+        times_txt = ", ".join(
+            f"{'gather' if impl == 'auto' else impl} "
+            f"{sum(v) / len(v):.4f} ms ({' / '.join(f'{x:.4f}' for x in v)})"
+            for impl, v in ms.items())
         print(f"  time whole exchange re-bucket, {name} (vth {vth}, one "
               f"{cadence}-step drift, {leavers} leavers = "
-              f"{leavers / float(alive.sum()):.4%}): {ms:.4f} ms ({card})",
+              f"{leavers / float(alive.sum()):.4%}): {times_txt} ({card})",
               flush=True)
     del alive, planes
     torch.cuda.empty_cache()
 
 
-def run_main_path(cli_main, kernel_modules, extra, steps: int):
-    """The CLI on the bench deck; the launch counts are set to 0 just
-    before and read just after.  Returns (rc, out, launches, wall s)."""
+def onehot_fixture(gen, dev, B: int = 640):
+    """tests/test_torch_cuda.py's one-hot fixture: 8 tiles (2x2x2 of 4^3
+    cells), B = 640 (rows of 80 slots, not a multiple of 32) or any B, 80%
+    alive over [-1.5, 5.5); for B % 8 == 0 the first 40 slots of every row
+    of tile 0 leave through -x, past the row and tile caps; every 7th vy
+    and 9th y is -0.0 (stored as +0.0 by the one-hot exchange)."""
+    import torch
+    alive = (torch.rand((8, B), generator=gen, device=dev) < 0.8).float()
+    planes = [torch.rand((8, B), generator=gen, device=dev) * 7.0 - 1.5
+              for _ in range(3)]
+    planes += [torch.randn((8, B), generator=gen, device=dev)
+               for _ in range(3)]
+    if B % 8 == 0:
+        planes[0][0].view(8, B // 8)[:, :40] = -0.5
+        alive[0].view(8, B // 8)[:, :40] = 1.0
+    planes[4][:, ::7] = -0.0
+    planes[1][:, ::9] = -0.0
+    return alive, tuple(planes)
+
+
+def check_onehot_fixture(ox, gx, ex, gen, dev) -> None:
+    """Phase 2, fixture size: each one-hot kernel in each of its modes
+    against its plain version, bit for bit: extracts with tile 0 past the
+    leaver caps, cleanups past the edge cap, merges into rows and tiles
+    with fewer free slots than arrivals, the ranked modes at B % 8 != 0
+    (with pinc_tpu's active flags, none, and chunks switched off); then the
+    drivers on the card against the CPU."""
+    import torch
+    alive, planes = onehot_fixture(gen, dev)
+
+    def both(name, kern, plain, *args):
+        got, want = leaves(kern(*args)), leaves(plain(*args))
+        check(len(got) == len(want) and all(map(same_bits, got, want)),
+              f"one-hot {name}, fixture: differs from its plain version")
+        return got
+
+    for d in range(3):
+        b1 = both(f"extract_fused d={d}", ox.extract_fused,
+                  ox.extract_fused_plain, planes[d], alive, planes, 32, 4)[0]
+        b8 = both(f"extract_rows d={d}", ox.extract_rows,
+                  ox.extract_rows_plain, planes[d], alive, planes, 16, 4)[0]
+        if d == 0:
+            check(float(b1[0, 6, :, :32].sum()) == 32
+                  and float(b8[0, 6, :, :16].sum()) == 8 * 16,
+                  "one-hot extract, fixture: the leaver caps did not fill")
+    b6 = both("extract_all_rows", ox.extract_all_rows,
+              ox.extract_all_rows_plain, planes, alive, 16, 4)[0]
+    roll = gx._torch_roll
+    inc_x = torch.cat([ox._roll_blocked(b6[..., :16], (2, 2, 2), 0, -1, roll),
+                       ox._roll_blocked(b6[..., 16:32], (2, 2, 2), 0, 1,
+                                        roll)], -1)
+    inc_x = gx._shift_block(inc_x, 0, 4, ((16, 1), (16, -1)))
+    for axes in ((1, 2), (2,)):              # Ke = 2: the edge cap overflows
+        both(f"cleanup_rows {axes}", ox.cleanup_rows, ox.cleanup_rows_plain,
+             inc_x, 32, 2, 4, axes)
+    inc_r, _ = ox.extract_rows(planes[0], alive, planes, 16, 4)
+    inc_t, _ = ox.extract_fused(planes[1], alive, planes, 32, 4)
+    f = [b6[..., i * 16:(i + 1) * 16] for i in range(6)]
+    inc_a = torch.cat([f[0], f[1], f[2], f[0][..., :8], f[3], f[1][..., :8],
+                       f[4], f[2][..., :8], f[3][..., :8], f[5],
+                       f[4][..., :8], f[5][..., :8]], -1).contiguous()
+    blocks, off = [], 0
+    for w in (32, 48, 16, 8, 8, 16, 8, 8):
+        blocks.append((off, w))
+        off += w
+    room = (torch.rand((8, 640), generator=gen, device=dev) < 0.5).float()
+    room.view(8, 8, 80)[:, :5] = 1.0       # rows 0-4 full: arrivals drop
+    room_t = room.clone()
+    room_t[:2] = 1.0
+    room_t[:2, ::50] = 0.0                 # 13 free slots in tiles 0 and 1
+    merges = {
+        "merge_rows": (ox.merge_rows, ox.merge_rows_plain, inc_r, 16, room),
+        "merge_fused": (ox.merge_fused, ox.merge_fused_plain, inc_t, 32,
+                        room_t),
+        "merge_all_rows": (ox.merge_all_rows, ox.merge_all_rows_plain, inc_a,
+                           tuple(blocks), room),
+    }
+    for name, (kern, plain, inc, cap, room) in merges.items():
+        outs = []
+        for fn in (kern, plain):
+            a, p = room.clone(), tuple(q.clone() for q in planes)
+            fn(a, inc, p, cap)
+            outs.append([a, *p])
+        check(all(map(same_bits, *outs)),
+              f"one-hot {name}, fixture: differs from its plain version")
+        placed = float(outs[0][0].sum() - room.sum())
+        check(0 < placed < float(inc[:, 6].sum()),
+              f"one-hot {name}, fixture: expected drops, placed {placed}")
+    for B in (100, 2100):                      # the ranked (B % 8 != 0) modes
+        alive_b, planes_b = onehot_fixture(gen, dev, B)
+        al = alive_b > 0.5
+        lm, lp = al & (planes_b[2] < 0), al & (planes_b[2] >= 4)
+        rm = torch.cumsum(lm, 1, dtype=torch.int32) - 1
+        rp = torch.cumsum(lp, 1, dtype=torch.int32) - 1
+        rank = torch.where(lm & (rm < 16), rm,
+                           torch.where(lp & (rp < 16), 16 + rp,
+                                       torch.full_like(rm, -1)))
+        rank = torch.where((lm & (rm >= 16)) | (lp & (rp >= 16)),
+                           torch.full_like(rm, 32), rank)
+        bk = both(f"extract B={B}", ox.extract, ox.extract_plain, rank,
+                  alive_b, planes_b, 32)[0]
+        room_b = (torch.rand((8, B), generator=gen, device=dev) < 0.5).float()
+        free = room_b <= 0.5
+        fr_incl = torch.cumsum(free, 1, dtype=torch.int32)
+        frank = torch.where(free, fr_incl - 1, torch.full_like(fr_incl, -1))
+        CB = ox._chunk(B)
+        ends = fr_incl[:, CB - 1::CB]
+        base = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
+        flags = ((base < bk[:, 6].sum((-2, -1))[:, None]) & (ends > base)
+                 ).to(torch.int32)
+        off_half = flags.clone()
+        off_half[::2] = 0
+        for label, act in (("flags", flags), ("none", None),
+                           ("skip", off_half)):
+            outs = []
+            for fn in (ox.merge, ox.merge_plain):
+                a, p = room_b.clone(), tuple(q.clone() for q in planes_b)
+                fn(frank, a, bk, p, active=act)
+                outs.append([a, *p])
+            check(all(map(same_bits, *outs)),
+                  f"one-hot merge B={B} active={label}, fixture: differs "
+                  f"from its plain version")
+    routes = {"v5": dict(K=64, rows=True), "v5 Ks=8": dict(K=16, rows=True),
+              "v4": dict(K=64, rows=True, fused=False), "v3": dict(K=32),
+              "v2": dict(K=16)}
+    for name, kw in routes.items():
+        B = 100 if name == "v2" else 640
+        alive_d, planes_d = onehot_fixture(gen, dev, B)
+        res = []
+        for d in (dev, "cpu"):
+            res.append(ex.rebucket_exchange_planes(
+                tuple(q.to(d).clone() for q in planes_d),
+                alive_d.to(d).clone(), (2, 2, 2), 4, **kw))
+        (pg, ag, dg), (pc, ac, dc) = res
+        check(int(dg) == int(dc) > 0 and same_bits(ag.cpu(), ac)
+              and all(same_bits(g.cpu(), c) for g, c in zip(pg, pc)),
+              f"one-hot driver {name}, fixture: card and CPU differ")
+    torch.cuda.synchronize()
+    print("  one-hot exchange fixture (8 tiles x 640, 100 and 2100; caps, "
+          "edge caps and rows overflowing): ok (bit-equal)", flush=True)
+
+
+def check_onehot_bench(ox, ex, gen, dev, card: str, times: dict,
+                       bounds: dict) -> None:
+    """Phase 2, production shapes of the one-hot decks (4096 tiles of 8^3,
+    margin 2, face cap K = 256; 6144 uniform particles a tile, velocities
+    N(0, 0.1) moved by one electron cadence of 4 steps): B = 7680 takes the
+    fused row exchange (Ks = 64, Ke = 16), B = 6528 the per-tile sweeps
+    (K = 256).  The calls of one exchange, each kernel against its plain
+    version bit for bit and timed; then the whole exchange, timed."""
+    import torch
+    from pinc_tpu_torch.ops.tiled import TileSpec
+    routes = {
+        "onehot_rows": {"extract_all_rows": "onehot_extract_rows",
+                        "cleanup_rows": "onehot_cleanup",
+                        "merge_all_rows": "onehot_merge_rows"},
+        "onehot_tile": {"extract_fused": "onehot_extract_tile",
+                        "merge_fused": "onehot_merge_tile"},
+    }
+    for route, names in routes.items():
+        rows = route == "onehot_rows"
+        ts = TileSpec(grid=(128, 128, 128), T=8, M=2, B=ONEHOT_B[route])
+        alive, planes = bench_species(ts, gen, dev, 0.1, 4, -1.0 / ONEHOT_PC,
+                                      per_tile=ONEHOT_PC * 8 ** 3)
+
+        def run(rows=rows):
+            return ex.rebucket_exchange_planes(
+                tuple(p.clone() for p in planes), alive.clone(), ts.ntiles,
+                ts.T, K=256, rows=rows)
+        calls = capture_calls(ox, names, run)
+        check({k: len(v) for k, v in calls.items()} == ROUTE_CALLS[route],
+              f"one {route} exchange made {calls}")
+        caps = "Ks=64, Ke=16" if rows else "K=256"
+        time_calls(calls, f"{ts.NT}x{ts.B} ({route}, {caps})", card, times,
+                   bounds, equal=same_bits)
+        del calls
+        _, a1, d1 = run()
+        n0 = int((alive > 0.5).sum())
+        check(int(d1) == 0 and int((a1 > 0.5).sum()) == n0,
+              f"{route} exchange at {ts.NT}x{ts.B}: {int(d1)} dropped")
+        del a1
+        leavers = int(((alive > 0.5) & torch.stack(
+            [(c < 0) | (c >= ts.T) for c in planes[:3]]).any(0)).sum())
+        ms = cuda_ms_fresh(
+            lambda: (tuple(p.clone() for p in planes), alive.clone()),
+            lambda p, a: ex.rebucket_exchange_planes(
+                p, a, ts.ntiles, ts.T, K=256, rows=rows), reps=5)
+        print(f"  time whole {route} exchange re-bucket at {ts.NT}x{ts.B}, "
+              f"electrons (vth 0.1, one 4-step drift, {leavers} leavers = "
+              f"{leavers / n0:.4%}, 0 dropped): {ms:.4f} ms ({card})",
+              flush=True)
+        del alive, planes
+        torch.cuda.empty_cache()
+
+
+def onehot_deck(route: str) -> str:
+    """The one-hot decks: bench.py's headline deck (vth 0.1/0.0023) at
+    ONEHOT_PC particles per cell, with the route's slack."""
+    deck = scan_deck(HEADLINE_VTH).replace(
+        "32 pc", f"{ONEHOT_PC} pc").replace("slack = 1.0625\n", "")
+    slack = ONEHOT_SLACK[route]
+    return deck + (f"slack = {slack}\n" if slack else "")
+
+
+def run_main_path(cli_main, kernel_modules, extra, steps: int,
+                  deck_text: str = BENCH_DECK):
+    """The CLI on a deck (default: the bench deck); the launch counts are
+    set to 0 just before and read just after.  Returns (rc, out, launches,
+    wall s)."""
     import torch
     with tempfile.TemporaryDirectory() as tmp:
         deck = os.path.join(tmp, "bench128.ini")
         with open(deck, "w") as f:
-            f.write(BENCH_DECK)
+            f.write(deck_text)
         torch.cuda.reset_peak_memory_stats()
         for m in kernel_modules:
             m.reset_launches()
@@ -611,11 +926,13 @@ def run_main_path(cli_main, kernel_modules, extra, steps: int):
 
 
 def check_main_path(label, rc, out, launches, wall, steps, prod, card,
-                    mode: str):
-    """The checks of phase 3 on one run."""
+                    route: str):
+    """The checks of phase 3 on one run; route: the re-bucket the deck
+    must take (a key of ROUTE_CALLS)."""
     import torch
     check(rc == 0, f"{label}: the CLI returned {rc}")
     sim = out["sim"]
+    mode = "sort" if route == "sort" else "exchange"
     S, per_species = sim.state.alive.shape[0], sim._capacity
     print(f"phase 3 {label}: {type(sim).__name__}, {sim.ts.ntiles} tiles "
           f"of {sim.ts.T}^3, B={sim.ts.B}, M={sim.ts.M}, {mode} re-bucket, "
@@ -627,10 +944,11 @@ def check_main_path(label, rc, out, launches, wall, steps, prod, card,
           f"phase 2 checked the kernels at T={prod.T} M={prod.M} B={prod.B} "
           f"NT={prod.NT}, but the main path derived T={sim.ts.T} "
           f"M={sim.ts.M} B={sim.ts.B} NT={sim.ts.NT}")
+    rows = route != "onehot_tile"
     check(sim._rebucket_mode == mode and sim._exchange_cap == 256
-          and sim._exchange_rows,
+          and sim._exchange_rows == rows,
           f"{label}: expected the {mode} re-bucket with face cap 256 and "
-          f"the row gate true (the caps phase 2 used)")
+          f"the row gate {rows} (the caps phase 2 used)")
     print(f"  launches: {launches}", flush=True)
     check(all(launches[k] > 0 for k in
               ("deposit", "gather", "deposit_move", "gather_kick")),
@@ -643,17 +961,26 @@ def check_main_path(label, rc, out, launches, wall, steps, prod, card,
           and launches["efield_tiles"] == 0,
           f"{label}: expected fold_global once a step and the half kick, "
           f"no pic_step/efield_tiles: {launches}")
-    events = sum(steps // R for R in sim.rebucket_every_s)
-    check(events >= 1 and out["n_lost"] == 0,
-          f"{label}: {events} re-bucket events, {out['n_lost']} margin hits")
-    ex_launches = [launches[k] for k in ("extract", "cleanup", "merge")]
-    if mode == "exchange":
-        check(ex_launches == [events, 3 * events, events] and events >= 2,
-              f"{label}: extract/cleanup/merge ran {ex_launches}, expected "
-              f"(1, 3, 1) x {events} events")
-    else:
-        check(ex_launches == [0, 0, 0],
-              f"{label}: the sort run launched exchange kernels")
+    # species re-bucket events: the scheduled ones, and on the one-hot
+    # decks (vth 0.1 at M = 2: the Maxwellian's tail of 50M particles)
+    # every species again at a step where particles reached the margin
+    scheduled = sum(steps // R for R in sim.rebucket_every_s)
+    calls = ROUTE_CALLS[route]
+    first = next(iter(calls), None)
+    events = launches[first] // calls[first] if first else scheduled
+    onehot = route.startswith("onehot")
+    check(scheduled >= 1 and (out["n_lost"] == 0 or onehot)
+          and (events == scheduled or (onehot and events > scheduled
+                                       and out["n_lost"] > 0)),
+          f"{label}: {events} re-bucket events ({scheduled} scheduled), "
+          f"{out['n_lost']} margin hits")
+    got = {k: launches[k] for k in EXCHANGE_KERNELS}
+    want = {k: calls.get(k, 0) * events for k in EXCHANGE_KERNELS}
+    check(got == want and (events >= 2 or route == "sort"),
+          f"{label}: the exchange kernels ran {got}, expected {want} "
+          f"({events} events)")
+    print(f"  species re-bucket events: {events} ({scheduled} scheduled; "
+          f"{out['n_lost']} particle(s) reached the margin)", flush=True)
     st = sim.state
     on_card = all(t.is_cuda for t in (st.lpos, st.vel, st.alive))
     check(on_card, f"{label}: a state tensor left the card")
@@ -674,6 +1001,10 @@ def check_main_path(label, rc, out, launches, wall, steps, prod, card,
     check(drift <= ENERGY_DRIFT, f"{label}: total energy drifted")
     steps_s = out["step_seconds"][1:]
     step_s = float(sum(steps_s) / len(steps_s))
+    slow = sorted(range(len(steps_s)), key=lambda i: -steps_s[i])[:3]
+    print("  slowest steps (host clock, re-bucket and retune included): "
+          + ", ".join(f"step {i + 2} {steps_s[i] * 1e3:.3f} ms" for i in slow),
+          flush=True)
     print(f"  per-step wall {step_s * 1e3:.3f} ms (mean of steps 2-{steps}, "
           f"re-buckets included; median "
           f"{sorted(steps_s)[len(steps_s) // 2] * 1e3:.3f} ms), "
@@ -788,7 +1119,8 @@ def scan_deck(vth: str, rebucket=None) -> str:
     return deck
 
 
-def run_scan(label: str, deck: str, modules, card: str, expect: dict):
+def run_scan(label: str, deck: str, modules, card: str, expect: dict,
+             route: str = "gather"):
     """Phase 5: the window bench.py:bench_pic times, through
     TiledSimulation.make_scan_steps(steps, donate=True, fresh=True) on the
     card: one untimed warm window, then a timed one, with the launch counts
@@ -836,8 +1168,8 @@ def run_scan(label: str, deck: str, modules, card: str, expect: dict):
         print(f"  {window} window: {wall:.3f} s, launches {launches}",
               flush=True)
         want = {"deposit": S, "pic_step": steps, "fold_global": steps + 1,
-                "efield_tiles": steps + 1, "extract": n_events,
-                "cleanup": 3 * n_events, "merge": n_events}
+                "efield_tiles": steps + 1}
+        want.update({k: n * n_events for k, n in ROUTE_CALLS[route].items()})
         check({k: v for k, v in launches.items() if v} == want,
               f"{label} {window}: launches {launches}, expected {want}")
         on_card = all(t.is_cuda for t in (carry.lpos, carry.vel, carry.alive,
@@ -939,6 +1271,7 @@ def main() -> int:
     from pinc_tpu_torch.ops import exchange as ex
     from pinc_tpu_torch.ops import field_kernels as fk
     from pinc_tpu_torch.ops import gather_exchange as gx
+    from pinc_tpu_torch.ops import onehot_exchange as ox
     from pinc_tpu_torch.ops import tiled_kernels as tk
     from pinc_tpu_torch.ops.tiled import TileSpec, bucket
 
@@ -1077,14 +1410,17 @@ def main() -> int:
         times[name], bounds[name] = (ms, plain_ms), bound
     check_exchange_fixture(gx, ex, gen, dev)
     check_exchange_bench(gx, ex, prod, gen, dev, card, times, bounds)
-    errs.update({k: 0.0 for k in gx.LAUNCHES})      # checked bit-equal
+    check_onehot_fixture(ox, gx, ex, gen, dev)
+    check_onehot_bench(ox, ex, gen, dev, card, times, bounds)
+    # the exchange kernels are checked bit-equal (bit pattern for K11)
+    errs.update({k: 0.0 for m in (gx, ox) for k in m.LAUNCHES})
 
     # -- phase 3: the main path through the CLI, default re-bucket --------
-    modules = (tk, fk, gx)
+    modules = (tk, fk, gx, ox)
     res = run_main_path(cli_main, modules, [], MAIN_STEPS)
     launches = res[2]
     sim, run_ms, run_psteps = check_main_path(
-        "exchange run (default)", *res, MAIN_STEPS, prod, card, "exchange")
+        "exchange run (default)", *res, MAIN_STEPS, prod, card, "gather")
     # -- phase 4: where the time of a step goes ---------------------------
     step_breakdown(sim, card)
     del sim, res
@@ -1095,6 +1431,21 @@ def main() -> int:
     check_main_path("sort run", *res, SORT_STEPS, prod, card, "sort")
     del res
     torch.cuda.empty_cache()
+    # -- phase 3, again: the one-hot exchange decks (K11) ----------------
+    onehot_runs = {}
+    for route in ("onehot_rows", "onehot_tile"):
+        res = run_main_path(cli_main, modules, [], MAIN_STEPS,
+                            deck_text=onehot_deck(route))
+        _, ms_step, psteps = check_main_path(
+            f"{route} run ({ONEHOT_PC} pc, slack "
+            f"{ONEHOT_SLACK[route] or 'default'})", *res, MAIN_STEPS,
+            TileSpec(grid=(128, 128, 128), T=8, M=2, B=ONEHOT_B[route]),
+            card, route)
+        onehot_runs[route] = (ms_step, psteps)
+        # K11 runs on these decks: its launches are their runs'
+        launches.update({k: res[2][k] for k in ROUTE_CALLS[route]})
+        del res
+        torch.cuda.empty_cache()
 
     # -- phase 5: the scan window bench.py times, on the card -------------
     scans = {}
@@ -1102,12 +1453,25 @@ def main() -> int:
             ("headline", f"headline deck (vth {HEADLINE_VTH})",
              scan_deck(HEADLINE_VTH), 2),
             ("aux", f"aux deck (phase 3's, rebucketEvery {AUX_REBUCKET})",
-             scan_deck("0.02,0.0005", AUX_REBUCKET), 1)):
+             scan_deck("0.02,0.0005", AUX_REBUCKET), 1),
+            ("onehot_rows", f"one-hot deck ({ONEHOT_PC} pc, default slack: "
+             f"B = {ONEHOT_B['onehot_rows']})", onehot_deck("onehot_rows"),
+             2)):
+        B = ONEHOT_B[key] if key in ONEHOT_B else prods[M].B
         sim, st, scans[key] = run_scan(label, deck, modules, card,
-                                       dict(M=M, B=prods[M].B, sched=M >= 2))
+                                       dict(M=M, B=B, sched=M >= 2),
+                                       route=key if key in ONEHOT_B
+                                       else "gather")
         mega_breakdown(sim, st, card)
         del sim, st
         torch.cuda.empty_cache()
+    one = scans["onehot_rows"]
+    print(f"  one-hot deck on this card: scan window {one['ms_step']:.4f} "
+          f"ms/step, {one['psteps']:.4e} particle-steps/s, "
+          f"{one['events']} species events a window; run() "
+          + ", ".join(f"{r} {v[0]:.4f} ms/step ({v[1]:.4e} particle-steps/s)"
+                      for r, v in onehot_runs.items()) + f" ({card})",
+          flush=True)
     aux = scans["aux"]
     print(f"  aux deck on this card: scan window {aux['ms_step']:.4f} "
           f"ms/step, {aux['psteps']:.4e} particle-steps/s; phase 3's run() "
@@ -1117,14 +1481,15 @@ def main() -> int:
     for name in ("pic_step", "efield_tiles", "fold_global"):
         launches[name] = scans["headline"]["launches"][name]
 
-    rows = [{"name": name, "route": "cuda", "source": m.SOURCE,
+    rows = [{"name": name, "route": "cuda",
+             "source": getattr(m, "SOURCES", {}).get(name, m.SOURCE),
              "replaces": m.REPLACES[name], "launches": launches[name],
              "max_abs_err": errs[name], "ms": times[name][0],
              "plain_ms": times[name][1], "bound_ms": bounds[name],
              "bound_by": "bytes", "library_ms": None}
             for m in modules for name in m.LAUNCHES]
-    check(len(rows) == 10 and all(r["launches"] > 0 for r in rows),
-          f"expected 10 kernels, each launched on its path: {rows}")
+    check(len(rows) == 15 and all(r["launches"] > 0 for r in rows),
+          f"expected 15 kernels, each launched on its path: {rows}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``)
 — one ``nvcc -c`` per source, all started together — and links the objects
 into one shared library with a plain C interface,
 ``pinc_tpu_torch/_build/libpinc_kernels-<hash>.so``, where ``<hash>`` is a
-content hash of the sources and the flags: an edited source builds anew,
-an unchanged one is loaded from the previous build.  The library is bound
+content hash of the sources, the headers they share (``csrc/*.cuh``) and
+the flags: an edited source builds anew, an unchanged one is loaded from
+the previous build.  The library is bound
 with ``ctypes``: every pointer and the stream are ``c_void_p``, and each
 function returns the ``cudaGetLastError()`` code of its launch.
 
@@ -61,11 +62,23 @@ SIGNATURES = {
     # -- csrc/gather_exchange.cu
     # alive, x, y, z, vx, vy, vz, buf, alive_out, NT, B, kind, Ks, T, stream
     "pinc_gx_extract": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
-    # inc, settled, extras0..5, NT, W, Ke, naxes, T, stream
-    "pinc_gx_cleanup": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
+    # inc, settled, extras0..5, NT, W, Ke, naxes, canon, T, stream
+    "pinc_gx_cleanup": [_P] * 8 + [_I, _I, _I, _I, _I, _F, _P],
     # alive, inc, x, y, z, vx, vy, vz, table (host: off, w pairs), nblocks,
     # NT, B, KT, stream
     "pinc_gx_merge": [_P] * 9 + [_I, _I, _I, _I, _P],
+    # -- csrc/onehot_exchange.cu
+    # coord, alive, x, y, z, vx, vy, vz, buf, alive_out, NT, B, kind, rows,
+    # K, T, stream
+    "pinc_ox_extract": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P],
+    # rank, alive, x, y, z, vx, vy, vz, buf, alive_out, NT, B, K2, stream
+    "pinc_ox_extract_ranked": [_P] * 10 + [_I, _I, _I, _P],
+    # alive, inc, x, y, z, vx, vy, vz, table (host: off, w pairs), nblocks,
+    # NT, B, rows, KT, stream
+    "pinc_ox_merge": [_P] * 9 + [_I, _I, _I, _I, _I, _P],
+    # frank, alive, inc, active, x, y, z, vx, vy, vz, NT, B, K2, CB, NC,
+    # stream
+    "pinc_ox_merge_ranked": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -94,7 +107,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpinc_kernels-{h.hexdigest()[:16]}.so"

@@ -182,8 +182,10 @@ def extract_compact_rows_g_plain(alive, planes, KU: int, T: int):
     return _extract_plain(alive, planes, _ANY, KU, T)
 
 
-def cleanup_rows_g_plain(inc: torch.Tensor, Ke: int, T: int, axes):
-    """See cleanup_rows_g."""
+def cleanup_rows_g_plain(inc: torch.Tensor, Ke: int, T: int, axes,
+                         canon: bool = False):
+    """See cleanup_rows_g.  canon: copy each value as x + 0.0 (-0.0 becomes
+    +0.0, as in pinc_tpu's one-hot cleanup_rows)."""
     NT, _, _, W = inc.shape
     Tf = float(T)
     valid = inc[:, 6] > 0.5
@@ -196,7 +198,7 @@ def cleanup_rows_g_plain(inc: torch.Tensor, Ke: int, T: int, axes):
         masks += [m_m, m_p]
         taken = taken | m_m | m_p
     masks = [valid & ~taken] + masks
-    pays = [inc[:, p] for p in range(NPAY)]
+    pays = [inc[:, p] + 0.0 if canon else inc[:, p] for p in range(NPAY)]
     outs = []
     for c, m in enumerate(masks):
         cap = W if c == 0 else Ke
@@ -268,11 +270,12 @@ def _extract(alive, planes, kind: int, Ks: int, T: int):
     """K8: classify leavers, kill them, compact their 7 values per row.
 
     Replaces pinc_tpu/ops/pallas_gather_exchange.py ``_extract_g``.  Bound
-    on the card: bytes — 16 B/slot read (alive, x, y, z) and 4 B/slot
-    written (alive), plus 12 B read and 28 B written per leaver and the
-    zero tail of the buffer.  Design: one block per tile, one warp per
-    row walking its L slots in 32-slot chunks; ranks by ballot/popc with
-    the run carried in registers, velocities read only for leavers."""
+    on the card: bytes — alive and the classifier's coordinates read (8
+    B/slot for one axis, 16 for all axes) and alive written (4 B/slot),
+    plus 24 B read and 28 B written per leaver and the zero tail of the
+    buffer.  Design: one block per tile, one warp per row walking its L
+    slots in 32-slot chunks; ranks by ballot/popc with the run carried in
+    registers, velocities read only for leavers."""
     dev = alive.device
     NT, B = _check_planes(alive, planes, dev)
     if Ks % 128:
@@ -325,18 +328,32 @@ def cleanup_rows_g(inc: torch.Tensor, Ke: int, T: int, axes):
     warp per row, ballot/popc ranks; one template per axes tuple the
     drivers use: (0, 1, 2), (1, 2) and (2,)."""
     axes = tuple(axes)
-    dev = inc.device
-    if inc.dim() != 4 or tuple(inc.shape[1:3]) != (NPAY, 8):
-        raise ValueError(f"inc must be (NT, 7, 8, W), got {tuple(inc.shape)}")
-    NT, _, _, W = inc.shape
+    W = _check_inc(inc)
     if W % 128 or Ke % 128:
         raise ValueError(f"W and Ke must be multiples of 128, got {W}, {Ke}")
-    _check(inc, "inc", tuple(inc.shape), dev)
     if _is_cpu(inc, "cleanup"):
         return cleanup_rows_g_plain(inc, Ke, T, axes)
+    return launch_cleanup(inc, Ke, T, axes, False, "cleanup", LAUNCHES)
+
+
+def _check_inc(inc: torch.Tensor) -> int:
+    """inc must be a contiguous float32 (NT, 7, 8, W); returns W."""
+    if inc.dim() != 4 or tuple(inc.shape[1:3]) != (NPAY, 8):
+        raise ValueError(f"inc must be (NT, 7, 8, W), got {tuple(inc.shape)}")
+    _check(inc, "inc", tuple(inc.shape), inc.device)
+    return inc.shape[-1]
+
+
+def launch_cleanup(inc: torch.Tensor, Ke: int, T: int, axes, canon: bool,
+                   name: str, counts: dict):
+    """Launch K10 on CUDA tensors (any W and Ke), adding one to
+    counts[name]: the kernel of cleanup_rows_g and of the one-hot
+    exchange's cleanup_rows (canon)."""
     if axes not in ((0, 1, 2), (1, 2), (2,)):
         raise ValueError(f"the cleanup kernel takes axes (0, 1, 2), (1, 2) "
                          f"or (2,), got {axes}")
+    NT, _, _, W = inc.shape
+    dev = inc.device
     settled = torch.empty_like(inc)
     extras = [torch.empty((NT, NPAY, 8, Ke), dtype=torch.float32, device=dev)
               for _ in range(2 * len(axes))]
@@ -344,9 +361,9 @@ def cleanup_rows_g(inc: torch.Tensor, Ke: int, T: int, axes):
         6 - len(extras))
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
-        _launch("cleanup", lib.pinc_gx_cleanup, _ptr(inc), _ptr(settled),
-                *ptrs, NT, W, Ke, len(axes), float(T), _stream(dev),
-                counts=LAUNCHES)
+        _launch(name, lib.pinc_gx_cleanup, _ptr(inc), _ptr(settled),
+                *ptrs, NT, W, Ke, len(axes), int(canon), float(T),
+                _stream(dev), counts=counts)
     return settled, tuple(extras)
 
 
@@ -405,18 +422,25 @@ def _shift_block(inc: torch.Tensor, d: int, T: int, parts) -> torch.Tensor:
     return inc
 
 
+def _torch_roll(a: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
+    return torch.roll(a, shift, axis)
+
+
 def exchange_dim_g(planes, alive: torch.Tensor, ntiles: Tuple[int, ...],
-                   d: int, T: int, Ks: int):
+                   d: int, T: int, Ks: int, roll_fn=None):
     """One axis' +-1-tile transfer: extract, roll the minus run to the
     lower neighbour and the plus run to the upper one, shift, merge.
-    Returns (planes, alive'); planes are updated in place."""
+    roll_fn(x, shift, axis) replaces torch.roll over the tile grid (for a
+    sharded grid).  Returns (planes, alive'); planes are updated in
+    place."""
     NT, _ = alive.shape
     Ks = round_cap(Ks)
     nt = tuple(ntiles)
+    roll = roll_fn or _torch_roll
     bufs, alive2 = extract_rows_g(d, alive, planes, Ks, T)
     b = bufs.reshape(nt + (NPAY, 8, 2 * Ks))
-    minus = torch.roll(b[..., :Ks], -1, d)
-    plus = torch.roll(b[..., Ks:], 1, d)
+    minus = roll(b[..., :Ks], -1, d)
+    plus = roll(b[..., Ks:], 1, d)
     inc = torch.cat([minus, plus], -1).reshape(NT, NPAY, 8, 2 * Ks)
     inc = _shift_block(inc, d, T, ((Ks, 1), (Ks, -1)))
     return merge_rows_g(alive2, inc, planes, ((0, Ks), (Ks, Ks)))
@@ -424,16 +448,18 @@ def exchange_dim_g(planes, alive: torch.Tensor, ntiles: Tuple[int, ...],
 
 def rebucket_exchange_all_rows_g(planes, alive: torch.Tensor,
                                  ntiles: Tuple[int, ...], T: int, Ks: int,
-                                 KU: int = None):
+                                 KU: int = None, roll_fns=None):
     """Fused all-axes exchange: one compact extract, a cleanup splitting
     it into six faces, the x -> y -> z hops over the small buffers (with a
     cleanup after x and after y re-routing corner movers), one merge.
     Ks is the row face cap, KU the total cap (default total_cap(Ks)); the
     cap of the extras re-routed by the x and y cleanups is Ke = max(128,
-    Ks/4), rounded.  Returns (planes, alive', n_dropped); planes are
+    Ks/4), rounded.  roll_fns: per-axis replacements of torch.roll (see
+    exchange_dim_g).  Returns (planes, alive', n_dropped); planes are
     updated in place."""
     NT, _ = alive.shape
     nt = tuple(ntiles)
+    roll = roll_fns or (_torch_roll,) * 3
     Ks = round_cap(Ks)
     Ke = round_cap(max(128, Ks // 4))
     n0 = alive.to(torch.int32).sum()
@@ -454,7 +480,7 @@ def rebucket_exchange_all_rows_g(planes, alive: torch.Tensor,
         return x.reshape(nt + (NPAY, 8, x.shape[-1]))
 
     # x hop: face buffers only
-    inc_x = flat(cat([torch.roll(face[0], -1, 0), torch.roll(face[1], 1, 0)]))
+    inc_x = flat(cat([roll[0](face[0], -1, 0), roll[0](face[1], 1, 0)]))
     inc_x = _shift_block(inc_x, 0, T, ((Ks, 1), (Ks, -1)))
     settled_x, (ym_e, yp_e, zm_e, zp_e) = cleanup_rows_g(inc_x, Ke, T,
                                                          axes=(1, 2))
@@ -464,7 +490,7 @@ def rebucket_exchange_all_rows_g(planes, alive: torch.Tensor,
     Wy1 = Ks + Ke
     ym_b = cat([face[2], grid5(ym_e)])
     yp_b = cat([face[3], grid5(yp_e)])
-    inc_y = flat(cat([torch.roll(ym_b, -1, 1), torch.roll(yp_b, 1, 1)]))
+    inc_y = flat(cat([roll[1](ym_b, -1, 1), roll[1](yp_b, 1, 1)]))
     inc_y = _shift_block(inc_y, 1, T, ((Wy1, 1), (Wy1, -1)))
     settled_y, (zm_e2, zp_e2) = cleanup_rows_g(inc_y, Ke, T, axes=(2,))
 
@@ -472,7 +498,7 @@ def rebucket_exchange_all_rows_g(planes, alive: torch.Tensor,
     Wz1 = Ks + 2 * Ke
     zm_b = cat([face[4], grid5(zm_e), grid5(zm_e2)])
     zp_b = cat([face[5], grid5(zp_e), grid5(zp_e2)])
-    inc_z = flat(cat([torch.roll(zm_b, -1, 2), torch.roll(zp_b, 1, 2)]))
+    inc_z = flat(cat([roll[2](zm_b, -1, 2), roll[2](zp_b, 1, 2)]))
     inc_z = _shift_block(inc_z, 2, T, ((Wz1, 1), (Wz1, -1)))
 
     # merge: settled_x, settled_y and the six z sub-runs, each compacted

@@ -13,15 +13,14 @@ Deck knobs, section ``[tiles]``: ``tileSize`` (default 8), ``margin``
 (default 1 when the velocity scale allows a re-bucket cadence >= 4, else
 2), ``slack`` (bucket head room, default 1.25), ``rebucketEvery``
 (default: per species, from the velocity scale), ``mxuDtype`` (f32 or
-bf16 weights) and ``rebucket``.  Re-bucketing is, by default, the gather
-exchange of ``ops/exchange.py`` (kernels K8-K10): live slots that left
-their tile move to the neighbouring tile through per-row buffers, tuned by
-``exchangeCap`` (face cap), ``exchangeRows``, ``exchangeFused``,
-``exchangeImpl`` and ``exchangeTotalCap``.  ``tiles:rebucket = sort``
-selects the stable sort of ``ops/tiled.bucket`` instead.  Decks on which
-pinc_tpu would take its one-hot exchange (K11: B % 1024 != 0, or the
-per-row gate fails) raise ``NotImplementedError`` unless they ask for the
-sort.
+bf16 weights) and ``rebucket``.  Re-bucketing is, by default, the
+exchange of ``ops/exchange.py``: live slots that left their tile move to
+the neighbouring tile through buffers, tuned by ``exchangeCap`` (face
+cap), ``exchangeRows``, ``exchangeFused``, ``exchangeImpl`` and
+``exchangeTotalCap``.  As in pinc_tpu, it takes the gather kernels
+(K8-K10) when B % 1024 == 0 and the per-row gate holds, else the one-hot
+kernels (K11, ``ops/onehot_exchange.py``).  ``tiles:rebucket = sort``
+selects the stable sort of ``ops/tiled.bucket`` instead.
 
 ``make_scan_steps(n)`` is the production long-run path (the counterpart of
 pinc_tpu's ``make_scan_steps``): n steps with the per-species re-bucket schedule
@@ -51,6 +50,7 @@ from .grid import gradient, potential_energy
 from .ops import exchange as ex
 from .ops import field_kernels as fk
 from .ops import gather_exchange as gx
+from .ops import onehot_exchange as ox
 from .ops import tiled as tl
 from .ops import tiled_kernels as tk
 from .population import Particles
@@ -164,9 +164,6 @@ class TiledSimulation(Simulation):
         self._exchange_cap = cfg.get_int("tiles:exchangecap", cap)
         self._cap_escalation = 1.0        # retune()'s factor after drops
         self._exchange_rows = self._rows_default(B, ppt)
-        if self._rebucket_mode == "exchange":
-            ex.require_gather(B, self.ts.ntiles, self._exchange_rows,
-                              cfg.get_str("tiles:exchangeimpl", "auto"))
 
         # per-species re-bucket cadences; slow cadences snap down to a
         # multiple of the fastest
@@ -261,13 +258,14 @@ class TiledSimulation(Simulation):
         """Default of tiles:exchangeRows.  The gather exchange spills a
         row's arrivals into the tile's other rows, so only the tile needs
         head room: free slots >= 2x the rounded row face cap (and
-        B % 1024 == 0).  pinc_tpu's one-hot row kernels (K11, not ported)
-        need it in every row."""
+        B % 1024 == 0).  The one-hot row kernels bind arrivals to their
+        row, so every row needs it: free slots per row >= 2x the row face
+        cap; else the per-tile one-hot kernels run."""
         if "tiles:exchangerows" in self.cfg:
             return self.cfg.get_bool("tiles:exchangerows")
         if B % 8:
             return False
-        ks = ex.default_row_cap(self._exchange_cap, B)
+        ks = ox.default_row_cap(self._exchange_cap, B)
         free_per_row = (B - ppt) / 8.0
         if gx.supported(B):
             return 8 * free_per_row >= 2 * gx.round_cap(ks)

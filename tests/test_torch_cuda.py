@@ -16,8 +16,11 @@ the plain version's order), its tiles and vdot as the deposits' and the
 kicks'.  efield_tiles and fold_global are exact (the same float32
 operations in the same order).  The exchange kernels (extract, cleanup,
 merge) and the whole exchange re-bucket are exact: they copy bits and add
-+-T in f32 as the plain versions do.  The slice and the scan on the card vs the
-CPU: energies rtol 1e-4 and state atol 1e-4 (cuFFT vs pocketfft and
++-T in f32 as the plain versions do.  So are the one-hot exchange kernels
+(extract R = 1 and 8, by axis, all axes or given ranks; merge R = 1 and 8,
+by block table or given free ranks; the cleanup), compared bit pattern for
+bit pattern since they turn -0.0 into +0.0.  The slice and the scan on the
+card vs the CPU: energies rtol 1e-4 and state atol 1e-4 (cuFFT vs pocketfft and
 atomic-order sums, over 6 or 8 steps)."""
 
 import numpy as np
@@ -28,6 +31,7 @@ from pinc_tpu_torch.config import PincConfig
 from pinc_tpu_torch.ops import exchange as ex
 from pinc_tpu_torch.ops import field_kernels as fk
 from pinc_tpu_torch.ops import gather_exchange as gx
+from pinc_tpu_torch.ops import onehot_exchange as ox
 from pinc_tpu_torch.ops import tiled_kernels as tk
 from pinc_tpu_torch.ops.tiled import TileSpec, bucket
 
@@ -319,6 +323,179 @@ def test_exchange_wrappers_check_their_inputs(cuda):
                         ((0, 128),))
 
 
+def _onehot_fixture(dev, seed=0, B=640):
+    """8 tiles (2x2x2 of 4^3 cells), B = 640 (rows of 80 slots, not a
+    multiple of 32) or any B: 80% alive over [-1.5, 5.5); for B % 8 == 0
+    the first 40 slots of every row of tile 0 leave through -x, past the
+    row and tile caps; every 7th vy and 9th y is -0.0."""
+    rng = np.random.default_rng(seed)
+    alive = (rng.uniform(size=(8, B)) < 0.8).astype(np.float32)
+    planes = [rng.uniform(-1.5, 5.5, (8, B)).astype(np.float32)
+              for _ in range(3)]
+    planes += [rng.normal(size=(8, B)).astype(np.float32) for _ in range(3)]
+    if B % 8 == 0:
+        planes[0][0].reshape(8, B // 8)[:, :40] = -0.5
+        alive[0].reshape(8, B // 8)[:, :40] = 1.0
+    planes[4][:, ::7] = -0.0
+    planes[1][:, ::9] = -0.0
+    return (torch.from_numpy(alive).to(dev),
+            tuple(torch.from_numpy(p).to(dev) for p in planes))
+
+
+def _bits_equal(a, b):
+    """Same shape and float32 bit patterns (so -0.0 != +0.0)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _room(dev, B=640):
+    """Destination alive: every row of every tile half full, rows 0-4
+    full (for B % 8 == 0), so arrivals outnumber some rows' free slots."""
+    rng = np.random.default_rng(3)
+    alive = (rng.uniform(size=(8, B)) < 0.5).astype(np.float32)
+    if B % 8 == 0:
+        alive.reshape(8, 8, B // 8)[:, :5] = 1.0
+    return torch.from_numpy(alive).to(dev)
+
+
+@pytest.mark.cuda
+def test_onehot_kernels_match_plain(cuda):
+    alive, planes = _onehot_fixture(cuda)
+    before = dict(ox.LAUNCHES)
+    for d in range(3):
+        for kern, plain, R, cap in (
+                (ox.extract_fused, ox.extract_fused_plain, 1, 32),
+                (ox.extract_rows, ox.extract_rows_plain, 8, 16)):
+            b, a2 = kern(planes[d], alive, planes, cap, 4)
+            br, a2r = plain(planes[d], alive, planes, cap, 4)
+            assert _bits_equal(b, br) and _bits_equal(a2, a2r), (d, R)
+            if d == 0:          # tile 0 overflows the minus run's cap
+                assert float(b[0, 6, :, :cap].sum()) == R * cap
+    b6, a6 = ox.extract_all_rows(planes, alive, 16, 4)
+    assert _bits_equal(b6, ox.extract_all_rows_plain(planes, alive, 16, 4)[0])
+    assert _bits_equal(a6, ox.extract_all_rows_plain(planes, alive, 16, 4)[1])
+    assert float(b6[0, 6, :, :16].sum()) == 8 * 16
+    # the x hop of the v5 exchange, then its cleanups (Ke = 2 overflows)
+    roll = gx._torch_roll
+    inc_x = torch.cat([ox._roll_blocked(b6[..., :16], (2, 2, 2), 0, -1, roll),
+                       ox._roll_blocked(b6[..., 16:32], (2, 2, 2), 0, 1,
+                                        roll)], -1)
+    inc_x = gx._shift_block(inc_x, 0, 4, ((16, 1), (16, -1)))
+    for axes in ((1, 2), (2,)):
+        st, e = ox.cleanup_rows(inc_x, 32, 2, 4, axes)
+        sr, er = ox.cleanup_rows_plain(inc_x, 32, 2, 4, axes)
+        assert _bits_equal(st, sr) and all(map(_bits_equal, e, er)), axes
+    # merges into rows that cannot take every arrival
+    inc_r, _ = ox.extract_rows(planes[0], alive, planes, 16, 4)
+    inc_t, _ = ox.extract_fused(planes[1], alive, planes, 32, 4)
+    f = [b6[..., i * 16:(i + 1) * 16] for i in range(6)]
+    inc_a = torch.cat([f[0], f[1], f[2], f[0][..., :8], f[3], f[1][..., :8],
+                       f[4], f[2][..., :8], f[3][..., :8], f[5],
+                       f[4][..., :8], f[5][..., :8]], -1).contiguous()
+    blocks, off = [], 0
+    for w in (32, 48, 16, 8, 8, 16, 8, 8):
+        blocks.append((off, w))
+        off += w
+    merges = {
+        "rows": (lambda a, p: ox.merge_rows(a, inc_r, p, 16),
+                 lambda a, p: ox.merge_rows_plain(a, inc_r, p, 16)),
+        "fused": (lambda a, p: ox.merge_fused(a, inc_t, p, 32),
+                  lambda a, p: ox.merge_fused_plain(a, inc_t, p, 32)),
+        "all_rows": (lambda a, p: ox.merge_all_rows(a, inc_a, p, blocks),
+                     lambda a, p: ox.merge_all_rows_plain(a, inc_a, p,
+                                                          blocks)),
+    }
+    for name, (kern, plain) in merges.items():
+        a_k, p_k = _clone(_room(cuda), planes)
+        a_p, p_p = _clone(_room(cuda), planes)
+        kern(a_k, p_k)
+        plain(a_p, p_p)
+        assert _bits_equal(a_k, a_p) and all(map(_bits_equal, p_k, p_p)), name
+        assert float(a_k.sum()) > float(_room(cuda).sum()), name
+    torch.cuda.synchronize()
+    assert {k: ox.LAUNCHES[k] - before[k] for k in before} == {
+        "onehot_extract_rows": 5, "onehot_extract_tile": 4,
+        "onehot_cleanup": 2, "onehot_merge_rows": 2, "onehot_merge_tile": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("active", ["flags", "none", "skip"])
+def test_onehot_ranked_kernels_match_plain(cuda, active):
+    """pinc_tpu's B % 8 != 0 kernels, at B = 100 and at B = 2100 (chunks
+    of 4 slots for the active flags): ranks given, K = 16."""
+    for B in (100, 2100):
+        alive, planes = _onehot_fixture(cuda, seed=1, B=B)
+        al = alive > 0.5
+        lm, lp = al & (planes[2] < 0), al & (planes[2] >= 4)
+        rm = torch.cumsum(lm, 1, dtype=torch.int32) - 1
+        rp = torch.cumsum(lp, 1, dtype=torch.int32) - 1
+        rank = torch.where(lm & (rm < 16), rm,
+                           torch.where(lp & (rp < 16), 16 + rp,
+                                       torch.full_like(rm, -1)))
+        rank = torch.where((lm & (rm >= 16)) | (lp & (rp >= 16)),
+                           torch.full_like(rm, 32), rank)
+        b, a2 = ox.extract(rank, alive, planes, 32)
+        br, a2r = ox.extract_plain(rank, alive, planes, 32)
+        assert _bits_equal(b, br) and _bits_equal(a2, a2r)
+        room = _room(cuda, B)
+        free = room <= 0.5
+        fr_incl = torch.cumsum(free, 1, dtype=torch.int32)
+        frank = torch.where(free, fr_incl - 1, torch.full_like(fr_incl, -1))
+        act = None
+        if active != "none":
+            CB = ox._chunk(B)
+            ends = fr_incl[:, CB - 1::CB]
+            base = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
+            act = ((base < b[:, 6].sum((-2, -1))[:, None]) & (ends > base)
+                   ).to(torch.int32)
+            if active == "skip":
+                act[::2] = 0
+        outs = []
+        for merge in (ox.merge, ox.merge_plain):
+            a, p = _clone(room, planes)
+            merge(frank, a, b, p, active=act)
+            outs.append((a, p))
+        (a_k, p_k), (a_p, p_p) = outs
+        assert _bits_equal(a_k, a_p) and all(map(_bits_equal, p_k, p_p))
+        assert float(a_k[1::2].sum()) > float(room[1::2].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["v5", "v5_overflow", "v4", "v3", "v2"])
+def test_onehot_drivers_match_cpu(cuda, route):
+    """The one-hot drivers on the card (kernels) and on the CPU (plain
+    versions): planes, alive and the drop count, bit for bit."""
+    B = 100 if route == "v2" else 640
+    alive, planes = _onehot_fixture("cpu", seed=2, B=B)
+    kw = {"v5": dict(K=64, rows=True), "v5_overflow": dict(K=16, rows=True),
+          "v4": dict(K=64, rows=True, fused=False),
+          "v3": dict(K=32), "v2": dict(K=16)}[route]
+    outs = []
+    for dev in ("cpu", cuda):
+        a, p = _clone(alive.to(dev), tuple(q.to(dev) for q in planes))
+        outs.append(ex.rebucket_exchange_planes(p, a, (2, 2, 2), 4, **kw))
+    (p_c, a_c, d_c), (p_g, a_g, d_g) = outs
+    assert int(d_g) == int(d_c) > 0
+    assert _bits_equal(a_g.cpu(), a_c)
+    assert all(_bits_equal(g.cpu(), c) for g, c in zip(p_g, p_c))
+
+
+@pytest.mark.cuda
+def test_onehot_wrappers_check_their_inputs(cuda):
+    alive, planes = _onehot_fixture(cuda, B=100)
+    with pytest.raises(ValueError, match="B % 8"):
+        ox.extract_rows(planes[0], alive, planes, 16, 4)
+    with pytest.raises(TypeError, match="int32"):
+        ox.extract(torch.zeros((8, 100), dtype=torch.int64, device=cuda),
+                   alive, planes, 32)
+    with pytest.raises(ValueError, match="two runs"):
+        ox.merge(torch.zeros((8, 100), dtype=torch.int32, device=cuda),
+                 alive, torch.zeros((8, 7, 1, 31), device=cuda), planes)
+    alive, planes = _onehot_fixture(cuda)
+    with pytest.raises(ValueError, match="is on"):
+        ox.merge_fused(alive, torch.zeros((8, 7, 1, 64)), planes, 32)
+
+
 DECK = """
 [time]
 nTimeSteps = 6
@@ -355,29 +532,47 @@ rebucket = sort
 """
 
 
+# the exchange routes of the slice deck (8 per cell, T = 4: 512 per tile)
+# by slack: B = 1024 takes the gather exchange, B = 640 the per-tile
+# one-hot sweeps (the row gate fails), B = 1152 the fused one-hot rows
+SLACK = {"exchange": 2.0, "onehot_tile": 1.25, "onehot_rows": 2.25}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rebucket", ["sort", "exchange"])
+@pytest.mark.parametrize("rebucket", ["sort", "exchange", "onehot_tile",
+                                      "onehot_rows"])
 @pytest.mark.parametrize("dt", list(MXU))
 def test_slice_on_the_card_matches_cpu(cuda, dt, rebucket):
     from pinc_tpu_torch.tiled_sim import TiledSimulation
     deck = DECK + f"mxuDtype = {dt}\n"
-    if rebucket == "exchange":     # the default; B = 1024 at slack 2.0
-        deck = deck.replace("rebucket = sort\n", "slack = 2.0\n")
+    if rebucket != "sort":
+        deck = deck.replace("rebucket = sort\n",
+                            f"slack = {SLACK[rebucket]}\n")
     runs = {}
     for dev in ("cpu", cuda):
-        for m in (tk, fk, gx):
+        for m in (tk, fk, gx, ox):
             m.reset_launches()
         sim = TiledSimulation(PincConfig.from_string(deck), seed=3, device=dev)
         runs[str(dev)] = (sim.run(progress_every=0), sim,
-                          {**tk.LAUNCHES, **fk.LAUNCHES, **gx.LAUNCHES})
+                          {**tk.LAUNCHES, **fk.LAUNCHES, **gx.LAUNCHES,
+                           **ox.LAUNCHES})
     (h_cpu, s_cpu, n_cpu), (h_gpu, s_gpu, n_gpu) = runs.values()
-    assert s_gpu._rebucket_mode == rebucket
+    assert s_gpu._rebucket_mode == rebucket.split("_")[0].replace(
+        "onehot", "exchange")
     assert n_cpu == {k: 0 for k in n_cpu}
-    events = 2 * 3 if rebucket == "exchange" else 0   # 2 species x 3 events
-    assert n_gpu == {"deposit": 2, "gather": 2, "deposit_move": 12,
-                     "gather_kick": 12, "pic_step": 0, "efield_tiles": 0,
-                     "fold_global": 7, "extract": events,
-                     "cleanup": 3 * events, "merge": events}
+    events = 2 * 3                                    # 2 species x 3 events
+    want = {"deposit": 2, "gather": 2, "deposit_move": 12, "gather_kick": 12,
+            "fold_global": 7}
+    want.update({
+        "sort": {},
+        "exchange": {"extract": events, "cleanup": 3 * events,
+                     "merge": events},
+        "onehot_tile": {"onehot_extract_tile": 3 * events,
+                        "onehot_merge_tile": 3 * events},
+        "onehot_rows": {"onehot_extract_rows": events,
+                        "onehot_cleanup": 2 * events,
+                        "onehot_merge_rows": events}}[rebucket])
+    assert {k: v for k, v in n_gpu.items() if v} == want
     assert s_gpu.state.lpos.is_cuda and h_gpu["dropped"] == 0
     np.testing.assert_allclose(h_gpu["kinetic"], h_cpu["kinetic"], rtol=1e-4)
     np.testing.assert_allclose(h_gpu["potential"], h_cpu["potential"],

@@ -30,6 +30,7 @@ from pinc_tpu.tiled_sim import TiledSimulation as JTiledSimulation
 from pinc_tpu_torch.config import PincConfig
 from pinc_tpu_torch.ops import exchange as ex
 from pinc_tpu_torch.ops import gather_exchange as gx
+from pinc_tpu_torch.ops import onehot_exchange as ox
 from pinc_tpu_torch.tiled_sim import TiledSimulation
 
 GRID, T, B, K = (8, 8, 8), 4, 2048, 256
@@ -303,16 +304,15 @@ def test_routing_matches_pinc_tpu(monkeypatch, route):
     monkeypatch.setattr(gx, "rebucket_exchange_all_rows_g",
                         _record(tcalls, "gather"))
     monkeypatch.setattr(gx, "exchange_dim_g", _record_dim(tcalls, "dim"))
+    monkeypatch.setattr(ox, "rebucket_exchange_all_rows",
+                        _record(tcalls, "onehot"))
+    monkeypatch.setattr(ox, "exchange_dim", _record_dim(tcalls, "onehot"))
     nt_ = int(np.prod(nt))
     kw = dict(K=256, rows=rows, fused=fused, impl=impl)
     pex.rebucket_exchange_planes((jnp.zeros((nt_, B_)),) * 6,
                                  jnp.zeros((nt_, B_)), nt, 4, **kw)
     planes = tuple(torch.zeros((nt_, B_)) for _ in range(6))
-    if jcalls[0][0] == "onehot":
-        with pytest.raises(NotImplementedError, match="tiles:rebucket=sort"):
-            ex.rebucket_exchange_planes(planes, torch.zeros((nt_, B_)), nt, 4,
-                                        **kw)
-    elif B_ % 1024:            # pinc_tpu reaches an assertion in pgx
+    if B_ % 1024 and jcalls[0][0] != "onehot":  # an assertion in pgx
         with pytest.raises(ValueError, match="B % 1024"):
             ex.rebucket_exchange_planes(planes, torch.zeros((nt_, B_)), nt, 4,
                                         **kw)

@@ -27,6 +27,7 @@ from pinc_tpu.__main__ import main as jmain
 from pinc_tpu.config import PincConfig as JConfig
 from pinc_tpu.registry import RUN_MODES as JRUN_MODES
 from pinc_tpu.ops import pallas_exchange as pex
+from pinc_tpu.ops import pallas_gather_exchange as pgx
 from pinc_tpu.simulation import Simulation as JSimulation
 from pinc_tpu.tiled_sim import TiledSimulation as JTiledSimulation
 from pinc_tpu.tiled_sim import TiledState as JTiledState
@@ -34,6 +35,8 @@ from pinc_tpu_torch import compat
 from pinc_tpu_torch.__main__ import main
 from pinc_tpu_torch.config import PincConfig
 from pinc_tpu_torch.ops import exchange as ex
+from pinc_tpu_torch.ops import gather_exchange as gx
+from pinc_tpu_torch.ops import onehot_exchange as ox
 from pinc_tpu_torch.simulation import Simulation
 from pinc_tpu_torch.tiled_sim import TiledSimulation
 
@@ -163,7 +166,11 @@ FLAT = DECK.replace("layout = tiled", "layout = flat").replace(
     "8 pc", "4 pc")
 
 
-EXCHANGE = DECK.replace("rebucket = sort\n", "slack = 2.0\n") + "mxuDtype = f32\n"
+def _exchange_deck(knobs: str) -> str:
+    return DECK.replace("rebucket = sort\n", knobs) + "mxuDtype = f32\n"
+
+
+EXCHANGE = _exchange_deck("slack = 2.0\n")
 
 
 def _spy(monkeypatch, module, name):
@@ -178,13 +185,35 @@ def _spy(monkeypatch, module, name):
     return calls
 
 
-def test_tiled_exchange_run_matches_pinc_tpu(monkeypatch):
-    """The default re-bucket, the gather exchange, on both sides: energies,
-    the final state, alive and the drop count."""
-    jsim = JTiledSimulation(JConfig.from_string(EXCHANGE), seed=3)
-    assert jsim._rebucket_mode == "exchange" and jsim._exchange_rows
-    assert jsim.ts.B == 1024 and jsim._use_fused
+# the exchange decks: (knobs, B, row gate, the driver both packages take);
+# the gather needs B % 1024 == 0, the one-hot rows need the row gate
+EXCHANGE_DECKS = {
+    "gather": ("slack = 2.0\n", 1024, True, "rebucket_exchange_all_rows_g"),
+    "onehot_v3": ("slack = 1.25\n", 640, False, "exchange_dim"),
+    "onehot_v5": ("slack = 2.25\n", 1152, True, "rebucket_exchange_all_rows"),
+    "onehot_v4": ("slack = 2.25\nexchangeFused = false\n", 1152, True,
+                  "exchange_dim"),
+}
+DRIVERS = {"rebucket_exchange_all_rows_g": (pgx, gx),
+           "exchange_dim_g": (pgx, gx),
+           "rebucket_exchange_all_rows": (pex, ox),
+           "exchange_dim": (pex, ox)}
+
+
+@pytest.mark.parametrize("deck", list(EXCHANGE_DECKS))
+def test_tiled_exchange_run_matches_pinc_tpu(monkeypatch, deck):
+    """The exchange re-bucket on both sides, on a deck per route: the
+    gather exchange (B = 1024) and pinc_tpu's one-hot exchange (B % 1024
+    != 0): the per-tile sweeps (the row gate false), the fused row exchange
+    and the per-row sweeps.  Each package takes the same driver; energies,
+    the final state, alive and the drop count agree."""
+    knobs, B, rows, driver = EXCHANGE_DECKS[deck]
+    text = _exchange_deck(knobs)
+    jsim = JTiledSimulation(JConfig.from_string(text), seed=3)
+    assert jsim._rebucket_mode == "exchange" and jsim._exchange_rows == rows
+    assert jsim.ts.B == B and jsim._use_fused
     jcalls = _spy(monkeypatch, pex, "rebucket_exchange_planes")
+    jdrv = {n: _spy(monkeypatch, m[0], n) for n, m in DRIVERS.items()}
     # jsim._rebucket inlines both species' exchanges into one compile; the
     # same calls, with one species' exchange compiled once and reused
     one = jax.jit(jsim._rebucket_one)
@@ -203,12 +232,15 @@ def test_tiled_exchange_run_matches_pinc_tpu(monkeypatch):
                final=tuple(np.asarray(getattr(jsim.state, k))
                            for k in ("lpos", "vel", "alive")))
     assert jcalls
+    assert {n for n, c in jdrv.items() if c} == {driver}
     calls = _spy(monkeypatch, ex, "rebucket_exchange_planes")
-    sim = TiledSimulation(PincConfig.from_string(EXCHANGE), seed=3,
-                          device="cpu")
-    assert sim._rebucket_mode == "exchange" and sim._exchange_rows
+    tdrv = {n: _spy(monkeypatch, m[1], n) for n, m in DRIVERS.items()}
+    sim = TiledSimulation(PincConfig.from_string(text), seed=3, device="cpu")
+    assert sim._rebucket_mode == "exchange" and sim._exchange_rows == rows
+    assert sim.ts.B == B
     hist = sim.run(progress_every=0)
     assert len(calls) == 2 * 3          # 2 species x steps 2, 4, 6
+    assert {n for n, c in tdrv.items() if c} == {driver}
     _compare(ref, hist, sim, "f32")
 
 
@@ -260,6 +292,25 @@ def test_cli_runs_the_tiled_slice(tmp_path):
     assert main([str(deck), "getnp"]) == 0
 
 
+@pytest.mark.parametrize("slack, rows, driver", [
+    (1.25, False, "exchange_dim"), (2.25, True, "rebucket_exchange_all_rows")],
+    ids=["row_gate_false", "row_gate_true"])
+def test_cli_runs_onehot_decks(tmp_path, monkeypatch, slack, rows, driver):
+    """The CLI on the slice deck with the default exchange and B % 1024 !=
+    0 (B = 640 or 1152): pinc_tpu's one-hot exchange, no sort needed."""
+    deck = tmp_path / "deck.ini"
+    deck.write_text(_exchange_deck(f"slack = {slack}\n"))
+    drivers = {n: _spy(monkeypatch, m[1], n) for n, m in DRIVERS.items()}
+    out = {}
+    assert main([str(deck), "time:nTimeSteps=2"], out=out,
+                device="cpu") == 0
+    sim = out["sim"]
+    assert sim.ts.B % 1024 and sim._exchange_rows == rows
+    assert {n for n, c in drivers.items() if c} == {driver}
+    assert out["dropped"] == 0
+    assert int(sim.state.alive.sum()) == 2 * 8 * 16 ** 3
+
+
 def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
     """Without a card, a run that does not pass device="cpu" raises before
     it starts; getnp needs no card."""
@@ -274,7 +325,7 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override, match", [
-    ("tiles:rebucket=exchange", "tiles:rebucket=sort"),
+    ("methods:mode=puModeInterp", "puModeInterp"),
     ("objects:objects=sphere.h5", "objects"),
     ("files:output=out/run", "files:output"),
     ("files:checkpointEvery=2", "checkpoint"),
@@ -298,6 +349,7 @@ def test_no_jax_import():
         import pinc_tpu_torch.tiled_sim, pinc_tpu_torch.parallel.pic
         import pinc_tpu_torch.ops.tiled_kernels, pinc_tpu_torch.ops._cuda_build
         import pinc_tpu_torch.ops.gather_exchange, pinc_tpu_torch.ops.exchange
+        import pinc_tpu_torch.ops.onehot_exchange
         import pinc_tpu_torch.ops.field_kernels
         import pinc_tpu_torch.utils.timer
         bad = [m for m in sys.modules
