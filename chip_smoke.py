@@ -56,16 +56,25 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    window, then a timed one, each checked as phase 3's runs (launches,
    state on the card, drops, alive count, energy); then a CUDA-event split
    of one mega step and each species' exchange.
+6. The kernel benchmark (K12 and K13's deposit/gather probes): each mode
+   of the two variant kernels of csrc/kbench.cu against its plain version
+   at the test fixture (M = 1 and 2, B = 256 and 1040), then
+   pinc_tpu_torch.kbench.run in process at the scripts' production shapes
+   (4096 tiles; B = 12288 at M = 1, 2 for K12 on K1/K3; B = 9216 at M = 1
+   for the probes), every row against its plain version (int8 bit for
+   bit), with its time, bound, share of the bound and error against K1/K3
+   bf16, and the ceilings' times against K1's and K3's.
 
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
 JSON object with each kernel's numbers (launches on the path that runs
 it: phase 3's exchange run, its one-hot runs for the one-hot kernels (the
-row kernels the B = 7680 run, the per-tile ones the B = 6528 run), or for
+row kernels the B = 7680 run, the per-tile ones the B = 6528 run), for
 pic_step, efield_tiles and fold_global the headline scan window of phase
-5; max error against the plain version;
-kernel and plain ms; and bound_ms: the bytes the call must move at 3.35
-TB/s, from this run's inputs); the last line is
+5, for the kbench kernels (one row a mode) phase 6's benchmark run; max
+error against the plain version; kernel and plain ms; and bound_ms: the
+bytes the call must move at 3.35 TB/s, or its operations at the card's
+peak rate, from this run's inputs); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1260,6 +1269,84 @@ def mega_breakdown(sim, st, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
+                 errs: dict) -> None:
+    """Phase 6: the kernel benchmark's variant kernels (K12, K13's
+    deposit/gather probes).  Each mode against its plain version at the
+    test fixture (16^3, T = 8, B = 256, M = 1 and 2; and B = 1040, whose
+    130 columns a row given_kron takes in three plane chunks), then
+    pinc_tpu_torch.kbench.run at the production shapes, with the launch
+    counts set to 0 just before and read just after; every row must agree
+    with its plain version (int8 bit for bit).  Fills the kbench kernels'
+    entries of launches, times, bounds and errs."""
+    import torch
+    from pinc_tpu_torch import kbench
+    from pinc_tpu_torch.ops import kbench_kernels as kb
+    from pinc_tpu_torch.ops import tiled_kernels as tk
+    from pinc_tpu_torch.ops.tiled import TileSpec
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    for M, B in ((1, 256), (2, 256), (1, 1040)):
+        ts = TileSpec(grid=(16, 16, 16), T=8, M=M, B=B)
+        xyz = torch.rand((3, ts.NT, ts.B), generator=gen, device=dev) * (
+            ts.T + 2 * M) - M
+        val = (torch.rand((ts.NT, ts.B), generator=gen, device=dev)
+               < 0.9).float()
+        field = torch.randn((ts.NT, ts.P, ts.P, ts.P, 3), generator=gen,
+                            device=dev)
+        kron = torch.rand((ts.P ** 2, ts.B // 8), generator=gen,
+                          device=dev).bfloat16()
+        Eq, scale = kb.quantize_field(field)
+        for mode in kb.DEPOSIT_MODES:
+            got = kb.deposit_variant(xyz, val, ts, mode, kron=kron)
+            want = kb.deposit_variant_plain(xyz, val, ts, mode, kron=kron)
+            check(torch.equal(got, want) if mode == "int8" else
+                  (got - want).abs().max().item()
+                  <= kbench.DEPOSIT_RTOL * want.abs().max().item(),
+                  f"kbench deposit {mode}, fixture M={M} B={B}: differs "
+                  f"from its plain version")
+        for mode in kb.GATHER_MODES:
+            f, kw = (Eq, dict(scale=scale)) if mode == "int8" else (field, {})
+            got = kb.gather_variant(f, xyz, ts, mode, **kw)
+            want = kb.gather_variant_plain(f, xyz, ts, mode, **kw)
+            check(torch.equal(got, want) if mode == "int8" else
+                  (got - want).abs().max().item()
+                  <= kbench.GATHER_RTOL * want.abs().max().item(),
+                  f"kbench gather {mode}, fixture M={M} B={B}: differs "
+                  f"from its plain version")
+    torch.cuda.synchronize()
+    print("phase 6 kernel bench: every variant mode against its plain "
+          "version at the fixture (M = 1, 2; B = 256, 1040): ok", flush=True)
+    kb.reset_launches()
+    tk.reset_launches()
+    rows = kbench.run(reps=10, device=dev,
+                      log=lambda s: print(f"  {s} ({card})", flush=True))
+    torch.cuda.synchronize()
+    got = dict(kb.LAUNCHES)
+    print(f"  launches: {got}, K1 {tk.LAUNCHES['deposit']}, K3 "
+          f"{tk.LAUNCHES['gather']}", flush=True)
+    bad = [r["name"] for r in rows if not r["ok"]]
+    check(not bad, f"kernel bench: rows differ from their plain versions: "
+          f"{bad}")
+    check(all(v > 0 for v in got.values()) and tk.LAUNCHES["deposit"] > 0
+          and tk.LAUNCHES["gather"] > 0,
+          f"kernel bench: a kernel never launched: {got}")
+    for mode, (ms, base, share) in kbench.ceiling_split(rows).items():
+        print(f"  ceiling split: {mode} {ms:.4f} ms = {share:.1%} of "
+              f"{'K3' if mode == 'no_xreduce' else 'K1'} bf16 {base:.4f} ms "
+              f"at 4096x9216; {kbench.CEILING_NOTES[mode]} ({card})",
+              flush=True)
+    for r in rows:
+        if r["kernel"] in kb.LAUNCHES:
+            key = r["kernel"]
+            launches[key] = got[key]
+            times[key] = (r["ms"], r["plain_ms"])
+            bounds[key] = (r["bound_ms"], r["bound_by"])
+            errs[key] = r["max_abs_err"]
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1481,15 +1568,21 @@ def main() -> int:
     for name in ("pic_step", "efield_tiles", "fold_global"):
         launches[name] = scans["headline"]["launches"][name]
 
+    # -- phase 6: the kernel benchmark (K12, K13's deposit/gather) --------
+    from pinc_tpu_torch.ops import kbench_kernels as kb
+    kernel_bench(card, launches, times, bounds, errs)
+    bounds = {k: v if isinstance(v, tuple) else (v, "bytes")
+              for k, v in bounds.items()}
+
     rows = [{"name": name, "route": "cuda",
              "source": getattr(m, "SOURCES", {}).get(name, m.SOURCE),
              "replaces": m.REPLACES[name], "launches": launches[name],
              "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1], "bound_ms": bounds[name],
-             "bound_by": "bytes", "library_ms": None}
-            for m in modules for name in m.LAUNCHES]
-    check(len(rows) == 15 and all(r["launches"] > 0 for r in rows),
-          f"expected 15 kernels, each launched on its path: {rows}")
+             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1], "library_ms": None}
+            for m in modules + (kb,) for name in m.LAUNCHES]
+    check(len(rows) == 23 and all(r["launches"] > 0 for r in rows),
+          f"expected 23 kernels, each launched on its path: {rows}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

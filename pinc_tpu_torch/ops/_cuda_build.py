@@ -79,6 +79,11 @@ SIGNATURES = {
     # frank, alive, inc, active, x, y, z, vx, vy, vz, NT, B, K2, CB, NC,
     # stream
     "pinc_ox_merge_ranked": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
+    # -- csrc/kbench.cu
+    # xyz, value, kron, tiles, NT, B, P, M, mode, inv, stream
+    "pinc_kb_deposit": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # field, scale, inv, xyz, out, NT, B, P, M, mode, stream
+    "pinc_kb_gather": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -19,7 +19,9 @@ merge) and the whole exchange re-bucket are exact: they copy bits and add
 +-T in f32 as the plain versions do.  So are the one-hot exchange kernels
 (extract R = 1 and 8, by axis, all axes or given ranks; merge R = 1 and 8,
 by block table or given free ranks; the cleanup), compared bit pattern for
-bit pattern since they turn -0.0 into +0.0.  The slice and the scan on the
+bit pattern since they turn -0.0 into +0.0.  The kernel benchmark's
+variants (ops/kbench_kernels.py): int8 bit for bit, the others as the
+deposits and within 1e-5 of max|plain| for the gathers.  The slice and the scan on the
 card vs the CPU: energies rtol 1e-4 and state atol 1e-4 (cuFFT vs pocketfft and
 atomic-order sums, over 6 or 8 steps)."""
 
@@ -31,6 +33,7 @@ from pinc_tpu_torch.config import PincConfig
 from pinc_tpu_torch.ops import exchange as ex
 from pinc_tpu_torch.ops import field_kernels as fk
 from pinc_tpu_torch.ops import gather_exchange as gx
+from pinc_tpu_torch.ops import kbench_kernels as kb
 from pinc_tpu_torch.ops import onehot_exchange as ox
 from pinc_tpu_torch.ops import tiled_kernels as tk
 from pinc_tpu_torch.ops.tiled import TileSpec, bucket
@@ -494,6 +497,99 @@ def test_onehot_wrappers_check_their_inputs(cuda):
     alive, planes = _onehot_fixture(cuda)
     with pytest.raises(ValueError, match="is on"):
         ox.merge_fused(alive, torch.zeros((8, 7, 1, 64)), planes, 32)
+
+
+# the kernel benchmark's variants: tests/test_torch_kbench.py's fixture
+# (16^3, T = 8, B = 256) at M = 1 and 2, and the archive probes'
+# production shape (128^3, M = 1, B = 9216)
+KB_SHAPES = {"fixture_m1": ((16, 16, 16), 1, 256),
+             "fixture_m2": ((16, 16, 16), 2, 256),
+             "production": ((128, 128, 128), 1, 9216)}
+
+
+def _kb_inputs(dev, shape):
+    grid, M, B = KB_SHAPES[shape]
+    ts = TileSpec(grid=grid, T=8, M=M, B=B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(B + M)
+    xyz = (torch.rand((3, ts.NT, B), generator=gen, device=dev)
+           * (ts.T + 2 * M) - M)
+    val = (torch.rand((ts.NT, B), generator=gen, device=dev) < 0.9).float()
+    field = torch.randn((ts.NT, ts.P, ts.P, ts.P, 3), generator=gen,
+                        device=dev)
+    kron = torch.rand((ts.P ** 2, B // 8), generator=gen,
+                      device=dev).bfloat16()
+    return ts, xyz, val, field, kron
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(KB_SHAPES))
+@pytest.mark.parametrize("mode", kb.DEPOSIT_MODES)
+def test_kbench_deposit_variants_match_plain(cuda, mode, shape):
+    """int8 bit for bit (exact int32 sums); the others within 1e-5 of
+    max|plain| (atomics and the ceilings' sums in another order); the
+    given plane random, so a misplaced plane column shows (the production
+    shape's 1152 columns a row take 18 plane chunks)."""
+    ts, xyz, val, _, kron = _kb_inputs(cuda, shape)
+    before = dict(kb.LAUNCHES)
+    got = kb.deposit_variant(xyz, val, ts, mode, kron=kron)
+    want = kb.deposit_variant_plain(xyz, val, ts, mode, kron=kron)
+    assert got.shape == (ts.NT, ts.P, ts.P ** 2)
+    if mode == "int8":
+        assert torch.equal(got, want)
+    else:
+        assert _max_err(got, want) <= 1e-5 * want.abs().max().item()
+    torch.cuda.synchronize()
+    assert {k: kb.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == f"kbench_deposit_{mode}") for k in before}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(KB_SHAPES))
+@pytest.mark.parametrize("mode", kb.GATHER_MODES)
+def test_kbench_gather_variants_match_plain(cuda, mode, shape):
+    """int8 bit for bit (exact int32 sums, the two x terms added as the
+    plain version does); the others within 1e-5 of max|plain| (the same
+    products and sums in the same order, so bit-equal as well)."""
+    ts, xyz, _, field, _ = _kb_inputs(cuda, shape)
+    before = dict(kb.LAUNCHES)
+    if mode == "int8":
+        Eq, scale = kb.quantize_field(field)
+        qc, sc = kb.quantize_field(field.cpu())
+        assert torch.equal(Eq.cpu(), qc) and torch.equal(scale.cpu(), sc)
+        got = kb.gather_variant(Eq, xyz, ts, mode, scale=scale)
+        want = kb.gather_variant_plain(Eq, xyz, ts, mode, scale=scale)
+        assert torch.equal(got, want)
+    else:
+        got = kb.gather_variant(field, xyz, ts, mode)
+        want = kb.gather_variant_plain(field, xyz, ts, mode)
+        assert _max_err(got, want) <= 1e-5 * want.abs().max().item()
+    assert got.shape == (3, ts.NT, 8, ts.B // 8)
+    torch.cuda.synchronize()
+    assert {k: kb.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == f"kbench_gather_{mode}") for k in before}
+
+
+@pytest.mark.cuda
+def test_kbench_wrappers_check_their_inputs(cuda):
+    ts, xyz, val, field, kron = _kb_inputs(cuda, "fixture_m1")
+    with pytest.raises(ValueError, match="kron plane"):
+        kb.deposit_variant(xyz, val, ts, "given_kron")
+    with pytest.raises(ValueError, match="shape"):
+        kb.deposit_variant(xyz, val, ts, "given_kron", kron=kron[:, :8])
+    with pytest.raises(TypeError, match="bfloat16"):
+        kb.deposit_variant(xyz, val, ts, "given_kron", kron=kron.float())
+    with pytest.raises(ValueError, match="C = 3"):
+        kb.gather_variant(field[..., :1].contiguous(), xyz, ts, "g_bf16")
+    with pytest.raises(TypeError, match="int8"):
+        kb.gather_variant(field, xyz, ts, "int8",
+                          scale=torch.ones(ts.NT, device=cuda))
+    with pytest.raises(ValueError, match="scale"):
+        kb.gather_variant(kb.quantize_field(field)[0], xyz, ts, "int8")
+    with pytest.raises(ValueError, match="B % 8"):
+        kb.deposit_variant(xyz[:, :, :252].contiguous(), val[:, :252]
+                           .contiguous(), TileSpec(grid=(16, 16, 16), T=8,
+                                                   M=1, B=252), "int8")
 
 
 DECK = """
