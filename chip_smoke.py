@@ -56,14 +56,19 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    window, then a timed one, each checked as phase 3's runs (launches,
    state on the card, drops, alive count, energy); then a CUDA-event split
    of one mega step and each species' exchange.
-6. The kernel benchmark (K12 and K13's deposit/gather probes): each mode
-   of the two variant kernels of csrc/kbench.cu against its plain version
-   at the test fixture (M = 1 and 2, B = 256 and 1040), then
-   pinc_tpu_torch.kbench.run in process at the scripts' production shapes
-   (4096 tiles; B = 12288 at M = 1, 2 for K12 on K1/K3; B = 9216 at M = 1
-   for the probes), every row against its plain version (int8 bit for
-   bit), with its time, bound, share of the bound and error against K1/K3
-   bf16, and the ceilings' times against K1's and K3's.
+6. The kernel benchmark (K12 and K13's probes): each mode of the two
+   variant kernels of csrc/kbench.cu against its plain version at the
+   test fixture (M = 1 and 2, B = 256 and 1040), and each of the four
+   exchange-primitive kernels of csrc/kbench_prims.cu (take, roll,
+   plane_add, lane_prefix) at the probes' own shapes (kbench.check_prims,
+   bit pattern for bit pattern); then pinc_tpu_torch.kbench.run in process
+   at the scripts' production shapes (4096 tiles; B = 12288 at M = 1, 2
+   for K12 on K1/K3; B = 9216 at M = 1 for the deposit/gather probes;
+   4096 x (8, 2176) and 4096 x 9216 for the primitives), every row against
+   its plain version (int8 and the primitives bit for bit), with its time,
+   bound, share of the bound and error against K1/K3 bf16 or, for the
+   primitives, the time of the one PyTorch call that computes the same
+   function; and the ceilings' times against K1's and K3's.
 
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
@@ -71,10 +76,12 @@ JSON object with each kernel's numbers (launches on the path that runs
 it: phase 3's exchange run, its one-hot runs for the one-hot kernels (the
 row kernels the B = 7680 run, the per-tile ones the B = 6528 run), for
 pic_step, efield_tiles and fold_global the headline scan window of phase
-5, for the kbench kernels (one row a mode) phase 6's benchmark run; max
-error against the plain version; kernel and plain ms; and bound_ms: the
-bytes the call must move at 3.35 TB/s, or its operations at the card's
-peak rate, from this run's inputs); the last line is
+5, for the kbench kernels (one row a mode) and the four primitives phase
+6's benchmark run; max error against the plain version; kernel and plain
+ms; bound_ms: the bytes the call must move at 3.35 TB/s, or its
+operations at the card's peak rate, from this run's inputs; and
+library_ms, the one PyTorch call's time, for the primitives at the
+production row named in PRIM_ROWS, None for the others); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -110,6 +117,12 @@ AUX_REBUCKET = 10      # bench.py:307-308, the margin-1 aux deck
 ONEHOT_PC = 12
 ONEHOT_SLACK = {"onehot_rows": None, "onehot_tile": 1.0625}
 ONEHOT_B = {"onehot_rows": 7680, "onehot_tile": 6528}
+# the kernel benchmark's production row of each exchange primitive whose
+# numbers go into the kernels line
+PRIM_ROWS = {"kbench_take": "prims take extract",
+             "kbench_roll": "prims roll rows p=1",
+             "kbench_plane_add": "prims plane_add G=1",
+             "kbench_lane_prefix": "prims lane_prefix mask"}
 
 # exchange kernel launches per species event, by route
 ROUTE_CALLS = {
@@ -1270,18 +1283,21 @@ def mega_breakdown(sim, st, card: str) -> None:
 
 
 def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
-                 errs: dict) -> None:
-    """Phase 6: the kernel benchmark's variant kernels (K12, K13's
-    deposit/gather probes).  Each mode against its plain version at the
-    test fixture (16^3, T = 8, B = 256, M = 1 and 2; and B = 1040, whose
-    130 columns a row given_kron takes in three plane chunks), then
+                 errs: dict, libs: dict) -> None:
+    """Phase 6: the kernel benchmark's kernels (K12, K13's probes).  Each
+    variant mode against its plain version at the test fixture (16^3, T =
+    8, B = 256, M = 1 and 2; and B = 1040, whose 130 columns a row
+    given_kron takes in three plane chunks), each exchange primitive at the
+    probes' shapes (bit pattern for bit pattern), then
     pinc_tpu_torch.kbench.run at the production shapes, with the launch
     counts set to 0 just before and read just after; every row must agree
-    with its plain version (int8 bit for bit).  Fills the kbench kernels'
-    entries of launches, times, bounds and errs."""
+    with its plain version (int8 and the primitives bit for bit) and each
+    primitive with its library call.  Fills the kbench kernels' entries of
+    launches, times, bounds and errs, and libs for the primitives."""
     import torch
     from pinc_tpu_torch import kbench
     from pinc_tpu_torch.ops import kbench_kernels as kb
+    from pinc_tpu_torch.ops import kbench_prims as kp
     from pinc_tpu_torch.ops import tiled_kernels as tk
     from pinc_tpu_torch.ops.tiled import TileSpec
     dev = torch.device("cuda", 0)
@@ -1318,17 +1334,28 @@ def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
     torch.cuda.synchronize()
     print("phase 6 kernel bench: every variant mode against its plain "
           "version at the fixture (M = 1, 2; B = 256, 1040): ok", flush=True)
+    checks = kbench.check_prims(dev, log=lambda s: print(f"  {s}",
+                                                          flush=True))
+    torch.cuda.synchronize()
+    check(all(r["ok"] for r in checks) and {r["kernel"] for r in checks}
+          == set(kp.LAUNCHES), "kernel bench: an exchange primitive differs "
+          "from its plain version at the probes' shapes: "
+          f"{[r['name'] for r in checks if not r['ok']]}")
+    print(f"phase 6 exchange primitives at the probes' shapes: "
+          f"{len(checks)} cases bit-equal to their plain versions",
+          flush=True)
     kb.reset_launches()
+    kp.reset_launches()
     tk.reset_launches()
     rows = kbench.run(reps=10, device=dev,
                       log=lambda s: print(f"  {s} ({card})", flush=True))
     torch.cuda.synchronize()
-    got = dict(kb.LAUNCHES)
+    got = {**kb.LAUNCHES, **kp.LAUNCHES}
     print(f"  launches: {got}, K1 {tk.LAUNCHES['deposit']}, K3 "
           f"{tk.LAUNCHES['gather']}", flush=True)
     bad = [r["name"] for r in rows if not r["ok"]]
-    check(not bad, f"kernel bench: rows differ from their plain versions: "
-          f"{bad}")
+    check(not bad, f"kernel bench: rows differ from their plain versions "
+          f"(or a primitive from its library call): {bad}")
     check(all(v > 0 for v in got.values()) and tk.LAUNCHES["deposit"] > 0
           and tk.LAUNCHES["gather"] > 0,
           f"kernel bench: a kernel never launched: {got}")
@@ -1337,13 +1364,22 @@ def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
               f"{'K3' if mode == 'no_xreduce' else 'K1'} bf16 {base:.4f} ms "
               f"at 4096x9216; {kbench.CEILING_NOTES[mode]} ({card})",
               flush=True)
+    by = {r["name"]: r for r in rows}
+    for key in kp.LAUNCHES:
+        r = by[PRIM_ROWS[key]]
+        print(f"  {key} at its production row ({r['name']}): kernel "
+              f"{r['ms']:.4f} ms = {r['x_library']:.3f}x {r['library']} "
+              f"{r['library_ms']:.4f} ms ({card})", flush=True)
     for r in rows:
-        if r["kernel"] in kb.LAUNCHES:
-            key = r["kernel"]
+        key = r["kernel"]
+        if key in kb.LAUNCHES or r["name"] == PRIM_ROWS.get(key):
             launches[key] = got[key]
             times[key] = (r["ms"], r["plain_ms"])
             bounds[key] = (r["bound_ms"], r["bound_by"])
-            errs[key] = r["max_abs_err"]
+            if key in kp.LAUNCHES:
+                libs[key] = r["library_ms"]
+        if key in got:
+            errs[key] = max(errs.get(key, 0.0), r["max_abs_err"])
     torch.cuda.empty_cache()
 
 
@@ -1568,9 +1604,11 @@ def main() -> int:
     for name in ("pic_step", "efield_tiles", "fold_global"):
         launches[name] = scans["headline"]["launches"][name]
 
-    # -- phase 6: the kernel benchmark (K12, K13's deposit/gather) --------
+    # -- phase 6: the kernel benchmark (K12, K13) ----------------------------
     from pinc_tpu_torch.ops import kbench_kernels as kb
-    kernel_bench(card, launches, times, bounds, errs)
+    from pinc_tpu_torch.ops import kbench_prims as kp
+    libs = {}
+    kernel_bench(card, launches, times, bounds, errs, libs)
     bounds = {k: v if isinstance(v, tuple) else (v, "bytes")
               for k, v in bounds.items()}
 
@@ -1579,10 +1617,12 @@ def main() -> int:
              "replaces": m.REPLACES[name], "launches": launches[name],
              "max_abs_err": errs[name], "ms": times[name][0],
              "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-             "bound_by": bounds[name][1], "library_ms": None}
-            for m in modules + (kb,) for name in m.LAUNCHES]
-    check(len(rows) == 23 and all(r["launches"] > 0 for r in rows),
-          f"expected 23 kernels, each launched on its path: {rows}")
+             "bound_by": bounds[name][1], "library_ms": libs.get(name)}
+            for m in modules + (kb, kp) for name in m.LAUNCHES]
+    check(len(rows) == 27 and all(r["launches"] > 0 for r in rows)
+          and all(libs.get(k) for k in kp.LAUNCHES),
+          f"expected 27 kernels, each launched on its path, the four "
+          f"primitives with their library_ms: {rows}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,19 @@
 """The port's kernel benchmark: ``python -m pinc_tpu_torch.kbench [reps]``.
 
-The counterpart of ``script/bench_kernels_tpu.py`` (K12) and of the
-``main()``s of ``experiments/archive/kbench{,2,3,4,5,9}.py`` (K13's
-deposit/gather probes).  On the CUDA card it runs every ported variant of
-the tile deposit (K1) and gather (K3) at the scripts' production shapes
-and gives, per row: the kernel's time (CUDA events, the mean of ``reps``
-launches after a warm-up) and its plain PyTorch version's, the least time
-the card could take (the bytes the call must move at the HBM rate, or its
-operations at the card's peak rate for their type, the larger), the share
-of it reached, ns per slot, the kernel's error against its plain version
-(checked against the row's tolerance), and its error against K1's or K3's
-production mode (bf16 weights) on the same inputs.
+The counterpart of ``script/bench_kernels_tpu.py`` (K12) and of K13's
+probes: the ``main()``s of ``experiments/archive/kbench{,2,3,4,5,9}.py``
+(deposit/gather) and the exchange-primitive probes
+(``experiments/r4_gather_probe{,2,3}.py``, ``r4_roll_probe.py``,
+``r5_progoverhead.py``, ``archive/kbench7.py``).  On the CUDA card it runs
+every ported variant of the tile deposit (K1) and gather (K3) at the
+scripts' production shapes and gives, per row: the kernel's time (CUDA
+events, the mean of ``reps`` launches after a warm-up) and its plain
+PyTorch version's, the least time the card could take (the bytes the call
+must move at the HBM rate, or its operations at the card's peak rate for
+their type, the larger), the share of it reached, ns per slot, the
+kernel's error against its plain version (checked against the row's
+tolerance), and its error against K1's or K3's production mode (bf16
+weights) on the same inputs.
 
 Sweeps, 128^3 grid of 8^3-cell tiles (4096 tiles), inputs made on the card
 from a seed:
@@ -28,6 +31,21 @@ from a seed:
   mode (bf16: the probes that compute their function) and every mode of
   the two variant kernels of ``ops/kbench_kernels.py``.  The int8 gather's
   per-tile quantization is made once, outside the timed launches.
+
+* ``prims`` — the exchange primitives of ``ops/kbench_prims.py`` at the
+  exchange's shapes: the gathers along lanes of 4096 tiles of (8, 2176)
+  (``r4_gather_probe.py``'s extract ``gat``, merge and square), the row
+  rolls p = 1..7 of the same stack (K9's spill passes) and its lane roll
+  by a shift on the device, the 7-plane ``+ 1.0`` at G = 1, 4, 8 tiles a
+  block, and the prefix sum of (4096, 9216) on a 1% mask (``kbench7.py``)
+  and on normal inputs.  Each row is held bit for bit against its plain
+  version and timed against the one PyTorch call that computes the same
+  function (``library_ms``): ``torch.gather`` on int64 indices made
+  outside the timed launches, ``torch.roll``, ``torch._foreach_add`` and
+  ``torch.cumsum``, which agrees bit for bit on the mask (integers below
+  2^24) and within ``LIBRARY_RTOL`` of the largest row sum of |x| on
+  normal inputs (it adds in another order).  ``check_prims`` holds each
+  kernel against its plain version at the probes' own shapes first.
 
 ``weight_sums``, ``given_kron`` and ``no_xreduce`` are the probes'
 ceilings (a part of the work taken out), so their error against the
@@ -59,6 +77,7 @@ from typing import Optional
 import torch
 
 from .ops import kbench_kernels as kb
+from .ops import kbench_prims as kp
 from .ops import tiled_kernels as tk
 from .ops.tiled import TileSpec
 
@@ -76,6 +95,16 @@ DEPOSIT_OPS, GATHER_OPS = 46, 88
 #: share (k13)
 K12 = dict(grid=(128, 128, 128), T=8, B=12288, fill=8192, margins=(1, 2))
 K13 = dict(grid=(128, 128, 128), T=8, B=9216, live=0.9, M=1)
+
+#: the prims sweep: NT tiles of (R, L) blocks (the gather exchange's
+#: 17,408 slots a tile), the extract's W lanes a row, the row shifts, the
+#: lane shift (on the device), the pass-through's planes and tiles a block
+#: (G), kbench7.py's (NT, B) scan and its mask density
+PRIMS = dict(NT=4096, R=8, L=2176, W=768, row_shifts=tuple(range(1, 8)),
+             lane_shift=261, planes=7, groups=(1, 4, 8), B=9216, mask=0.01)
+#: torch.cumsum vs the kernel on normal inputs (another summation order):
+#: max|kernel - cumsum| <= LIBRARY_RTOL * the largest row sum of |x|
+LIBRARY_RTOL = 1e-5
 
 CEILINGS = ("weight_sums", "given_kron", "no_xreduce")
 #: what each ceiling's time measures
@@ -136,10 +165,10 @@ def _k13_inputs(ts: TileSpec, live: float, gen, dev):
     return xyz, val, field, kron
 
 
-def _cases(k12: dict, k13: dict, gen, dev):
-    """The rows: (name, kernel, mode, ts, fn, plain, prod, exact, bytes,
-    ops, op kind, live slots, refs).  fn/plain/prod are thunks; prod is
-    None for the production rows themselves and the ceilings."""
+def _k12_cases(k12: dict, gen, dev):
+    """The k12 rows: (name, kernel, mode, ts, fn, plain, prod, exact,
+    bytes, ops, op kind, live slots, refs).  fn/plain/prod are thunks;
+    prod is None for the production rows themselves and the ceilings."""
     cases = []
     bf16, f32 = torch.bfloat16, torch.float32
     lp, value, E13 = _k12_inputs(k12, gen, dev)
@@ -173,6 +202,13 @@ def _cases(k12: dict, k13: dict, gen, dev):
                     f, lp, ts, mxu_dtype=bf16),
                 False, slots * 24.0 + 3 * blk, slots * GATHER_OPS, dn,
                 slots, _refs("gather", "K3, mxu_dtype")))
+    return cases
+
+
+def _k13_cases(k13: dict, gen, dev):
+    """The k13 rows, as _k12_cases'."""
+    cases = []
+    bf16 = torch.bfloat16
     ts = TileSpec(grid=k13["grid"], T=k13["T"], M=k13["M"], B=k13["B"])
     NT, B, P = ts.NT, ts.B, ts.P
     xyz, val, field, kron = _k13_inputs(ts, k13["live"], gen, dev)
@@ -234,12 +270,297 @@ def _cases(k12: dict, k13: dict, gen, dev):
     return cases
 
 
+def _nbytes(*tensors) -> float:
+    """Bytes of the tensors (a list counts each of its tensors)."""
+    return float(sum(t.numel() * t.element_size() for x in tensors
+                     for t in (x if isinstance(x, (list, tuple)) else [x])))
+
+
+def _prim_cases(prims: dict, gen, dev):
+    """The prims rows, one group of inputs at a time: dicts of name,
+    kernel, mode, shape, the thunks fn, plain and library, the library
+    call's name, whether it must agree bit for bit (else the scale its
+    tolerance is relative to), bytes, operations and the FUNCTIONS keys
+    of the references."""
+    NT, R, L, W = (prims[k] for k in ("NT", "R", "L", "W"))
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def index(n, *shape):
+        return torch.randint(0, n, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    for mode, cs, ci, refs in (
+            ("extract", L, W, ("r4_gather_probe.gat",
+                               "r4_gather_probe.build_taa_extract")),
+            ("merge", W, L, ("r4_gather_probe.build_taa_merge",)),
+            ("square", L, L, ("r4_gather_probe.build_taa_square",))):
+        src, idx = normal(NT, R, cs), index(cs, NT, R, ci)
+        idx64 = idx.long()
+        yield dict(
+            name=f"prims take {mode}", kernel="kbench_take", mode=mode,
+            shape=f"({NT}, {R}, {cs}) by ({NT}, {R}, {ci})",
+            fn=lambda src=src, idx=idx: kp.take(src, idx, 2),
+            plain=lambda src=src, idx=idx: kp.take_plain(src, idx, 2),
+            library=lambda src=src, i=idx64: torch.gather(src, 2, i),
+            library_name="torch.gather (int64 indices)", exact_scale=None,
+            nbytes=2 * _nbytes(idx) + _nbytes(src), ops=0.0, refs=refs)
+        del src, idx, idx64
+    x = normal(NT, R, L)
+    for p in prims["row_shifts"]:
+        yield dict(
+            name=f"prims roll rows p={p}", kernel="kbench_roll",
+            mode=f"rows p={p}", shape=f"({NT}, {R}, {L}) along the rows",
+            fn=lambda p=p, x=x: kp.roll(x, p, 1),
+            plain=lambda p=p, x=x: kp.roll_plain(x, p, 1),
+            library=lambda p=p, x=x: torch.roll(x, p, 1),
+            library_name=f"torch.roll(x, {p}, 1)", exact_scale=None,
+            nbytes=2 * _nbytes(x), ops=0.0, refs=("r4_roll_probe.run",))
+    s = prims["lane_shift"]
+    shift = torch.tensor([s], dtype=torch.int32, device=dev)
+    yield dict(
+        name="prims roll lanes (device shift)", kernel="kbench_roll",
+        mode=f"lanes s={s}", shape=f"({NT}, {R}, {L}) along the lanes",
+        fn=lambda x=x: kp.roll(x, shift, 2),
+        plain=lambda x=x: kp.roll_plain(x, shift, 2),
+        library=lambda x=x: torch.roll(x, s, 2),
+        library_name=f"torch.roll(x, {s}, 2) (host shift)", exact_scale=None,
+        nbytes=2 * _nbytes(x), ops=0.0, refs=("r4_gather_probe3.dyn_roll",))
+    del x
+    planes = [normal(NT, R, L) for _ in range(prims["planes"])]
+    for G in prims["groups"]:
+        yield dict(
+            name=f"prims plane_add G={G}", kernel="kbench_plane_add",
+            mode=f"G={G}", shape=f"{len(planes)} x ({NT}, {R}, {L})",
+            fn=lambda G=G, ps=planes: kp.plane_add(ps, G),
+            plain=lambda G=G, ps=planes: kp.plane_add_plain(ps, G),
+            library=lambda ps=planes: torch._foreach_add(ps, 1.0),
+            library_name="torch._foreach_add(planes, 1.0)",
+            exact_scale=None, nbytes=2 * _nbytes(planes),
+            ops=float(sum(p.numel() for p in planes)),
+            refs=("r5_progoverhead.mk",))
+    del planes
+    B = prims["B"]
+    mask = (torch.rand((NT, B), generator=gen, device=dev)
+            < prims["mask"]).float()
+    for mode, m in (("mask", mask), ("normal", normal(NT, B))):
+        yield dict(
+            name=f"prims lane_prefix {mode}", kernel="kbench_lane_prefix",
+            mode=mode, shape=f"({NT}, {B})",
+            fn=lambda m=m: kp.lane_prefix(m),
+            plain=lambda m=m: kp.lane_prefix_plain(m),
+            library=lambda m=m: torch.cumsum(m, 1),
+            library_name="torch.cumsum(m, 1)",
+            exact_scale=None if mode == "mask"
+            else m.abs().sum(1).max().item(),
+            nbytes=2 * _nbytes(m),
+            ops=float(m.numel() * max(1, (B - 1).bit_length())),
+            refs=("kbench7.pallas_scan",))
+
+
+def _prim_probe_cases(gen, dev) -> list:
+    """(name, kernel, fn, plain) of each exchange primitive at the probes'
+    own shapes (ops/kbench_prims.FUNCTIONS), with indices that wrap or
+    fall outside, int32 words, every static row roll, device shifts that
+    are negative or pass n, tiles that G does not divide, -0.0 in the
+    prefix sum, and rows that are not a multiple of 4 words (no 16-byte
+    loads)."""
+    i32 = torch.int32
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def index(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=i32)
+
+    cases = []
+
+    def take(name, src, idx, axis):
+        cases.append((f"take {name}", "kbench_take",
+                      lambda: kp.take(src, idx, axis),
+                      lambda: kp.take_plain(src, idx, axis)))
+
+    def roll(name, x, shift, axis):
+        cases.append((f"roll {name}", "kbench_roll",
+                      lambda: kp.roll(x, shift, axis),
+                      lambda: kp.roll_plain(x, shift, axis)))
+
+    L, W = 2176, 768
+    take("extract (8, 2176) by (8, 768)", normal(8, L), index(0, L, 8, W), 1)
+    take("merge (8, 768) by (8, 2176)", normal(8, W), index(0, W, 8, L), 1)
+    take("square (8, 2176)", normal(8, L), index(0, L, 8, L), 1)
+    take("sublane (64, 128)", normal(64, 128), index(0, 64, 64, 128), 0)
+    take("gat (33, 8, 2176) by (33, 8, 768), idx in [-2179, 2179)",
+         normal(33, 8, L), index(-L - 3, L + 3, 33, 8, W), 2)
+    for shape in ((8, 128), (8, 256), (16, 128), (256, 128)):
+        take(f"probe2 lanes {shape}", normal(*shape),
+             index(0, shape[1], *shape), 1)
+    take("probe2 rows (8, 128), idx < 8", normal(8, 128),
+         index(0, 8, 8, 128), 0)
+    take("int_gather (8, 128) int32, lanes reversed",
+         torch.arange(8 * 128, dtype=i32, device=dev).reshape(8, 128),
+         torch.arange(127, -1, -1, dtype=i32, device=dev).expand(8, 128)
+         .contiguous(), 1)
+    take("int32 (8, 256), idx in [-259, 259)",
+         index(-2 ** 31, 2 ** 31 - 1, 8, 256), index(-259, 259, 8, 256), 1)
+    take("rows (3, 64, 130), idx in [-67, 67)", normal(3, 64, 130),
+         index(-67, 67, 3, 40, 130), 1)
+    x = normal(8, 256)
+    for s in (5, -3, 261):
+        roll(f"dyn_roll (8, 256) lanes, device shift {s}", x,
+             torch.tensor([s], dtype=i32, device=dev), 1)
+    x = normal(8, 128)
+    for p in range(8):
+        roll(f"roll_probe (8, 128) rows p={p}", x, p, 0)
+    roll("int32 (8, 128) rows, device shift -11", index(-2 ** 31, 2 ** 31 - 1,
+                                                        8, 128),
+         torch.tensor([-11], dtype=i32, device=dev), 0)
+    roll("(3, 8, 130) rows p=3", normal(3, 8, 130), 3, 1)
+    roll("(3, 8, 130) lanes p=-131", normal(3, 8, 130), -131, 2)
+    planes = [normal(13, 8, L) for _ in range(7)]
+    for G in (1, 4, 8):
+        cases.append((f"plane_add 7 x (13, 8, 2176) G={G}",
+                      "kbench_plane_add", lambda G=G: kp.plane_add(planes, G),
+                      lambda G=G: kp.plane_add_plain(planes, G)))
+    odd = [normal(5, 3, 7) for _ in range(3)]
+    cases.append(("plane_add 3 x (5, 3, 7) G=2", "kbench_plane_add",
+                   lambda: kp.plane_add(odd, 2),
+                   lambda: kp.plane_add_plain(odd, 2)))
+    signed = normal(5, 1000)
+    signed[:, ::7] = -0.0
+    for name, m in (
+            ("1% mask (16, 9216)",
+             (torch.rand((16, 9216), generator=gen, device=dev)
+              < 0.01).float()),
+            ("normal (16, 9216)", normal(16, 9216)),
+            ("normal (5, 1000), -0.0 every 7th lane", signed)):
+        cases.append((f"lane_prefix {name}", "kbench_lane_prefix",
+                      lambda m=m: kp.lane_prefix(m),
+                      lambda m=m: kp.lane_prefix_plain(m)))
+    return cases
+
+
+def _listed(x) -> list:
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def same_bits(a, b) -> bool:
+    """a and b (tensors or lists of them) of one type and shape, equal
+    bit pattern for bit pattern (NaN fills compare)."""
+    a, b = _listed(a), _listed(b)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(a, b))
+
+
+def max_abs_err(a, b) -> float:
+    """max |a - b| over the pairs; NaN against NaN counts 0, NaN against
+    a number inf."""
+    err = 0.0
+    for x, y in zip(_listed(a), _listed(b)):
+        d = (x.double() - y.double()).abs()
+        d = torch.where(torch.isnan(x) & torch.isnan(y), 0.0, d)
+        err = max(err, d.nan_to_num(nan=float("inf")).max().item())
+    return err
+
+
+def check_prims(device=None, log=None) -> list:
+    """Each exchange-primitive kernel against its plain version at the
+    probes' own shapes (_prim_probe_cases), bit pattern for bit pattern;
+    returns a dict a case (name, kernel, bit_equal, max_abs_err, ok).
+    device: the CUDA card by default (raises without one)."""
+    if device is None:
+        from .simulation import default_device
+        device = default_device()
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows = []
+    for name, kernel, fn, plain in _prim_probe_cases(gen, dev):
+        got, want = fn(), plain()
+        eq = same_bits(got, want)
+        rows.append(dict(name=name, kernel=kernel, bit_equal=eq,
+                         max_abs_err=0.0 if eq else max_abs_err(got, want),
+                         ok=eq))
+        if log is not None and not eq:
+            log(f"MISMATCH {name}: max err {rows[-1]['max_abs_err']:.3e}")
+    return rows
+
+
+def _variant_row(case, reps: int, time: bool) -> dict:
+    """A k12 or k13 row: the kernel against its plain version (and K1's
+    or K3's production mode), timed when time."""
+    (name, kernel, mode, ts, fn, plain, prod, exact, nbytes, ops, kind,
+     live, refs) = case
+    got, want = fn(), plain()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = 0.0 if exact else (DEPOSIT_RTOL if "deposit" in name
+                             else GATHER_RTOL) * scale
+    bit_equal = torch.equal(got, want)
+    ok = bit_equal if exact else err <= tol
+    vs_prod = None
+    if prod is not None:
+        p = prod()
+        p = p.reshape(got.shape)
+        vs_prod = ((got - p).abs().max() / p.abs().max()).item()
+        del p
+    bound, bound_by = _bound_ms(nbytes, ops, kind)
+    slots = ts.NT * ts.B
+    row = dict(name=name, sweep=name.split()[0].lower(), kernel=kernel,
+               mode=mode, M=ts.M, P=ts.P, NT=ts.NT, B=ts.B, live=int(live),
+               refs=refs, max_abs_err=err, tol=tol, exact=exact,
+               bit_equal=bit_equal, ok=ok, err_vs_prod=vs_prod,
+               bound_ms=bound, bound_by=bound_by, ms=None, plain_ms=None,
+               library=None, library_ms=None)
+    del got, want
+    if time:
+        row["ms"] = cuda_ms(fn, reps)
+        row["plain_ms"] = cuda_ms(plain, 2, warmup=1)
+        row["pct_bound"] = 100.0 * bound / row["ms"]
+        row["ns_slot"] = row["ms"] * 1e6 / slots
+    return row
+
+
+def _prim_row(case: dict, reps: int, time: bool) -> dict:
+    """A prims row: the kernel against its plain version (bit for bit)
+    and against the library call, each timed when time."""
+    got, want, lib = case["fn"](), case["plain"](), case["library"]()
+    bit_equal = same_bits(got, want)
+    scale = case["exact_scale"]
+    lib_tol = 0.0 if scale is None else LIBRARY_RTOL * scale
+    lib_err = max_abs_err(got, lib)
+    lib_ok = same_bits(got, lib) if scale is None else lib_err <= lib_tol
+    bound, bound_by = _bound_ms(case["nbytes"], case["ops"], "f32")
+    row = dict(name=case["name"], sweep="prims", kernel=case["kernel"],
+               mode=case["mode"], shape=case["shape"],
+               refs=[kp.FUNCTIONS[r][0] for r in case["refs"]],
+               max_abs_err=0.0 if bit_equal else max_abs_err(got, want),
+               exact=True, bit_equal=bit_equal, library=case["library_name"],
+               library_err=lib_err, library_tol=lib_tol, ok=bit_equal
+               and lib_ok, bound_ms=bound, bound_by=bound_by, ms=None,
+               plain_ms=None, library_ms=None)
+    del got, want, lib
+    if time:
+        row["ms"] = cuda_ms(case["fn"], reps)
+        row["plain_ms"] = cuda_ms(case["plain"], 2, warmup=1)
+        row["library_ms"] = cuda_ms(case["library"], reps)
+        row["pct_bound"] = 100.0 * bound / row["ms"]
+        row["x_library"] = row["ms"] / row["library_ms"]
+    return row
+
+
 def run(reps: int = 10, device=None, k12: Optional[dict] = None,
-        k13: Optional[dict] = None, time: bool = True, log=None) -> list:
-    """Every row of the benchmark (the module's docstring); returns a
-    list of dicts.  device: the CUDA card by default (raises without one);
-    time=False skips the timings (needed on the CPU).  k12/k13 override
-    the sweeps' sizes (K12/K13)."""
+        k13: Optional[dict] = None, prims: Optional[dict] = None,
+        time: bool = True, log=None) -> list:
+    """Every row of the benchmark (the module's docstring), sweep by
+    sweep: k12, k13, prims; returns a list of dicts.  device: the CUDA
+    card by default (raises without one); time=False skips the timings
+    (needed on the CPU).  k12/k13/prims override the sweeps' sizes
+    (K12/K13/PRIMS)."""
     if device is None:
         from .simulation import default_device
         device = default_device()
@@ -251,45 +572,23 @@ def run(reps: int = 10, device=None, k12: Optional[dict] = None,
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = []
-    for (name, kernel, mode, ts, fn, plain, prod, exact, nbytes, ops, kind,
-         live, refs) in _cases({**K12, **(k12 or {})}, {**K13, **(k13 or {})},
-                               gen, dev):
-        got, want = fn(), plain()
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        tol = 0.0 if exact else (DEPOSIT_RTOL if "deposit" in name
-                                 else GATHER_RTOL) * scale
-        bit_equal = torch.equal(got, want)
-        ok = bit_equal if exact else err <= tol
-        vs_prod = None
-        if prod is not None:
-            p = prod()
-            p = p.reshape(got.shape)
-            vs_prod = ((got - p).abs().max() / p.abs().max()).item()
-            del p
-        bound, bound_by = _bound_ms(nbytes, ops, kind)
-        slots = ts.NT * ts.B
-        row = dict(name=name, kernel=kernel, mode=mode, M=ts.M, P=ts.P,
-                   NT=ts.NT, B=ts.B, live=int(live), refs=refs,
-                   max_abs_err=err, tol=tol, exact=exact,
-                   bit_equal=bit_equal, ok=ok, err_vs_prod=vs_prod,
-                   bound_ms=bound, bound_by=bound_by, ms=None,
-                   plain_ms=None)
-        del got, want
-        if time:
-            row["ms"] = cuda_ms(fn, reps)
-            row["plain_ms"] = cuda_ms(plain, 2, warmup=1)
-            row["pct_bound"] = 100.0 * bound / row["ms"]
-            row["ns_slot"] = row["ms"] * 1e6 / slots
-        rows.append(row)
-        if log is not None:
-            log(format_row(row))
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+    for row_of, cases in (
+            (_variant_row, _k12_cases({**K12, **(k12 or {})}, gen, dev)),
+            (_variant_row, _k13_cases({**K13, **(k13 or {})}, gen, dev)),
+            (_prim_row, _prim_cases({**PRIMS, **(prims or {})}, gen,
+                                    dev))):
+        for case in cases:
+            rows.append(row_of(case, reps, time))
+            if log is not None:
+                log(format_row(rows[-1]))
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
     return rows
 
 
 def format_row(r: dict) -> str:
+    if r["sweep"] == "prims":
+        return _format_prim_row(r)
     vs = ("ceiling" if r["err_vs_prod"] is None and r["mode"] in CEILINGS
           else "-" if r["err_vs_prod"] is None
           else f"{r['err_vs_prod']:.3e}")
@@ -303,6 +602,23 @@ def format_row(r: dict) -> str:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{r['pct_bound']:.1f}%), {r['ns_slot']:.4f} ns/slot, {check}, "
             f"vs production {vs}, {'ok' if r['ok'] else 'MISMATCH'}")
+
+
+def _format_prim_row(r: dict) -> str:
+    check = ("bit-equal" if r["bit_equal"] else
+             f"max err {r['max_abs_err']:.3e}")
+    lib = ("bit-equal" if r["library_tol"] == 0.0 and r["library_err"] == 0
+           else f"max err {r['library_err']:.3e} (tol "
+                f"{r['library_tol']:.3e})")
+    head = f"{r['name']:<32s} {r['shape']}: "
+    tail = f"{'ok' if r['ok'] else 'MISMATCH'}"
+    if r["ms"] is None:
+        return head + f"{check}, {r['library']} {lib}, {tail}"
+    return (head + f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
+            f" {r['library']} {r['library_ms']:.4f} ms (kernel "
+            f"{r['x_library']:.3f}x), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {r['pct_bound']:.1f}%), {check}, library "
+            f"{lib}, {tail}")
 
 
 def ceiling_split(rows: list) -> dict:
@@ -340,15 +656,20 @@ def main(argv=None) -> int:
     print(f"kernel benchmark on {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; f32 is float32 here (the TPU's default "
           f"f32 dot was one bf16 pass); {reps} launches a row", flush=True)
+    checks = check_prims(dev, log=lambda s: print(s, flush=True))
+    print(f"prims at the probes' shapes: {sum(r['ok'] for r in checks)} of "
+          f"{len(checks)} cases bit-equal to their plain versions",
+          flush=True)
     rows = run(reps=reps, device=dev, log=lambda s: print(s, flush=True))
     for mode, (ms, base, share) in ceiling_split(rows).items():
         print(f"ceiling {mode}: {ms:.4f} ms = {share:.1%} of "
               f"{'K3' if mode == 'no_xreduce' else 'K1'} bf16's {base:.4f} "
               f"ms at the same shape; {CEILING_NOTES[mode]} ({card})",
               flush=True)
-    bad = [r["name"] for r in rows if not r["ok"]]
+    bad = [r["name"] for r in checks + rows if not r["ok"]]
     if bad:
-        print(f"MISMATCH against the plain version: {bad}", file=sys.stderr)
+        print(f"MISMATCH against the plain version (or, for a prims row, "
+              f"the library call): {bad}", file=sys.stderr)
         return 1
     return 0
 

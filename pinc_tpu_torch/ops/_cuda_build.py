@@ -84,6 +84,16 @@ SIGNATURES = {
     "pinc_kb_deposit": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # field, scale, inv, xyz, out, NT, B, P, M, mode, stream
     "pinc_kb_gather": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
+    # -- csrc/kbench_prims.cu
+    # src, idx, out, batch, Rs, Cs, Ri, Ci, lanes, fill (bits), stream
+    "pinc_kp_take": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, out, shift (device int32 or null), shift_host, rows, R, C, lanes,
+    # stream
+    "pinc_kp_roll": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # ptrs (host: the inputs, then the outputs), np, NT, tile, G, stream
+    "pinc_kp_plane_add": [_P, _I, _I, _I, _I, _P],
+    # m, out, NT, B, stream
+    "pinc_kp_lane_prefix": [_P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -21,9 +21,11 @@ merge) and the whole exchange re-bucket are exact: they copy bits and add
 by block table or given free ranks; the cleanup), compared bit pattern for
 bit pattern since they turn -0.0 into +0.0.  The kernel benchmark's
 variants (ops/kbench_kernels.py): int8 bit for bit, the others as the
-deposits and within 1e-5 of max|plain| for the gathers.  The slice and the scan on the
-card vs the CPU: energies rtol 1e-4 and state atol 1e-4 (cuFFT vs pocketfft and
-atomic-order sums, over 6 or 8 steps)."""
+deposits and within 1e-5 of max|plain| for the gathers; its exchange
+primitives (ops/kbench_prims.py: take, roll, plane_add, lane_prefix) bit
+pattern for bit pattern, NaN and INT32_MIN fills included.  The slice and
+the scan on the card vs the CPU: energies rtol 1e-4 and state atol 1e-4
+(cuFFT vs pocketfft and atomic-order sums, over 6 or 8 steps)."""
 
 import numpy as np
 import pytest
@@ -33,7 +35,9 @@ from pinc_tpu_torch.config import PincConfig
 from pinc_tpu_torch.ops import exchange as ex
 from pinc_tpu_torch.ops import field_kernels as fk
 from pinc_tpu_torch.ops import gather_exchange as gx
+from pinc_tpu_torch import kbench
 from pinc_tpu_torch.ops import kbench_kernels as kb
+from pinc_tpu_torch.ops import kbench_prims as kp
 from pinc_tpu_torch.ops import onehot_exchange as ox
 from pinc_tpu_torch.ops import tiled_kernels as tk
 from pinc_tpu_torch.ops.tiled import TileSpec, bucket
@@ -590,6 +594,146 @@ def test_kbench_wrappers_check_their_inputs(cuda):
         kb.deposit_variant(xyz[:, :, :252].contiguous(), val[:, :252]
                            .contiguous(), TileSpec(grid=(16, 16, 16), T=8,
                                                    M=1, B=252), "int8")
+
+
+def _prim_launched(before: dict, key: str, n: int = 1) -> None:
+    torch.cuda.synchronize()
+    assert {k: kp.LAUNCHES[k] - before[k] for k in before} == {
+        k: n * (k == key) for k in before}
+
+
+@pytest.mark.cuda
+def test_kbench_prims_match_plain_at_the_probes_shapes(cuda):
+    """kbench.check_prims: every call site's shapes, wrapping and filling
+    indices, int32 words, the static row rolls p = 0..7, device shifts 5,
+    -3, 261, plane_add with 13 tiles at G = 1, 4, 8, the prefix sum with
+    -0.0 at B = 1000, rows of 130 words (no 16-byte loads)."""
+    before = dict(kp.LAUNCHES)
+    rows = kbench.check_prims(cuda)
+    torch.cuda.synchronize()
+    assert rows and all(r["ok"] for r in rows), [
+        r["name"] for r in rows if not r["ok"]]
+    assert all(kp.LAUNCHES[k] > before[k] for k in kp.LAUNCHES)
+
+
+def _prim_gen(dev, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["extract", "merge", "square", "rows"])
+def test_kbench_take_matches_plain(cuda, shape):
+    """The exchange's shapes, 4096 tiles of (8, 2176), with indices over
+    [-n - 3, n + 3): some wrap, some fill (NaN)."""
+    src_c, idx_c, axis = {"extract": (2176, 768, 2),
+                          "merge": (768, 2176, 2),
+                          "square": (2176, 2176, 2),
+                          "rows": (2176, 2176, 1)}[shape]
+    gen = _prim_gen(cuda, src_c + idx_c + axis)
+    src = torch.randn((4096, 8, src_c), generator=gen, device=cuda)
+    n = src.shape[axis]
+    idx = torch.randint(-n - 3, n + 3, (4096, 8, idx_c), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    before = dict(kp.LAUNCHES)
+    got = kp.take(src, idx, axis)
+    want = kp.take_plain(src, idx, axis)
+    assert kbench.same_bits(got, want)
+    assert torch.isnan(got).any()
+    _prim_launched(before, "kbench_take")
+
+
+@pytest.mark.cuda
+def test_kbench_take_int32_fill(cuda):
+    gen = _prim_gen(cuda, 3)
+    src = torch.randint(-2 ** 31, 2 ** 31 - 1, (64, 8, 300), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    idx = torch.randint(-303, 303, (64, 8, 100), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    got = kp.take(src, idx, 2)
+    assert kbench.same_bits(got, kp.take_plain(src, idx, 2))
+    assert (got == -2 ** 31).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis, shift", [(1, 1), (1, 7), (1, -9), (2, 5),
+                                         (2, -3), (2, 261)])
+@pytest.mark.parametrize("where", ["host", "device"])
+def test_kbench_roll_matches_plain(cuda, axis, shift, where):
+    """K9's spill shape (4096, 8, 2176) along the rows and the lanes."""
+    x = torch.randn((4096, 8, 2176), generator=_prim_gen(cuda, 4),
+                    device=cuda)
+    s = shift if where == "host" else torch.tensor(
+        [shift], dtype=torch.int32, device=cuda)
+    before = dict(kp.LAUNCHES)
+    got = kp.roll(x, s, axis)
+    assert kbench.same_bits(got, kp.roll_plain(x, s, axis))
+    assert kbench.same_bits(got, torch.roll(x, shift, axis))
+    _prim_launched(before, "kbench_roll")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_kbench_plane_add_matches_plain(cuda, G):
+    """7 planes of 4099 tiles of (8, 2176): 4099 is no multiple of 4 or
+    8, so the last block holds fewer tiles; and tiles of 7 words (no
+    float4)."""
+    gen = _prim_gen(cuda, G)
+    before = dict(kp.LAUNCHES)
+    for shape in ((4099, 8, 2176), (37, 7)):
+        planes = [torch.randn(shape, generator=gen, device=cuda)
+                  for _ in range(7)]
+        got = kp.plane_add(planes, G)
+        assert kbench.same_bits(got, kp.plane_add_plain(planes, G))
+    _prim_launched(before, "kbench_plane_add", 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [9216, 1000, 777, kp.MAX_PREFIX_B])
+@pytest.mark.parametrize("data", ["mask", "normal"])
+def test_kbench_lane_prefix_matches_plain(cuda, B, data):
+    """kbench7.py's (4096, 9216) and rows that are not a multiple of the
+    block's 512 threads (1000, 777), up to the widest row shared memory
+    holds; bit for bit on any input; torch.cumsum bit for bit on the
+    mask."""
+    gen = _prim_gen(cuda, B)
+    NT = 4096 if B == 9216 else 64
+    if data == "mask":
+        m = (torch.rand((NT, B), generator=gen, device=cuda) < 0.01).float()
+    else:
+        m = torch.randn((NT, B), generator=gen, device=cuda)
+        m[:, ::7] = -0.0
+    before = dict(kp.LAUNCHES)
+    got = kp.lane_prefix(m)
+    assert kbench.same_bits(got, kp.lane_prefix_plain(m))
+    if data == "mask":
+        assert kbench.same_bits(got, torch.cumsum(m, 1))
+    _prim_launched(before, "kbench_lane_prefix")
+
+
+@pytest.mark.cuda
+def test_kbench_sweeps_on_the_card(cuda):
+    """Every row of the kernel benchmark, untimed, at small sizes."""
+    rows = kbench.run(device=cuda, time=False,
+                      k12=dict(grid=(16, 16, 16), B=256, fill=170),
+                      k13=dict(grid=(16, 16, 16), B=256), prims=dict(NT=64))
+    assert len(rows) == 34 and all(r["ok"] for r in rows), [
+        r["name"] for r in rows if not r["ok"]]
+
+
+@pytest.mark.cuda
+def test_kbench_prims_wrappers_check_their_inputs(cuda):
+    x = torch.zeros((4, 8, 16), device=cuda)
+    idx = torch.zeros((4, 8, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="idx is on"):
+        kp.take(x, idx, 2)
+    with pytest.raises(ValueError, match="shift is on"):
+        kp.roll(x, torch.tensor([1], dtype=torch.int32), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kp.roll(x.transpose(1, 2), 1, 2)
+    with pytest.raises(ValueError, match="planes\\[1\\] is on"):
+        kp.plane_add([x, x.cpu()])
 
 
 DECK = """

@@ -445,18 +445,24 @@ def test_deposit_modes_on_m2(mode):
 
 def test_kbench_runs_every_row_on_the_cpu():
     """python -m pinc_tpu_torch.kbench's rows at the fixture's size,
-    untimed (on the CPU the wrappers run the plain versions)."""
+    untimed (on the CPU the wrappers run the plain versions); the prims
+    sweep's rows are tests/test_torch_kbench_prims.py's."""
     rows = kbench.run(device="cpu", time=False,
                       k12=dict(grid=GRID, B=B, fill=170),
-                      k13=dict(grid=GRID, B=B))
-    assert [r["name"] for r in rows] == (
+                      k13=dict(grid=GRID, B=B),
+                      prims=dict(NT=NT, L=L, W=L // 4, B=B))
+    assert [r["name"] for r in rows if r["sweep"] != "prims"] == (
         [f"K12 {f} M={M} {dn}" for M in (1, 2)
          for f in ("deposit_v", "gather_v") for dn in ("f32", "bf16")]
         + ["K13 deposit bf16 (K1)"]
         + [f"K13 deposit {m}" for m in kb.DEPOSIT_MODES]
         + ["K13 gather bf16 (K3)"] + [f"K13 gather {m}"
                                       for m in kb.GATHER_MODES])
+    assert [r["sweep"] for r in rows] == (
+        ["k12"] * 8 + ["k13"] * 10 + ["prims"] * 16)
     assert all(r["ok"] and r["refs"] for r in rows)
+    assert all(r["library_ms"] is None and r["library"] is None
+               for r in rows if r["sweep"] != "prims")
     by = {r["name"]: r for r in rows}
     for m in kbench.CEILINGS:
         assert by[f"K13 {'gather' if m == 'no_xreduce' else 'deposit'} "
