@@ -4,15 +4,18 @@
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
 1. Builds the CUDA kernels from pinc_tpu_torch/csrc with nvcc (one nvcc
-   per source, all started together).
+   per source, all started together), and checks with cuobjdump that
+   pic_step's density adds compile to native integer shared atomics
+   (ATOMS.ADD, no compare-and-swap loop).
 2. Holds each kernel against its plain PyTorch version on the card and
    times both by CUDA events: deposit, deposit_move, gather, gather_kick at
    the test fixture's size and at the bench deck's production shape (128^3
    grid: 4096 tiles of 8^3 cells, margin 1, 17,408 slots), with f32 and
    bf16 weights; pic_step at the fixture (f32/bf16, CIC/NGP, leapfrog,
    Boris, e_ext, and tests/test_margin_schedule.py's margin sets at M = 2)
-   and at the production shape at M = 1 and M = 2; efield_tiles and
-   fold_global at M = 1, 2 and a T <= 2M+1 layout, and at 128^3 (bit for
+   and at the production shape at M = 1 and M = 2, each launched twice
+   (its integer density sums must give bit-identical tiles); efield_tiles
+   and fold_global at M = 1, 2 and a T <= 2M+1 layout, and at 128^3 (bit for
    bit); the exchange kernels extract, cleanup and merge at the fixture
    size (with forced overflow, spill and drops) and at the production
    shape, on the calls one whole exchange makes on a bucketed state moved
@@ -185,6 +188,31 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0].strip()
 
 
+def shared_atomics(lib_path, kernel: str) -> dict:
+    """{SASS op: count} of the shared-memory atomics (ATOMS*) in each
+    instantiation of a kernel of the built library, by cuobjdump -sass
+    (beside nvcc); {mangled name: {op: count}}."""
+    import re
+    from pinc_tpu_torch.ops import _cuda_build
+    cuobjdump = os.path.join(os.path.dirname(_cuda_build.nvcc_path()),
+                             "cuobjdump")
+    proc = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[-500:]}")
+    out, name = {}, None
+    for line in proc.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = fn.group(1) if kernel in fn.group(1) else None
+            if name:
+                out[name] = {}
+        elif name:
+            op = re.search(r"\b(ATOMS\S*)", line)
+            if op:
+                out[name][op.group(1)] = out[name].get(op.group(1), 0) + 1
+    return out
+
+
 def cuda_ms(fn, reps: int, warmup: int) -> float:
     """Mean device time of fn() over reps launches, by CUDA events."""
     import torch
@@ -317,7 +345,8 @@ def compare_step(tk, ts, d, mdt, orders, kicks, margin_sets, charge, qm,
                  errs: dict, label: str) -> None:
     """K5 against its plain version on the same CUDA tensors: positions,
     velocities and n_out exact, tiles and vdot within the deposit and
-    kick tolerances."""
+    kick tolerances; and against itself: a second launch on the same
+    input gives bit-identical tiles (its density sums are integers)."""
     import torch
     E = d["E"].to(mdt)
     for oa, od in orders:
@@ -335,6 +364,8 @@ def compare_step(tk, ts, d, mdt, orders, kicks, margin_sets, charge, qm,
                 check(torch.equal(x, xr) and torch.equal(v, vr),
                       f"{what}: new positions or velocities differ")
                 check(torch.equal(n, nr), f"{what}: n_out {n} != {nr}")
+                check(torch.equal(t, tk.pic_step(*args, **opts)[0]),
+                      f"{what}: a second launch gave other tiles")
                 rel = ((vd - vdr).abs() / vdr.abs()).max().item()
                 check(rel <= VDOT_RTOL, f"{what}: vdot rel err {rel}")
                 errs["pic_step"] = max(errs["pic_step"], e)
@@ -1415,6 +1446,18 @@ def main() -> int:
     print(f"phase 1 build: {lib.name} with {_cuda_build.nvcc_path()} "
           f"({_cuda_build.build_seconds:.1f} s nvcc, "
           f"{time.monotonic() - t0:.1f} s total)", flush=True)
+    # pic_step's density adds must be native integer atomics (a float32 or
+    # 64-bit shared atomicAdd is a compare-and-swap loop, ATOMS.CAST.SPIN)
+    k5 = shared_atomics(lib, "pic_step_kernel")
+    check(len(k5) == 16 and all(ops and set(ops) == {"ATOMS.ADD"}
+                                for ops in k5.values()),
+          f"pic_step's shared atomics are not all ATOMS.ADD in its 16 "
+          f"instantiations: {k5}")
+    k12 = shared_atomics(lib, "deposit_kernel")
+    print(f"phase 1 SASS (cuobjdump): pic_step's shared atomics per "
+          f"instantiation {sorted({tuple(o.items()) for o in k5.values()})}"
+          f"; deposit and deposit_move's "
+          f"{sorted({tuple(o.items()) for o in k12.values()})}", flush=True)
 
     # -- phase 2: kernels vs plain versions on the card -------------------
     print(f"phase 2 kernels vs plain (deposit err <= {DEPOSIT_RTOL}*max, "
@@ -1523,6 +1566,11 @@ def main() -> int:
     # K5, K6, K7 at the production shapes of phase 5's two decks: M = 1
     # (the aux deck) and M = 2 (the headline deck); electrons and ions of
     # the bench deck
+    k, j = tk.deposit_scale((q_e, -q_e), prod.B)
+    print(f"  pic_step density accumulator: {tk.ACCUMULATOR} fixed point, "
+          f"hi on the grid 2^-{k} and lo on 2^-{k + j} (k = {k}, j = {j} at "
+          f"the bench deck's charges and B = {prod.B}); tiles bit-identical "
+          f"across launches", flush=True)
     prods = {M: TileSpec(grid=(128, 128, 128), T=8, M=M, B=17408)
              for M in (1, 2)}
     step_times = {M: time_step_and_field(tk, fk, ts, gen, dev, card,

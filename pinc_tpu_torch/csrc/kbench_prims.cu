@@ -24,14 +24,23 @@
 //   outer and the planes inner as in r5_progoverhead.py _kernel, float4
 //   where every tile is 16-byte aligned.  Replaces r5_progoverhead.py mk
 //   (G tiles a grid program); bound by bytes.
-// lane_prefix_kernel — the inclusive prefix sum of a row of (NT, B)
+// lane_prefix_kernel<R> — the inclusive prefix sum of a row of (NT, B)
 //   float32 in archive/kbench7.py _prefix_lanes' log-step order: x_s[i] =
 //   x_{s-1}[i] + x_{s-1}[i-s] (i >= s) or x_{s-1}[i] + 0 (i < s), s = 1, 2,
-//   4, ... < B.  One block a row, the row double-buffered in shared memory
-//   (72 KB at B = 9216), ceil(log2 B) passes with a __syncthreads between
-//   them, each add __fadd_rn (no contraction), so it is bit-equal to the
-//   plain version on any input.  Replaces kbench7.py pallas_scan; bound by
-//   bytes on paper, by its passes over shared memory in fact.
+//   4, ... < B, each add __fadd_rn (no contraction), so it is bit-equal to
+//   the plain version on any input.  One block of W threads a row, the row
+//   in registers (element r * W + t in register r of thread t; W and R
+//   from ops/kbench_prims.lane_prefix_layout): the passes s >= W add
+//   another register of the same thread (no shared memory, no sync), the
+//   passes s < 32 shuffle within the warp and take only the first s lanes'
+//   partners through shared memory, and only the passes 32 <= s < W (4 of
+//   14 at B = 9216, W = 512) write and read the row in shared memory,
+//   double-buffered (72 KB at B = 9216) for one __syncthreads a pass.
+//   R is a template argument (1..32), so the row stays in registers with
+//   no guard but on register R - 1 (R = 18 at B = 9216: 64 registers a
+//   thread, two 512-thread blocks an SM).  Replaces kbench7.py
+//   pallas_scan; bound by bytes on paper, by its instructions and syncs
+//   in fact.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns the cudaGetLastError() code of its launch (-1 for an argument the
@@ -45,7 +54,6 @@ namespace {
 
 constexpr int kTakeThreads = 512;
 constexpr int kThreads = 256;
-constexpr int kScanThreads = 512;
 constexpr int kMaxPlanes = 8;
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block
 
@@ -156,26 +164,68 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kScanThreads)
+// Row element i = r * W + t lives in register r of thread t (W =
+// blockDim.x, a power of two >= 32; R = ceil(B / W) registers a thread, so
+// only register R - 1 can hold an element past B).  Pass s adds element
+// i - s: for s < 32 by a shuffle up within the warp, the first s lanes
+// taking theirs (the last s lanes of the warp before, or of the last warp
+// one register back) through shared memory; for 32 <= s < W through the
+// row in shared memory; for s = W, 2W, ... from register r - s/W of the
+// same thread.  Shared memory holds the row twice, so each pass that
+// touches it syncs once.
+template <int R>
+__global__ void __launch_bounds__(R > 29 ? 512 : 1024)
     lane_prefix_kernel(const float* __restrict__ m, float* __restrict__ out,
                        int B) {
   extern __shared__ float buf[];
-  float* a = buf;
-  float* b = buf + B;
+  const int W = blockDim.x, t = threadIdx.x, lane = t & 31;
   const long long row = blockIdx.x;
-  const float* in = m + row * B;
-  for (int i = threadIdx.x; i < B; i += blockDim.x) a[i] = __ldg(in + i);
-  __syncthreads();
-  for (int s = 1; s < B; s *= 2) {
-    for (int i = threadIdx.x; i < B; i += blockDim.x)
-      b[i] = __fadd_rn(a[i], i >= s ? a[i - s] : 0.0f);
+  const float* in = m + row * B + t;
+  const bool last = (R - 1) * W + t < B;   // register R - 1 holds an element
+  float x[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    x[r] = (r < R - 1 || last) ? __ldg(in + r * W) : 0.0f;
+  int p = 0;
+  for (int s = 1; s < 32 && s < B; s *= 2, p ^= 1) {
+    float* b = buf + p * B + t;
+    if (lane >= 32 - s) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (r < R - 1 || last) b[r * W] = x[r];
+    }
     __syncthreads();
-    float* t = a;
-    a = b;
-    b = t;
+    const bool head = lane < s;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float y = __shfl_up_sync(0xffffffffu, x[r], s);
+      float z = 0.0f;
+      if (head && (r > 0 || t >= s) && (r < R - 1 || last))
+        z = b[r * W - s];
+      x[r] = __fadd_rn(x[r], head ? z : y);
+    }
   }
-  float* o = out + row * B;
-  for (int i = threadIdx.x; i < B; i += blockDim.x) o[i] = a[i];
+  for (int s = 32; s < W && s < B; s *= 2, p ^= 1) {
+    float* b = buf + p * B + t;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < R - 1 || last) b[r * W] = x[r];
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < R - 1 || last)
+        x[r] = __fadd_rn(x[r], (r > 0 || t >= s) ? b[r * W - s] : 0.0f);
+  }
+#pragma unroll
+  for (int mm = 1; mm < R; mm *= 2) {
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r)
+      x[r] = __fadd_rn(x[r], r >= mm ? x[r - mm] : 0.0f);
+  }
+  float* o = out + row * B + t;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r < R - 1 || last) o[r * W] = x[r];
 }
 
 template <typename Kernel>
@@ -185,6 +235,22 @@ int prepare(Kernel* kernel, size_t smem) {
     return (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   return 0;
+}
+
+constexpr int kMaxPrefixR = 32;
+
+// Launches lane_prefix_kernel<Rr> for any Rr in 1..R.
+template <int R>
+int launch_prefix(const float* m, float* out, int NT, int B, int W, int Rr,
+                  size_t smem, cudaStream_t st) {
+  if (Rr != R) {
+    if constexpr (R > 1)
+      return launch_prefix<R - 1>(m, out, NT, B, W, Rr, smem, st);
+    return -1;
+  }
+  if (int err = prepare(lane_prefix_kernel<R>, smem)) return err;
+  lane_prefix_kernel<R><<<NT, W, smem, st>>>(m, out, B);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -237,14 +303,15 @@ int pinc_kp_plane_add(void* const* ptrs, int np, int NT, int tile, int G,
   return (int)cudaGetLastError();
 }
 
-int pinc_kp_lane_prefix(const float* m, float* out, int NT, int B,
-                        void* stream) {
+int pinc_kp_lane_prefix(const float* m, float* out, int NT, int B, int W,
+                        int R, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (NT < 1 || B < 1) return -1;
-  const size_t smem = (size_t)B * 2 * 4;
-  if (int err = prepare(lane_prefix_kernel, smem)) return err;
-  lane_prefix_kernel<<<NT, kScanThreads, smem, st>>>(m, out, B);
-  return (int)cudaGetLastError();
+  if (NT < 1 || B < 1 || W < 32 || W > 1024 || (W & (W - 1)) != 0 ||
+      R < 1 || R > kMaxPrefixR || (R > 29 && W > 512) ||
+      (long long)R * W < B || (R - 1) * W >= B)
+    return -1;
+  return launch_prefix<kMaxPrefixR>(m, out, NT, B, W, R, (size_t)B * 2 * 4,
+                                    st);
 }
 
 }  // extern "C"

@@ -11,7 +11,11 @@
 // block per tile, the tile's padded node block in shared memory (the
 // accumulator of a deposit, the field of a gather), threads striding over
 // the tile's B slots.  Deposits add into shared memory with atomics and
-// write each tile's block once, with no global atomics.
+// write each tile's block once, with no global atomics: K1 and K2 with
+// float32 atomicAdd, a compare-and-swap loop on sm_90a (ATOMS.CAST.SPIN);
+// pic_step in integers, a pair of int32 fixed-point blocks that each add
+// with one ATOMS.ADD, so its tiles do not depend on the order of the adds
+// (acc_add).
 //
 // Layouts (row-major, float32):
 //   xyz, vel      (3, NT, B)    tile-local coordinate / velocity planes
@@ -31,7 +35,8 @@
 // range test uses mg or md, the block index M, which is what the TPU
 // kernel's 0/1 embed matmuls compute.  With bf16 weights the products
 // wx*value and wy*wz (deposit), and E and wy*wz (gather), are rounded to
-// bf16 at the same points as the TPU kernels; all sums are float32.
+// bf16 at the same points as the TPU kernels; all sums are float32 but
+// pic_step's density, whose integer sums are converted back once a node.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns the cudaGetLastError() code of its launch (-1 for an argument
@@ -39,6 +44,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 namespace {
 
@@ -300,6 +307,8 @@ struct StepParams {
   int mg[kMaxSpecies];        // gather margin, <= M
   int md[kMaxSpecies];        // deposit margin, <= M
   float ext[3];               // external E
+  float scale, inv_scale;     // 2^k, 2^-k: the density's fixed point
+  float lo_scale;             // 2^j: its residual's finer grid
   int nspecies;
 };
 
@@ -327,17 +336,37 @@ __device__ __forceinline__ void block_sum2(float& a, float& b,
   __syncthreads();
 }
 
+// K5's density accumulator, a pair of int32 blocks in shared memory: a
+// contribution c (float32) becomes y = c 2^k (exact), hi = rint(y) and
+// lo = rint((y - hi) 2^j) (y - hi is exact), each added with one native
+// ATOMS.ADD; a node's value is (hi + lo 2^-j) 2^-k, formed in double and
+// rounded once to float32.  The host picks k and j so that neither sum
+// can overflow (ops/tiled_kernels.deposit_scale).
+__device__ __forceinline__ void acc_add(int* hi, int* lo, int i, float c,
+                                        const StepParams& sp) {
+  const float y = __fmul_rn(c, sp.scale);
+  const float h = rintf(y);
+  atomicAdd(hi + i, (int)h);
+  atomicAdd(lo + i, __float2int_rn(__fmul_rn(__fsub_rn(y, h), sp.lo_scale)));
+}
+
+__device__ __forceinline__ float acc_value(const int* hi, const int* lo,
+                                           int i, const StepParams& sp) {
+  const double v = (double)hi[i] + (double)lo[i] / (double)sp.lo_scale;
+  return (float)(v * (double)sp.inv_scale);
+}
+
 // K5: the particle half of a step for every species, one block per tile.
 // The tile's E block (3 P^3, rounded to bf16 when BF16) is loaded into
 // shared memory once for all species, and its density block (P^3)
-// accumulates in shared memory across species and is written once.  Per
-// slot: gather E(x_n) at nodes in [-mg, T+mg], the kick (+ ext), the
-// alive-masked update v + alive (v' - v), the drift x + v of every slot,
-// the margin count of live slots outside [-md, T+md), and the deposit of
-// alive*q at x_{n+1} on nodes in [-md, T+md].  Each thread reads its
-// slot's x and v before writing them, so lpos_out/vel_out may alias
-// lpos/vel (the in-place step).  vdot and n_out are reduced per block
-// into (S, NT) partials.
+// accumulates in shared memory across species, in integers (acc_add), and
+// is written once.  Per slot: gather E(x_n) at nodes in [-mg, T+mg], the
+// kick (+ ext), the alive-masked update v + alive (v' - v), the drift
+// x + v of every slot, the margin count of live slots outside [-md, T+md),
+// and the deposit of alive*q at x_{n+1} on nodes in [-md, T+md].  Each
+// thread reads its slot's x and v before writing them, so lpos_out/vel_out
+// may alias lpos/vel (the in-place step).  vdot and n_out are reduced per
+// block into (S, NT) partials.
 template <int OACC, int ODEP, bool BF16, int KICK>
 __global__ void __launch_bounds__(kThreads)
 pic_step_kernel(const void* __restrict__ E, int e_bf16, const float* lpos,
@@ -349,8 +378,9 @@ pic_step_kernel(const void* __restrict__ E, int e_bf16, const float* lpos,
   __shared__ float red[2][kThreads / 32];
   const int T = P - 1 - 2 * M;
   const int P2 = P * P, P3 = P2 * P;
-  float* F = smem;                 // E, component-major (3, P^3)
-  float* acc = smem + 3 * P3;      // density (P^3)
+  int* acc_hi = reinterpret_cast<int*>(smem);  // density, 2^-k units
+  int* acc_lo = acc_hi + P3;                    // residual, 2^-(k+j) units
+  float* F = smem + 2 * P3;                     // E, component-major (3, P^3)
   const long long ebase = (long long)blockIdx.x * 3 * P3;
   for (int i = threadIdx.x; i < 3 * P3; i += blockDim.x) {
     const float e =
@@ -359,7 +389,7 @@ pic_step_kernel(const void* __restrict__ E, int e_bf16, const float* lpos,
                : static_cast<const float*>(E)[ebase + i];
     F[i] = BF16 ? to_bf16(e) : e;
   }
-  for (int i = threadIdx.x; i < P3; i += blockDim.x) acc[i] = 0.0f;
+  for (int i = threadIdx.x; i < 2 * P3; i += blockDim.x) acc_hi[i] = 0;
   __syncthreads();
   const long long plane = (long long)NT * B;
   for (int s = 0; s < sp.nspecies; ++s) {
@@ -433,7 +463,8 @@ pic_step_kernel(const void* __restrict__ E, int e_bf16, const float* lpos,
             float wyz = wy[b] * wz[c];
             if (BF16) wyz = to_bf16(wyz);
             if (wyz == 0.0f) continue;
-            atomicAdd(&acc[ix[a] * P2 + iy[b] * P + iz[c]], wa * wyz);
+            acc_add(acc_hi, acc_lo, ix[a] * P2 + iy[b] * P + iz[c],
+                    mul(wa, wyz), sp);
           }
         }
       }
@@ -446,7 +477,8 @@ pic_step_kernel(const void* __restrict__ E, int e_bf16, const float* lpos,
   }
   __syncthreads();
   float* out = tiles + (long long)blockIdx.x * P3;
-  for (int i = threadIdx.x; i < P3; i += blockDim.x) out[i] = acc[i];
+  for (int i = threadIdx.x; i < P3; i += blockDim.x)
+    out[i] = acc_value(acc_hi, acc_lo, i, sp);
 }
 
 template <typename Kernel>
@@ -521,7 +553,8 @@ int launch_pic_step(const void* E, int e_bf16, const float* lpos,
                     const StepParams& sp, float* tiles, float* lpos_out,
                     float* vel_out, float* vdot, float* nout, int NT, int B,
                     int P, int M, cudaStream_t stream) {
-  const size_t smem = (size_t)4 * P * P * P * sizeof(float);
+  // the int32 pair (2 P^3) and E (3 P^3)
+  const size_t smem = (size_t)5 * P * P * P * sizeof(float);
   auto* kernel = pic_step_kernel<OACC, ODEP, BF16, KICK>;
   if (int err = prepare(kernel, smem)) return err;
   kernel<<<NT, kThreads, smem, stream>>>(E, e_bf16, lpos, vel, alive, sp,
@@ -614,7 +647,8 @@ int pinc_tiled_pic_step(const void* E, int e_bf16, const float* lpos,
                         float* nout, int NT, int B, int P, int M,
                         int order_acc, int order_distr, int bf16,
                         void* stream) {
-  // params (host): per species q, qm, T[3], S[3], mg, md; then ext[3]
+  // params (host): per species q, qm, T[3], S[3], mg, md; then ext[3],
+  // and the density's scale exponents k and j
   if (S < 1 || S > kMaxSpecies) return -1;
   StepParams sp = {};
   sp.nspecies = S;
@@ -632,6 +666,11 @@ int pinc_tiled_pic_step(const void* E, int e_bf16, const float* lpos,
       return -1;
   }
   for (int c = 0; c < 3; ++c) sp.ext[c] = params[10 * S + c];
+  const int k = (int)params[10 * S + 3], j = (int)params[10 * S + 4];
+  if (k < -126 || k > 126 || j < 0 || j > 30) return -1;
+  sp.scale = ldexpf(1.0f, k);
+  sp.inv_scale = ldexpf(1.0f, -k);
+  sp.lo_scale = ldexpf(1.0f, j);
   cudaStream_t s = (cudaStream_t)stream;
   if ((order_acc != 0 && order_acc != 1) ||
       (order_distr != 0 && order_distr != 1))

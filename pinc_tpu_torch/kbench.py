@@ -34,7 +34,10 @@ from a seed:
 
 * ``prims`` — the exchange primitives of ``ops/kbench_prims.py`` at the
   exchange's shapes: the gathers along lanes of 4096 tiles of (8, 2176)
-  (``r4_gather_probe.py``'s extract ``gat``, merge and square), the row
+  (``r4_gather_probe.py``'s extract ``gat``, merge and square) and 4096
+  blocks of each other take probe's own block (``PROBE_BLOCKS``: the
+  sublane gather, ``r4_gather_probe2.py``'s lane and row gathers,
+  ``r4_gather_probe3.py``'s int32 lanes), the row
   rolls p = 1..7 of the same stack (K9's spill passes) and its lane roll
   by a shift on the device, the 7-plane ``+ 1.0`` at G = 1, 4, 8 tiles a
   block, and the prefix sum of (4096, 9216) on a 1% mask (``kbench7.py``)
@@ -102,6 +105,18 @@ K13 = dict(grid=(128, 128, 128), T=8, B=9216, live=0.9, M=1)
 #: (G), kbench7.py's (NT, B) scan and its mask density
 PRIMS = dict(NT=4096, R=8, L=2176, W=768, row_shifts=tuple(range(1, 8)),
              lane_shift=261, planes=7, groups=(1, 4, 8), B=9216, mask=0.01)
+#: the other take probes at their own block shapes, NT blocks a row:
+#: (mode, block (R, C), axis of the block taken along (0 rows, 1 lanes),
+#: word type, the FUNCTIONS key)
+PROBE_BLOCKS = (
+    ("sublane (64, 128)", (64, 128), 0, torch.float32,
+     "r4_gather_probe.build_taa_sublane"),
+    *((f"probe2 lanes {rc}", rc, 1, torch.float32, "r4_gather_probe2.probe")
+      for rc in ((8, 128), (8, 256), (16, 128), (256, 128))),
+    ("probe2 rows (8, 128)", (8, 128), 0, torch.float32,
+     "r4_gather_probe2.probe"),
+    ("int_gather (8, 128) int32", (8, 128), 1, torch.int32,
+     "r4_gather_probe3.int_gather"))
 #: torch.cumsum vs the kernel on normal inputs (another summation order):
 #: max|kernel - cumsum| <= LIBRARY_RTOL * the largest row sum of |x|
 LIBRARY_RTOL = 1e-5
@@ -306,6 +321,23 @@ def _prim_cases(prims: dict, gen, dev):
             library=lambda src=src, i=idx64: torch.gather(src, 2, i),
             library_name="torch.gather (int64 indices)", exact_scale=None,
             nbytes=2 * _nbytes(idx) + _nbytes(src), ops=0.0, refs=refs)
+        del src, idx, idx64
+    for mode, (rb, cb), ax, dtype, ref in PROBE_BLOCKS:
+        src = (normal(NT, rb, cb) if dtype == torch.float32 else
+               torch.randint(-2 ** 31, 2 ** 31 - 1, (NT, rb, cb),
+                             generator=gen, device=dev, dtype=dtype))
+        idx = index((rb, cb)[ax], NT, rb, cb)
+        idx64 = idx.long()
+        yield dict(
+            name=f"prims take {mode}", kernel="kbench_take", mode=mode,
+            shape=f"({NT}, {rb}, {cb}) along the {('rows', 'lanes')[ax]}",
+            fn=lambda src=src, idx=idx, a=ax + 1: kp.take(src, idx, a),
+            plain=lambda src=src, idx=idx, a=ax + 1: kp.take_plain(
+                src, idx, a),
+            library=lambda src=src, i=idx64, a=ax + 1: torch.gather(
+                src, a, i),
+            library_name="torch.gather (int64 indices)", exact_scale=None,
+            nbytes=2 * _nbytes(idx) + _nbytes(src), ops=0.0, refs=(ref,))
         del src, idx, idx64
     x = normal(NT, R, L)
     for p in prims["row_shifts"]:

@@ -50,7 +50,7 @@ SIGNATURES = {
     "pinc_tiled_gather_kick": [_P, _P, _P, _P, _F, _P, _I, _P, _P,
                                _I, _I, _I, _I, _I, _I, _P],
     # E, e_bf16, lpos, vel, alive, params (host: per species q, qm, T[3],
-    # S[3], mg, md; then e_ext[3]), S, boris, tiles, lpos_out, vel_out,
+    # S[3], mg, md; then e_ext[3], k, j), S, boris, tiles, lpos_out, vel_out,
     # vdot, nout, NT, B, P, M, order_acc, order_distr, bf16, stream
     "pinc_tiled_pic_step": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                             _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -92,8 +92,8 @@ SIGNATURES = {
     "pinc_kp_roll": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # ptrs (host: the inputs, then the outputs), np, NT, tile, G, stream
     "pinc_kp_plane_add": [_P, _I, _I, _I, _I, _P],
-    # m, out, NT, B, stream
-    "pinc_kp_lane_prefix": [_P, _P, _I, _I, _P],
+    # m, out, NT, B, W, R, stream
+    "pinc_kp_lane_prefix": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -102,6 +102,9 @@ MAX_TAKE_WORDS = 232448 // 4
 MAX_PREFIX_B = 232448 // 8
 
 WORDS = (torch.float32, torch.int32)
+#: lane_prefix keeps at most this many elements of a row a thread in
+#: registers
+MAX_PREFIX_R = 32
 
 
 def reset_launches() -> None:
@@ -125,6 +128,16 @@ def _block_axis(t: torch.Tensor, axis: int, name: str) -> int:
 def _nonempty(t: torch.Tensor, name: str) -> None:
     if t.numel() == 0:
         raise ValueError(f"{name} is empty")
+
+
+def lane_prefix_layout(B: int):
+    """(W, R) of lane_prefix's kernel for rows of B elements: W threads a
+    row (the smallest power of two >= 32 that leaves R = ceil(B / W) <=
+    MAX_PREFIX_R), element i = r * W + t in register r of thread t."""
+    W = 32
+    while -(-B // W) > MAX_PREFIX_R:
+        W *= 2
+    return W, -(-B // W)
 
 
 # ---------------------------------------------------------------------------
@@ -296,11 +309,15 @@ def lane_prefix(m: torch.Tensor) -> torch.Tensor:
     B <= MAX_PREFIX_B.
 
     Replaces kbench7.py's pallas_scan (FUNCTIONS).  Bound on the card: m
-    read and the output written once (bytes); the ceil(log2 B) passes over
-    shared memory (14 at B = 9216) are what it waits on.  Design: one
-    block a row, the row double-buffered in shared memory (72 KB at B =
-    9216), a __syncthreads between the passes, each add __fadd_rn so that
-    no contraction changes a rounding."""
+    read and the output written once (bytes); its ceil(log2 B) passes (14
+    at B = 9216) are instructions and syncs.  Design: one block of W
+    threads a row, the row in registers (lane_prefix_layout: element
+    r * W + t in register r of thread t), so the passes s >= W add
+    another register of the same thread, the passes s < 32 shuffle within
+    the warp (only the first s lanes take their partner through shared
+    memory), and only the passes 32 <= s < W go through the row in shared
+    memory, double-buffered for one __syncthreads a pass; each add
+    __fadd_rn so that no contraction changes a rounding."""
     if m.dim() != 2:
         raise ValueError(f"m must be (NT, B), got rank {m.dim()}")
     _check(m, "m", tuple(m.shape), m.device)
@@ -315,5 +332,6 @@ def lane_prefix(m: torch.Tensor) -> torch.Tensor:
     lib = _cuda_build.load()
     with torch.cuda.device(m.device):
         _launch("kbench_lane_prefix", lib.pinc_kp_lane_prefix, _ptr(m),
-                _ptr(out), NT, B, _stream(m.device), counts=LAUNCHES)
+                _ptr(out), NT, B, *lane_prefix_layout(B), _stream(m.device),
+                counts=LAUNCHES)
     return out

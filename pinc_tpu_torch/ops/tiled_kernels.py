@@ -26,12 +26,15 @@ Weights are those of ``pallas_tiled._w1d`` (CIC hat or NGP indicator over
 the padded node offsets -M..T+M, or -m..T+m at a working margin m <= M);
 with ``mxu_dtype=torch.bfloat16`` they
 are rounded to bf16 at the TPU kernels' points (``wx*value`` and ``wy*wz``
-in the deposit, the field and ``wy*wz`` in the gather), sums in float32.
+in the deposit, the field and ``wy*wz`` in the gather), sums in float32
+(but the density of ``pic_step``'s kernel, summed in integers:
+``ACCUMULATOR``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -235,6 +238,38 @@ def gather_kick_plain(field_pad: torch.Tensor, xyz: torch.Tensor,
     outs, vdot = kick_planes(vs, Ecs, float(qm), _boris_floats(boris))
     new_vel = torch.stack([v + alive * (vn - v) for v, vn in zip(vs, outs)])
     return new_vel, torch.sum(vdot * alive)
+
+
+#: K5's density accumulator: each contribution c = q w_x w_y w_z (float32)
+#: is scaled by 2^k and split into hi = rint(c 2^k) and lo = rint((c 2^k -
+#: hi) 2^j), two int32 blocks in shared memory (one native integer atomic
+#: each); a node's value is (hi + lo 2^-j) 2^-k, rounded once to float32
+ACCUMULATOR = "int32 pair"
+#: |a node's sum of hi parts| <= 2^HI_BITS + the grid rounding < 2^31
+HI_BITS = 30
+
+
+def deposit_scale(charge, B: int) -> Tuple[int, int]:
+    """(k, j) of K5's fixed-point density (ACCUMULATOR) for the species'
+    charges and B slots a tile.  k is the largest with 2^k * 2 * B *
+    sum|q_s| <= 2^HI_BITS, the worst case of a tile (all S x B slots on one
+    node, weight products up to 1, and a factor 2 for bf16's rounding up),
+    at most 126 (also when every charge is 0) so that 2^k and 2^-k are
+    normal float32 numbers; j is the largest <= 30 with S * B * 2^(j-1) <
+    2^31, since |lo| <= 2^(j-1).  Raises where no such k or j exists."""
+    S, B = len(charge), int(B)
+    total = 2.0 * B * sum(abs(float(q)) for q in charge)
+    k = 126
+    if total:
+        m, e = math.frexp(total)           # total = m 2^e, 0.5 <= m < 1
+        k = min(k, HI_BITS - e + (1 if m == 0.5 else 0))
+    j = 30
+    while j > 0 and S * B * 2 ** (j - 1) >= 2 ** 31:
+        j -= 1
+    if k < -126 or S * B >= 2 ** 31:
+        raise ValueError(f"charges {tuple(charge)} at B = {B} overflow the "
+                         f"fixed-point density")
+    return k, j
 
 
 def _margins(margins, S: int, ts: TileSpec):
@@ -523,10 +558,15 @@ def pic_step(E: torch.Tensor, lpos: torch.Tensor, vel: torch.Tensor,
     and the density blocks (2.2 ms at the bench deck's 2 x 71,303,168
     slots).  Design: one block per tile, the species loop inside it; the
     tile's E block is loaded into shared memory once for every species and
-    its density block accumulates in shared memory across species (shared
-    atomics) and is written once; the TPU kernel's embed matmuls become
-    the node range test at (mg, md); vdot and n_out are reduced per block
-    into (S, NT) partials and summed by torch, in a fixed order."""
+    its density block accumulates in shared memory across species and is
+    written once; the TPU kernel's embed matmuls become the node range
+    test at (mg, md); vdot and n_out are reduced per block into (S, NT)
+    partials and summed by torch, in a fixed order.  The density sums in
+    integers (ACCUMULATOR, at deposit_scale's grid): a float32 shared
+    atomicAdd is a compare-and-swap loop on sm_90a (ATOMS.CAST.SPIN), and
+    so is a 64-bit integer one, while each int32 add of the pair is one
+    ATOMS.ADD; the sums no longer depend on the order of the atomics, so
+    two launches on the same input give bit-identical tiles."""
     if _is_cpu(lpos, "pic_step"):
         return pic_step_plain(E, lpos, vel, alive, charge, qm_dt, ts,
                               mxu_dtype=mxu_dtype, order_acc=order_acc,
@@ -556,7 +596,8 @@ def pic_step(E: torch.Tensor, lpos: torch.Tensor, vel: torch.Tensor,
         bo = _species_boris(boris_T, boris_S, s) or ((0.0,) * 3, (0.0,) * 3)
         params += [float(charge[s]), float(qm_dt[s]), *bo[0], *bo[1],
                    float(mg), float(md)]
-    params = (ctypes.c_float * (10 * S + 3))(*params, *ext)
+    params = (ctypes.c_float * (10 * S + 5))(
+        *params, *ext, *deposit_scale(charge[:S], B))
     tiles = torch.empty((NT, P, P * P), dtype=torch.float32, device=dev)
     lpos_out = lpos if inplace else torch.empty_like(lpos)
     vel_out = vel if inplace else torch.empty_like(vel)

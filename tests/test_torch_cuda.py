@@ -13,8 +13,9 @@ add in another order); gathered fields and velocities atol 1e-5; moved
 planes and n_out exact; vdot rtol 1e-5.  pic_step's new positions and
 velocities are exact too (it rounds each product and sum on its own, in
 the plain version's order), its tiles and vdot as the deposits' and the
-kicks'.  efield_tiles and fold_global are exact (the same float32
-operations in the same order).  The exchange kernels (extract, cleanup,
+kicks', and its tiles are bit-identical across launches (integer sums).
+efield_tiles and fold_global are exact (the same float32 operations in
+the same order).  The exchange kernels (extract, cleanup,
 merge) and the whole exchange re-bucket are exact: they copy bits and add
 +-T in f32 as the plain versions do.  So are the one-hot exchange kernels
 (extract R = 1 and 8, by axis, all axes or given ranks; merge R = 1 and 8,
@@ -184,6 +185,46 @@ def test_pic_step_matches_plain(cuda, dt, order):
     assert torch.equal(lpos, xr)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["pic_step"] - before == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["fixture", "production"])
+def test_pic_step_tiles_are_deterministic(cuda, shape):
+    """K5 sums its densities in integers, so two launches on the same
+    input give bit-identical tiles: at the fixture (f32 and bf16, CIC and
+    NGP) and at the bench deck's production shape (4096 tiles x 17,408
+    slots, M = 2, bf16 weights and E, two species)."""
+    if shape == "fixture":
+        ts, d = _step_fixture(cuda)
+        cases = [(mdt, o) for mdt in MXU.values() for o in ((1, 1), (0, 0))]
+    else:
+        ts = TileSpec(grid=(128, 128, 128), T=8, M=2, B=17408)
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(7)
+        NT, B = ts.NT, ts.B
+        alive = (torch.rand((2, NT, B), generator=gen, device=cuda)
+                 < 16384 / 17408).float()
+        lpos = torch.rand((2, 3, NT, B), generator=gen, device=cuda) * (
+            ts.T + 2 * ts.M - 1e-3) - ts.M
+        q = -0.2 ** 2 / 32
+        d = dict(lpos=lpos, alive=alive,
+                 vel=0.05 * torch.randn((2, 3, NT, B), generator=gen,
+                                        device=cuda),
+                 E=torch.randn((NT, 3 * ts.P, ts.P ** 2), generator=gen,
+                               device=cuda), charge=(q, -q),
+                 qm=(-1.0, 1.0 / 1836.0))
+        cases = [(torch.bfloat16, (1, 1))]
+    for mdt, (oa, od) in cases:
+        args = (d["E"].to(mdt), d["lpos"], d["vel"], d["alive"], d["charge"],
+                d["qm"], ts)
+        kw = dict(mxu_dtype=mdt, order_acc=oa, order_distr=od)
+        first = tk.pic_step(*args, **kw)[0]
+        second = tk.pic_step(*args, **kw)[0]
+        assert torch.equal(first, second)
+        assert first.abs().max().item() > 0
+        if shape == "production":
+            want = tk.pic_step_plain(*args, **kw)[0]
+            assert _max_err(first, want) <= 1e-5 * want.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -690,12 +731,14 @@ def test_kbench_plane_add_matches_plain(cuda, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [9216, 1000, 777, kp.MAX_PREFIX_B])
+@pytest.mark.parametrize("B", [9216, 1000, 777, kp.MAX_PREFIX_B, 1, 31, 33,
+                               513])
 @pytest.mark.parametrize("data", ["mask", "normal"])
 def test_kbench_lane_prefix_matches_plain(cuda, B, data):
     """kbench7.py's (4096, 9216) and rows that are not a multiple of the
-    block's 512 threads (1000, 777), up to the widest row shared memory
-    holds; bit for bit on any input; torch.cumsum bit for bit on the
+    kernel's W threads (1000, 777, 31, 33, 513; B = 1 has no pass), up to
+    the widest row shared memory holds; bit for bit on any input (-0.0
+    every 7th lane and a row of -0.0); torch.cumsum bit for bit on the
     mask."""
     gen = _prim_gen(cuda, B)
     NT = 4096 if B == 9216 else 64
@@ -704,6 +747,7 @@ def test_kbench_lane_prefix_matches_plain(cuda, B, data):
     else:
         m = torch.randn((NT, B), generator=gen, device=cuda)
         m[:, ::7] = -0.0
+        m[0] = -0.0
     before = dict(kp.LAUNCHES)
     got = kp.lane_prefix(m)
     assert kbench.same_bits(got, kp.lane_prefix_plain(m))
@@ -718,7 +762,7 @@ def test_kbench_sweeps_on_the_card(cuda):
     rows = kbench.run(device=cuda, time=False,
                       k12=dict(grid=(16, 16, 16), B=256, fill=170),
                       k13=dict(grid=(16, 16, 16), B=256), prims=dict(NT=64))
-    assert len(rows) == 34 and all(r["ok"] for r in rows), [
+    assert len(rows) == 41 and all(r["ok"] for r in rows), [
         r["name"] for r in rows if not r["ok"]]
 
 

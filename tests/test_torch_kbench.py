@@ -459,7 +459,7 @@ def test_kbench_runs_every_row_on_the_cpu():
         + ["K13 gather bf16 (K3)"] + [f"K13 gather {m}"
                                       for m in kb.GATHER_MODES])
     assert [r["sweep"] for r in rows] == (
-        ["k12"] * 8 + ["k13"] * 10 + ["prims"] * 16)
+        ["k12"] * 8 + ["k13"] * 10 + ["prims"] * 23)
     assert all(r["ok"] and r["refs"] for r in rows)
     assert all(r["library_ms"] is None and r["library"] is None
                for r in rows if r["sweep"] != "prims")

@@ -355,6 +355,80 @@ def test_pallas_scan_matches_reference(no_launch, data):
     _bits(kp.lane_prefix(_t(m)), ref)
 
 
+def _lane_prefix_schedule(m: np.ndarray, W: int, R: int) -> np.ndarray:
+    """numpy emulation of lane_prefix's kernel on rows m (NT, B) float32:
+    element i = r * W + t in register r of thread t; pass s adds element
+    i - s (0.0 below s), for s < 32 by a shuffle up within each warp whose
+    first s lanes read their partner from the shared row buffer (written by
+    each warp's last s lanes), for 32 <= s < W from the row in shared
+    memory, for s >= W from register r - s/W; the buffers alternate
+    between passes.  Elements past B are never stored or read."""
+    NT, B = m.shape
+    i = np.arange(R)[:, None] * W + np.arange(W)[None, :]     # (R, W)
+    valid = i < B
+    lane = np.broadcast_to(np.arange(W) & 31, i.shape)
+    x = np.zeros((NT, R, W), np.float32)
+    x[:, valid] = m[:, i[valid]]
+    buf = [np.full((NT, B), np.nan, np.float32) for _ in range(2)]
+    p, s = 0, 1
+    while s < 32 and s < B:
+        wrote = valid & (lane >= 32 - s)
+        buf[p][:, i[wrote]] = x[:, wrote]
+        y = x.reshape(NT, R, W // 32, 32).copy()
+        y[..., s:] = x.reshape(NT, R, W // 32, 32)[..., :-s]
+        y = y.reshape(NT, R, W)
+        head = lane < s
+        read = head & valid & (i >= s)
+        y[:, read] = buf[p][:, i[read] - s]
+        y[:, head & ~read] = 0.0
+        x = x + y
+        s, p = 2 * s, p ^ 1
+    while s < W and s < B:
+        buf[p][:, i[valid]] = x[:, valid]
+        y = np.zeros_like(x)
+        read = valid & (i >= s)
+        y[:, read] = buf[p][:, i[read] - s]
+        x = np.where(valid, x + y, x)
+        s, p = 2 * s, p ^ 1
+    mm = 1
+    while mm < R and mm * W < B:
+        y = np.zeros_like(x)
+        y[:, mm:] = x[:, :-mm]
+        x = x + y
+        mm *= 2
+    return x[:, valid][:, np.argsort(i[valid])]
+
+
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 511, 513, 777, 9216,
+                               kp.MAX_PREFIX_B])
+def test_lane_prefix_schedule_matches_plain(B):
+    """The register-blocked pass schedule of lane_prefix's kernel, at its
+    (W, R) for B, bit for bit with lane_prefix_plain on rows that hold
+    -0.0 (a whole row, and every 7th lane), +-inf and NaN."""
+    W, R = kp.lane_prefix_layout(B)
+    rng = np.random.default_rng(B)
+    m = rng.normal(size=(4, B)).astype(np.float32)
+    m[:, ::7] = -0.0
+    m[0] = -0.0
+    m[1, min(3, B - 1)] = np.inf
+    m[2, B // 2] = -np.inf
+    m[3, B - 1] = np.nan
+    with np.errstate(invalid="ignore"):
+        got = _lane_prefix_schedule(m, W, R)
+    _bits(_t(got), kp.lane_prefix_plain(_t(m)).numpy())
+
+
+def test_lane_prefix_layout_covers_every_row():
+    """For every B the kernel takes: W a power of two in [32, 1024] and R =
+    ceil(B / W) <= MAX_PREFIX_R registers a thread, W <= 512 where R > 29
+    (the kernel's launch bounds)."""
+    for B in range(1, kp.MAX_PREFIX_B + 1):
+        W, R = kp.lane_prefix_layout(B)
+        assert 32 <= W <= 1024 and W & (W - 1) == 0
+        assert (R - 1) * W < B <= R * W and R <= kp.MAX_PREFIX_R
+        assert R <= 29 or W <= 512
+
+
 # ---------------------------------------------------------------------------
 # FUNCTIONS, semantics, the sweep, the wrappers' checks
 # ---------------------------------------------------------------------------
@@ -457,6 +531,7 @@ def test_kbench_runs_the_prims_sweep_on_the_cpu():
     rows = [r for r in rows if r["sweep"] == "prims"]
     assert [r["name"] for r in rows] == (
         [f"prims take {m}" for m in ("extract", "merge", "square")]
+        + [f"prims take {m[0]}" for m in kbench.PROBE_BLOCKS]
         + [f"prims roll rows p={p}" for p in range(1, 8)]
         + ["prims roll lanes (device shift)"]
         + [f"prims plane_add G={G}" for G in (1, 4, 8)]
@@ -471,6 +546,8 @@ def test_kbench_runs_the_prims_sweep_on_the_cpu():
     assert by["prims take extract"]["refs"] == [
         "experiments/r4_gather_probe.py:136",
         "experiments/r4_gather_probe.py:49"]
+    assert by["prims take int_gather (8, 128) int32"]["refs"] == [
+        "experiments/r4_gather_probe3.py:35"]
     checks = kbench.check_prims("cpu")
     assert all(r["ok"] for r in checks)
     assert {r["kernel"] for r in checks} == set(kp.LAUNCHES)

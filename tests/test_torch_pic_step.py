@@ -11,7 +11,13 @@ efield_tiles' (NT, 3P, P*P) layout, the same memory as its
 Tolerances: n_out exact; positions and velocities atol 1e-6, tiles atol
 1e-6 and rtol 1e-6 (a node's density sums some hundred slots), vdot rtol
 1e-6: the same float32 products, summed in another order (a dense
-contraction on the JAX side, per-node sums on the port's)."""
+contraction on the JAX side, per-node sums on the port's).
+
+The kernel sums its densities in a pair of int32 fixed-point blocks at
+tk.deposit_scale's grid; a numpy emulation of that accumulator is held
+against the plain version (within chip_smoke.py's 1e-5 of max|tiles|) and
+against pinc_tpu (this file's tolerances), at the fixture and on one
+production tile, and the scale rule against overflow."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -171,3 +177,155 @@ def test_pic_step_rejects_bad_margins_and_devices(fixture):
         tk.pic_step(*args, margins=((2, 1), (1, 1)))
     with pytest.raises(ValueError, match="no kernel"):
         tk.pic_step(*(a.to("meta") for a in args[:4]), *args[4:])
+
+
+# ---------------------------------------------------------------------------
+# The kernel's fixed-point density accumulator
+# ---------------------------------------------------------------------------
+
+BENCH_Q = -0.2 ** 2 / 32        # bench.py's electrons: -wp^2 / (32 per cell)
+SCALE_CHARGES = {"bench": (BENCH_Q, -BENCH_Q), "bench_e": (BENCH_Q,),
+                 "zero": (0.0,), "zeros": (0.0, 0.0),
+                 "one_zero": (BENCH_Q, 0.0)}
+
+
+def _bf16(a):
+    """float32 -> bf16 (round to nearest even) -> float32, in numpy."""
+    b = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    r = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return r.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("charges", list(SCALE_CHARGES))
+@pytest.mark.parametrize("B", [128, 17408, 1 << 20])
+def test_deposit_scale_never_overflows(B, charges):
+    """tk.deposit_scale's (k, j): in the worst case of a tile (every slot
+    of every species on one node with weight products 1, each contribution
+    rounded up by bf16), the sum of the hi parts and the sum of the lo
+    parts (each |lo| <= 2^(j-1)) both stay below 2^31; k and j are the
+    largest of their rules, and k is finite (<= 126) when a charge or all
+    charges are 0."""
+    q = SCALE_CHARGES[charges]
+    k, j = tk.deposit_scale(q, B)
+    assert -126 <= k <= 126 and 0 <= j <= 30
+    scale = np.float32(2.0 ** k)
+    assert np.isfinite(scale) and np.isfinite(np.float32(2.0 ** -k))
+    hi = sum(B * int(np.rint(_bf16(np.float32(abs(qs))) * scale))
+             for qs in q)
+    assert hi < 2 ** 31
+    assert len(q) * B * 2 ** (j - 1) < 2 ** 31
+    assert j == 30 or len(q) * B * 2 ** j >= 2 ** 31
+    total = 2.0 * B * sum(abs(v) for v in q)
+    if total:
+        assert 2.0 ** k * total <= 2.0 ** tk.HI_BITS
+        assert k == 126 or 2.0 ** (k + 1) * total > 2.0 ** tk.HI_BITS
+    else:
+        assert k == 126
+
+
+def _deposit_fixed(xn, alive, charge, ts, bf16, order=1, margins=None):
+    """numpy emulation of the kernel's deposit: each float32 contribution
+    c (wx*val and wy*wz rounded to bf16 as the kernel does), y = c 2^k,
+    hi = rint(y) and lo = rint((y - hi) 2^j) (ties to even), each summed
+    in int32 per node over every species; a node's value is
+    (hi + lo 2^-j) 2^-k in float64, rounded once to float32."""
+    S, _, NT, B = xn.shape
+    P, M, T = ts.P, ts.M, ts.T
+    k, j = tk.deposit_scale(charge, B)
+    scale, lo_scale = np.float32(2.0 ** k), np.float32(2.0 ** j)
+    rnd = _bf16 if bf16 else (lambda a: np.asarray(a, np.float32))
+    hi_sum = np.zeros(NT * P ** 3, np.int64)
+    lo_sum = np.zeros(NT * P ** 3, np.int64)
+    base = (np.arange(NT) * P ** 3)[:, None]
+    for s in range(S):
+        md = ts.M if margins is None else margins[s][1]
+        val = alive[s] * np.float32(charge[s])
+
+        def nodes(x):
+            f = np.floor(x)
+            out = []
+            for kk in (0, 1):
+                n = f + np.float32(kk)
+                d = x - n
+                w = (np.maximum(np.float32(0), np.float32(1) - np.abs(d))
+                     if order else ((d >= -0.5) & (d < 0.5)).astype(
+                         np.float32))
+                inside = (n >= -md) & (n <= T + md)
+                out.append((np.where(inside, n + M, 0).astype(np.int64),
+                            np.where(inside, w, np.float32(0))))
+            return out
+
+        nx, ny, nz = (nodes(xn[s, d]) for d in range(3))
+        for ia, wx in nx:
+            wa = rnd(wx * val)
+            for ib, wy in ny:
+                for ic, wz in nz:
+                    y = (wa * rnd(wy * wz)) * scale
+                    h = np.rint(y)
+                    idx = (base + (ia * P + ib) * P + ic).ravel()
+                    np.add.at(hi_sum, idx, h.astype(np.int64).ravel())
+                    np.add.at(lo_sum, idx, np.rint(
+                        (y - h) * lo_scale).astype(np.int64).ravel())
+    assert np.abs(hi_sum).max() < 2 ** 31 and np.abs(lo_sum).max() < 2 ** 31
+    v = hi_sum.astype(np.float64) + lo_sum.astype(np.float64) / 2.0 ** j
+    return (v * 2.0 ** -k).astype(np.float32).reshape(NT, P, P * P)
+
+
+def _fixed_case(f, dt, order, margins=None):
+    """(plain outputs, pinc_tpu's outputs, the emulated tiles) on case f."""
+    oa, od = order
+    kw = dict(order_acc=oa, order_distr=od, margins=margins)
+    want = pt.pic_step(jnp.asarray(f["ep5"]), jnp.asarray(f["lpos"]),
+                       jnp.asarray(f["vel"]), jnp.asarray(f["alive"]),
+                       f["charge"], f["qm"], f["jts"], interpret=True,
+                       mxu_dtype=DTYPES[dt][0], **kw)
+    plain = tk.pic_step_plain(_t(f["E"]).to(DTYPES[dt][1]), _t(f["lpos"]),
+                              _t(f["vel"]), _t(f["alive"]), f["charge"],
+                              f["qm"], f["ts"], mxu_dtype=DTYPES[dt][1],
+                              **kw)
+    emu = _deposit_fixed(plain[1].numpy(), f["alive"], f["charge"], f["ts"],
+                         dt == "bf16", order=od, margins=margins)
+    return plain, [np.asarray(w) for w in want], emu
+
+
+def _production_tile(M):
+    """One tile of the bench deck's production layout (T = 8, B = 17,408,
+    16,384 live on average), margin M, bench.py's charges."""
+    jts = JTileSpec(grid=(8, 8, 8), T=8, M=M, B=17408)
+    ts = TileSpec(grid=(8, 8, 8), T=8, M=M, B=17408)
+    rng = np.random.default_rng(5 + M)
+    P = ts.P
+    ep5 = rng.normal(0, 0.01, (1, P, P, P, 3)).astype(np.float32)
+    return dict(jts=jts, ts=ts, ep5=ep5,
+                E=np.ascontiguousarray(np.moveaxis(ep5, -1, 1).reshape(
+                    1, 3 * P, P * P)),
+                lpos=rng.uniform(-M, 8 + M - 1e-3,
+                                 (2, 3, 1, 17408)).astype(np.float32),
+                vel=rng.normal(0, 0.05, (2, 3, 1, 17408)).astype(np.float32),
+                alive=(rng.uniform(size=(2, 1, 17408))
+                       < 16384 / 17408).astype(np.float32),
+                charge=(BENCH_Q, -BENCH_Q), qm=(-1.0, 1.0 / 1836.0))
+
+
+DEPOSIT_RTOL = 1e-5     # chip_smoke.py's gate of the kernel's tiles
+
+
+@pytest.mark.parametrize("case", ["fixture_f32_cic", "fixture_bf16_cic",
+                                  "fixture_bf16_ngp", "production_M1",
+                                  "production_M2"])
+def test_fixed_point_deposit_matches_plain_and_pallas(fixture, case):
+    """The accumulator's numpy emulation on the plain version's new
+    positions: within DEPOSIT_RTOL * max|tiles| of pic_step_plain's tiles
+    (float32 sums in another order) and within this file's tolerances of
+    pinc_tpu's pic_step in interpret mode, at the fixture and on one
+    production tile."""
+    if case.startswith("fixture"):
+        _, dt, order = case.split("_")
+        f = fixture
+    else:
+        dt, order, f = "bf16", "cic", _production_tile(int(case[-1]))
+    plain, want, emu = _fixed_case(f, dt, ORDERS[order])
+    tiles = plain[0].numpy()
+    assert np.abs(emu - tiles).max() <= DEPOSIT_RTOL * np.abs(tiles).max()
+    np.testing.assert_allclose(emu, want[0], rtol=1e-6, atol=ATOL)
+    assert np.abs(emu).max() > 0
