@@ -4,14 +4,17 @@
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
 1. Builds the CUDA kernels from pinc_tpu_torch/csrc with nvcc (one nvcc
-   per source, all started together), and checks with cuobjdump that
-   pic_step's density adds compile to native integer shared atomics
-   (ATOMS.ADD, no compare-and-swap loop).
+   per source, all started together), and checks with cuobjdump that the
+   density adds of pic_step, deposit and deposit_move compile to native
+   integer shared atomics (ATOMS.ADD, no compare-and-swap loop) in every
+   instantiation.
 2. Holds each kernel against its plain PyTorch version on the card and
    times both by CUDA events: deposit, deposit_move, gather, gather_kick at
    the test fixture's size and at the bench deck's production shape (128^3
    grid: 4096 tiles of 8^3 cells, margin 1, 17,408 slots), with f32 and
-   bf16 weights; pic_step at the fixture (f32/bf16, CIC/NGP, leapfrog,
+   bf16 weights, deposit and deposit_move launched twice (their integer
+   density sums must give bit-identical tiles, deposit's with vmax given
+   and read from the values); pic_step at the fixture (f32/bf16, CIC/NGP, leapfrog,
    Boris, e_ext, and tests/test_margin_schedule.py's margin sets at M = 2)
    and at the production shape at M = 1 and M = 2, each launched twice
    (its integer density sums must give bit-identical tiles); efield_tiles
@@ -67,7 +70,8 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    bit pattern for bit pattern); then pinc_tpu_torch.kbench.run in process
    at the scripts' production shapes (4096 tiles; B = 12288 at M = 1, 2
    for K12 on K1/K3; B = 9216 at M = 1 for the deposit/gather probes;
-   4096 x (8, 2176) and 4096 x 9216 for the primitives), every row against
+   4096 x (8, 2176) and 4096 x 9216 for the primitives, and 4096 blocks
+   of each take probe's own block), every row against
    its plain version (int8 and the primitives bit for bit), with its time,
    bound, share of the bound and error against K1/K3 bf16 or, for the
    primitives, the time of the one PyTorch call that computes the same
@@ -269,14 +273,21 @@ def inputs(ts, gen, dev, vth: float, live: float):
 
 def compare(tk, ts, d, mdt, order: int, q: float, qm: float, kicks,
             errs: dict, label: str) -> None:
-    """Each kernel against its plain version on the same CUDA tensors."""
+    """Each kernel against its plain version on the same CUDA tensors; the
+    deposits also against themselves: a second launch on the same input
+    gives bit-identical tiles (their density sums are integers), deposit's
+    with vmax read from the values instead of given."""
     import torch
     value = d["alive"] * q
-    t = tk.deposit(d["xyz"], value, ts, mxu_dtype=mdt, order=order)
+    t = tk.deposit(d["xyz"], value, ts, mxu_dtype=mdt, order=order,
+                   vmax=abs(q))
     tr = tk.deposit_plain(d["xyz"], value, ts, mxu_dtype=mdt, order=order)
     e = (t - tr).abs().max().item()
     check(e <= DEPOSIT_RTOL * tr.abs().max().item(),
           f"deposit {label}: max err {e} > {DEPOSIT_RTOL} * max|tiles|")
+    check(torch.equal(t, tk.deposit(d["xyz"], value, ts, mxu_dtype=mdt,
+                                    order=order)),
+          f"deposit {label}: a second launch gave other tiles")
     errs["deposit"] = max(errs["deposit"], e)
 
     t, x, n = tk.deposit_move(d["xyz"], d["vel"], d["alive"], q, ts,
@@ -286,6 +297,9 @@ def compare(tk, ts, d, mdt, order: int, q: float, qm: float, kicks,
     e = (t - tr).abs().max().item()
     check(e <= DEPOSIT_RTOL * tr.abs().max().item(),
           f"deposit_move {label}: tiles max err {e}")
+    check(torch.equal(t, tk.deposit_move(d["xyz"], d["vel"], d["alive"], q,
+                                         ts, mxu_dtype=mdt, order=order)[0]),
+          f"deposit_move {label}: a second launch gave other tiles")
     check(torch.equal(x, xr), f"deposit_move {label}: moved planes differ")
     check(float(n) == float(nr),
           f"deposit_move {label}: n_out {float(n)} != {float(nr)}")
@@ -1446,14 +1460,18 @@ def main() -> int:
     print(f"phase 1 build: {lib.name} with {_cuda_build.nvcc_path()} "
           f"({_cuda_build.build_seconds:.1f} s nvcc, "
           f"{time.monotonic() - t0:.1f} s total)", flush=True)
-    # pic_step's density adds must be native integer atomics (a float32 or
-    # 64-bit shared atomicAdd is a compare-and-swap loop, ATOMS.CAST.SPIN)
+    # the deposits' density adds must be native integer atomics (a float32
+    # or 64-bit shared atomicAdd is a compare-and-swap loop,
+    # ATOMS.CAST.SPIN): pic_step's 16 instantiations, deposit and
+    # deposit_move's 8
     k5 = shared_atomics(lib, "pic_step_kernel")
-    check(len(k5) == 16 and all(ops and set(ops) == {"ATOMS.ADD"}
-                                for ops in k5.values()),
-          f"pic_step's shared atomics are not all ATOMS.ADD in its 16 "
-          f"instantiations: {k5}")
     k12 = shared_atomics(lib, "deposit_kernel")
+    for name, got, count in (("pic_step", k5, 16),
+                             ("deposit and deposit_move", k12, 8)):
+        check(len(got) == count and all(ops and set(ops) == {"ATOMS.ADD"}
+                                        for ops in got.values()),
+              f"{name}'s shared atomics are not all ATOMS.ADD in its "
+              f"{count} instantiations: {got}")
     print(f"phase 1 SASS (cuobjdump): pic_step's shared atomics per "
           f"instantiation {sorted({tuple(o.items()) for o in k5.values()})}"
           f"; deposit and deposit_move's "
@@ -1530,7 +1548,8 @@ def main() -> int:
     mdt = torch.bfloat16
     value = palive * q_e
     timed = {
-        "deposit": (lambda: tk.deposit(xyz, value, prod, mxu_dtype=mdt),
+        "deposit": (lambda: tk.deposit(xyz, value, prod, mxu_dtype=mdt,
+                                       vmax=abs(q_e)),
                     lambda: tk.deposit_plain(xyz, value, prod,
                                              mxu_dtype=mdt)),
         "deposit_move": (
@@ -1567,10 +1586,13 @@ def main() -> int:
     # (the aux deck) and M = 2 (the headline deck); electrons and ions of
     # the bench deck
     k, j = tk.deposit_scale((q_e, -q_e), prod.B)
-    print(f"  pic_step density accumulator: {tk.ACCUMULATOR} fixed point, "
-          f"hi on the grid 2^-{k} and lo on 2^-{k + j} (k = {k}, j = {j} at "
-          f"the bench deck's charges and B = {prod.B}); tiles bit-identical "
-          f"across launches", flush=True)
+    k1, j1 = tk.deposit_scale([q_e], prod.B)
+    print(f"  density accumulator of pic_step, deposit and deposit_move: "
+          f"{tk.ACCUMULATOR} fixed point, hi on the grid 2^-{k} and lo on "
+          f"2^-{k + j} for pic_step (k = {k}, j = {j} at the bench deck's "
+          f"charges and B = {prod.B}), 2^-{k1} and 2^-{k1 + j1} for one "
+          f"species' deposit; tiles bit-identical across launches",
+          flush=True)
     prods = {M: TileSpec(grid=(128, 128, 128), T=8, M=M, B=17408)
              for M in (1, 2)}
     step_times = {M: time_step_and_field(tk, fk, ts, gen, dev, card,

@@ -4,15 +4,25 @@
 // r5_progoverhead.py and archive/kbench7.py measured
 // (ops/kbench_prims.FUNCTIONS maps each probe to its kernel).
 //
-// take_kernel — take_along_axis along the rows (lanes = 0) or the lanes
-//   (lanes = 1) of a (batch, R, C) stack of 4-byte words, one block a
-//   block of the stack.  The source block (Rs, Cs) is staged in shared
-//   memory, with 16-byte loads where aligned (69.6 KB at the extract's
-//   (8, 2176)); each thread then gathers output words from it, idx read
-//   and the output written coalesced.
-//   JAX's index rules: j in [-n, 0) wraps, any other j outside [0, n)
-//   writes the fill (NaN or INT32_MIN bits).  Replaces the lane and row
-//   gathers of r4_gather_probe{,2,3}.py; bound by bytes (src, idx, out).
+// take_kernel<V> — take_along_axis along the rows (lanes = 0) or the lanes
+//   (lanes = 1) of a (batch, R, C) stack of 4-byte words.  A lane gather's
+//   output row r reads only source row r, a row gather's output column c
+//   only source column c, so a CTA takes a chunk: g whole rows (lanes) or
+//   a strip of w >= 32 adjacent columns over all Rs rows (rows), of about
+//   a fixed number of source bytes; small blocks pack several whole blocks
+//   into one CTA, large ones spread over several CTAs, so an SM holds
+//   several CTAs and one's loads overlap another's gathers.  The plan
+//   (chunk shape, blocks a CTA, whether to stage) comes from the host,
+//   ops/kbench_prims.take_layout, and is launched as given.  A staged
+//   chunk is copied to shared memory with 16-byte loads where aligned,
+//   then each thread gathers V adjacent output words at a time from it
+//   (V = 4 where the index rows are 16-byte aligned: one 16-byte index
+//   load and output store), coalesced; a chunk too wide to stage reads
+//   the source through L1 (__ldg) instead.  JAX's index rules: j in
+//   [-n, 0) wraps, any other j outside [0, n) writes the fill (NaN or
+//   INT32_MIN bits).
+//   Replaces the lane and row gathers of r4_gather_probe{,2,3}.py; bound
+//   by bytes (src, idx, out).
 // roll_kernel — np.roll along the rows or lanes, one block a row of the
 //   (batch R, C) view; the shift a host int or an int32 on the device
 //   (the counterpart of the probe's SMEM scalar: no host sync), taken mod
@@ -52,7 +62,7 @@
 
 namespace {
 
-constexpr int kTakeThreads = 512;
+constexpr int kTakeThreads = 256;
 constexpr int kThreads = 256;
 constexpr int kMaxPlanes = 8;
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block
@@ -62,41 +72,112 @@ struct Planes {
   float* out[kMaxPlanes];
 };
 
-bool aligned16(const void* p) {
+__host__ __device__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// CTA x takes chunk k = x % chunks of the nb blocks from (x / chunks) nb:
+// source rows [r0, r0 + nr) (lanes; cc = Cs) or columns [c0, c0 + nc)
+// (rows; cr = Rs) of each.  nb > 1 only where a chunk is a whole block.
+// Staged, the chunk sits in shared memory as nb blocks of nr x nc words.
+// The chunk's output is G rows of W words: lanes, the rows [r0, r0 + nr)
+// of the nbk blocks (G = nbk nr, W = Ci), row g reading source row g of
+// the chunk; rows, every row r of block i (g = i Ri + r, G = nbk Ri) at
+// the columns [c0, c0 + nc) (W = nc), column c reading source column c.
+// A thread takes V adjacent words of a row at a time (V = 4: one 16-byte
+// index load and output store), stepping its row and column by adds.
+template <int V>
 __global__ void __launch_bounds__(kTakeThreads)
     take_kernel(const uint32_t* __restrict__ src, const int* __restrict__ idx,
-                uint32_t* __restrict__ out, int Rs, int Cs, int Ri, int Ci,
-                int lanes, uint32_t fill, bool vec) {
+                uint32_t* __restrict__ out, int batch, int Rs, int Cs,
+                int Ri, int Ci, int lanes, uint32_t fill, int cr, int cc,
+                int nb, int chunks, int staged) {
   extern __shared__ uint4 smem4[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(smem4);
-  const long long b = blockIdx.x;
-  const int ns = Rs * Cs;
-  const uint32_t* s = src + b * ns;
-  if (vec) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(s);
-    for (int v = threadIdx.x; v < ns / 4; v += blockDim.x)
-      smem4[v] = __ldg(s4 + v);
-  } else {
-    for (int e = threadIdx.x; e < ns; e += blockDim.x) sm[e] = __ldg(s + e);
-  }
-  __syncthreads();
+  const int grp = blockIdx.x / chunks, k = blockIdx.x - grp * chunks;
+  const long long b0 = (long long)grp * nb;
+  const int nbk = (int)min((long long)nb, batch - b0);
+  const int r0 = lanes ? k * cr : 0, nr = lanes ? min(cr, Rs - r0) : Rs;
+  const int c0 = lanes ? 0 : k * cc, nc = lanes ? Cs : min(cc, Cs - c0);
+  const long long ns = (long long)Rs * Cs;
+  const uint32_t* s = src + b0 * ns;
   const int n = lanes ? Cs : Rs;
-  const int ni = Ri * Ci;
-  const int* ib = idx + b * ni;
-  uint32_t* ob = out + b * ni;
-  for (int e = threadIdx.x; e < ni; e += blockDim.x) {
-    int j = __ldg(ib + e);
-    if (j < 0) j += n;
-    uint32_t v = fill;
-    if (j >= 0 && j < n) {
-      const int r = e / Ci;
-      const int c = e - r * Ci;
-      v = sm[lanes ? r * Cs + j : j * Cs + c];
+  if (staged) {
+    if (nc == Cs) {  // whole rows: one contiguous range
+      const uint32_t* from = s + (long long)r0 * Cs;
+      const int len = nbk * nr * Cs;
+      if ((len & 3) == 0 && aligned16(from)) {
+        const uint4* f4 = reinterpret_cast<const uint4*>(from);
+        for (int v = threadIdx.x; v < len / 4; v += blockDim.x)
+          smem4[v] = __ldg(f4 + v);
+      } else {
+        for (int e = threadIdx.x; e < len; e += blockDim.x)
+          sm[e] = __ldg(from + e);
+      }
+    } else {         // a strip of nc columns over the Rs rows of one block
+      const uint32_t* from = s + c0;
+      if ((nc & 3) == 0 && (Cs & 3) == 0 && aligned16(from)) {
+        const int q = nc / 4;
+        for (int v = threadIdx.x; v < Rs * q; v += blockDim.x) {
+          const int r = v / q;
+          smem4[v] = __ldg(reinterpret_cast<const uint4*>(
+                               from + (long long)r * Cs) + (v - r * q));
+        }
+      } else {
+        for (int e = threadIdx.x; e < Rs * nc; e += blockDim.x) {
+          const int r = e / nc;
+          sm[e] = __ldg(from + (long long)r * Cs + (e - r * nc));
+        }
+      }
     }
-    ob[e] = v;
+    __syncthreads();
+  }
+  const int G = lanes ? nbk * nr : nbk * Ri, W = (lanes ? Ci : nc) / V;
+  // output row g starts at word `first + g Ci` (+ c0 along the rows)
+  const long long first =
+      lanes ? (b0 * Ri + r0) * Ci : b0 * Ri * (long long)Ci + c0;
+  const int bd = blockDim.x, dg = bd / W, dc = bd - dg * W;
+  int g = threadIdx.x / W, c = threadIdx.x - (threadIdx.x / W) * W;
+  for (; g < G; g += dg, c += dc) {
+    if (c >= W) {
+      c -= W;
+      ++g;
+      if (g >= G) break;
+    }
+    const long long at = first + (long long)g * Ci + c * V;
+    // the source word of index j: base + j step
+    long long base, step;
+    if (lanes) {
+      base = staged ? (long long)g * Cs : ((long long)r0 + g) * Cs;
+      step = 1;
+    } else {
+      const int i = nbk == 1 ? 0 : g / Ri;
+      base = staged ? (long long)i * Rs * nc + c * V
+                    : i * ns + c0 + c * V;
+      step = staged ? nc : Cs;
+    }
+    int j[V];
+    uint32_t v[V];
+    if (V == 4) {
+      const int4 j4 = __ldg(reinterpret_cast<const int4*>(idx + at));
+      j[0] = j4.x, j[1] = j4.y, j[2] = j4.z, j[3] = j4.w;
+    } else {
+      j[0] = __ldg(idx + at);
+    }
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      int jj = j[t];
+      if (jj < 0) jj += n;
+      v[t] = fill;
+      if (jj >= 0 && jj < n) {
+        const long long w = base + (lanes ? 0 : t) + jj * step;
+        v[t] = staged ? sm[(int)w] : __ldg(s + w);
+      }
+    }
+    if (V == 4)
+      *reinterpret_cast<uint4*>(out + at) = make_uint4(v[0], v[1], v[2], v[3]);
+    else
+      out[at] = v[0];
   }
 }
 
@@ -257,19 +338,33 @@ int launch_prefix(const float* m, float* out, int NT, int B, int W, int Rr,
 
 extern "C" {
 
+// rows, cols, blocks, staged: the plan of ops/kbench_prims.take_layout
+// (the chunk's source rows and columns, blocks a CTA, shared memory or
+// direct reads)
 int pinc_kp_take(const void* src, const int* idx, void* out, int batch,
                  int Rs, int Cs, int Ri, int Ci, int lanes, int fill,
-                 void* stream) {
+                 void* stream, int rows, int cols, int blocks, int staged) {
   cudaStream_t st = (cudaStream_t)stream;
   if (batch < 1 || Rs < 1 || Cs < 1 || Ri < 1 || Ci < 1) return -1;
   if (lanes ? Ri != Rs : Ci != Cs) return -1;
-  const auto* s = static_cast<const uint32_t*>(src);
-  auto* o = static_cast<uint32_t*>(out);
-  const size_t smem = (size_t)Rs * Cs * 4;
-  const bool vec = (Rs * Cs) % 4 == 0 && aligned16(src);
-  if (int err = prepare(take_kernel, smem)) return err;
-  take_kernel<<<batch, kTakeThreads, smem, st>>>(s, idx, o, Rs, Cs, Ri, Ci,
-                                                  lanes, (uint32_t)fill, vec);
+  if (rows < 1 || cols < 1 || blocks < 1) return -1;
+  if (lanes ? (cols != Cs || rows > Rs) : (rows != Rs || cols > Cs))
+    return -1;
+  const int chunks = lanes ? (Rs + rows - 1) / rows : (Cs + cols - 1) / cols;
+  if (blocks > 1 && chunks > 1) return -1;
+  const long long ctas = ((long long)batch + blocks - 1) / blocks * chunks;
+  if (ctas > 0x7fffffffLL) return -1;
+  const size_t smem = staged ? (size_t)blocks * rows * cols * 4 : 0;
+  // 4 adjacent words a thread where every output row of every chunk
+  // starts on 16 bytes
+  const bool vec = Ci % 4 == 0 && (lanes || cols % 4 == 0) &&
+                   aligned16(idx) && aligned16(out);
+  auto* kernel = vec ? take_kernel<4> : take_kernel<1>;
+  if (int err = prepare(kernel, smem)) return err;
+  kernel<<<(int)ctas, kTakeThreads, smem, st>>>(
+      static_cast<const uint32_t*>(src), idx, static_cast<uint32_t*>(out),
+      batch, Rs, Cs, Ri, Ci, lanes, (uint32_t)fill, rows, cols, blocks,
+      chunks, staged);
   return (int)cudaGetLastError();
 }
 

@@ -11,11 +11,11 @@
 // block per tile, the tile's padded node block in shared memory (the
 // accumulator of a deposit, the field of a gather), threads striding over
 // the tile's B slots.  Deposits add into shared memory with atomics and
-// write each tile's block once, with no global atomics: K1 and K2 with
-// float32 atomicAdd, a compare-and-swap loop on sm_90a (ATOMS.CAST.SPIN);
-// pic_step in integers, a pair of int32 fixed-point blocks that each add
-// with one ATOMS.ADD, so its tiles do not depend on the order of the adds
-// (acc_add).
+// write each tile's block once, with no global atomics.  K1, K2 and
+// pic_step sum in integers, a pair of int32 fixed-point blocks that each
+// add with one native ATOMS.ADD (a float32 or 64-bit shared atomicAdd is a
+// compare-and-swap loop on sm_90a, ATOMS.CAST.SPIN), so their tiles do not
+// depend on the order of the adds (acc_add).
 //
 // Layouts (row-major, float32):
 //   xyz, vel      (3, NT, B)    tile-local coordinate / velocity planes
@@ -36,7 +36,8 @@
 // kernel's 0/1 embed matmuls compute.  With bf16 weights the products
 // wx*value and wy*wz (deposit), and E and wy*wz (gather), are rounded to
 // bf16 at the same points as the TPU kernels; all sums are float32 but
-// pic_step's density, whose integer sums are converted back once a node.
+// the deposits' densities, whose integer sums are converted back once a
+// node.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns the cudaGetLastError() code of its launch (-1 for an argument
@@ -95,21 +96,59 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
+// The deposits' density accumulator (K1, K2, K5), a pair of int32 blocks
+// in shared memory: a contribution c (float32) becomes y = c 2^k (exact),
+// hi = rint(y) and lo = rint((y - hi) 2^j) (y - hi is exact), each added
+// with one native ATOMS.ADD; a node's value is (hi + lo 2^-j) 2^-k, formed
+// in double and rounded once to float32.  The host picks k and j for each
+// launch so that neither sum can overflow (ops/tiled_kernels.deposit_scale).
+struct FixedPoint {
+  float scale, inv_scale;  // 2^k, 2^-k: the density's grid
+  float lo_scale;          // 2^j: its residual's finer grid
+};
+
+// Fills fp from the exponents k and j; false if the kernels do not take
+// them (2^k and 2^-k must be normal float32 numbers, 0 <= j <= 30).
+bool fixed_point(int k, int j, FixedPoint* fp) {
+  if (k < -126 || k > 126 || j < 0 || j > 30) return false;
+  fp->scale = ldexpf(1.0f, k);
+  fp->inv_scale = ldexpf(1.0f, -k);
+  fp->lo_scale = ldexpf(1.0f, j);
+  return true;
+}
+
+__device__ __forceinline__ void acc_add(int* hi, int* lo, int i, float c,
+                                        const FixedPoint& fp) {
+  const float y = __fmul_rn(c, fp.scale);
+  const float h = rintf(y);
+  atomicAdd(hi + i, (int)h);
+  atomicAdd(lo + i, __float2int_rn(__fmul_rn(__fsub_rn(y, h), fp.lo_scale)));
+}
+
+__device__ __forceinline__ float acc_value(const int* hi, const int* lo,
+                                           int i, const FixedPoint& fp) {
+  const double v = (double)hi[i] + (double)lo[i] / (double)fp.lo_scale;
+  return (float)(v * (double)fp.inv_scale);
+}
+
 // K1 (MOVE = false): tiles[t] = sum over slots of value * w(x) w(y) w(z).
 // K2 (MOVE = true): x += v first, new planes written out, the live slots
 // outside [-M, T+M) counted per tile, then the deposit with value = alive*q.
+// The tile's density sums in the int32 pair (acc_add, 2 P^3 ints of shared
+// memory) at the launch's grid fp.
 template <int ORDER, bool BF16, bool MOVE>
 __global__ void __launch_bounds__(kThreads)
 deposit_kernel(const float* __restrict__ xyz, const float* __restrict__ vel,
-               const float* __restrict__ weight, float q,
+               const float* __restrict__ weight, float q, FixedPoint fp,
                float* __restrict__ tiles, float* __restrict__ new_xyz,
                float* __restrict__ nout, int B, long long plane, int P,
                int M) {
-  extern __shared__ float acc[];
+  extern __shared__ int acc_hi[];  // density, 2^-k units
   __shared__ float red[kThreads / 32];
   const int T = P - 1 - 2 * M;
   const int P2 = P * P, P3 = P2 * P;
-  for (int i = threadIdx.x; i < P3; i += blockDim.x) acc[i] = 0.0f;
+  int* acc_lo = acc_hi + P3;       // residual, 2^-(k+j) units
+  for (int i = threadIdx.x; i < 2 * P3; i += blockDim.x) acc_hi[i] = 0;
   __syncthreads();
   const long long base = (long long)blockIdx.x * B;
   const float lo = (float)(-M), hi = (float)(T + M);
@@ -147,14 +186,16 @@ deposit_kernel(const float* __restrict__ xyz, const float* __restrict__ vel,
           float wyz = wy[b] * wz[c];
           if (BF16) wyz = to_bf16(wyz);
           if (wyz == 0.0f) continue;
-          atomicAdd(&acc[ix[a] * P2 + iy[b] * P + iz[c]], wa * wyz);
+          acc_add(acc_hi, acc_lo, ix[a] * P2 + iy[b] * P + iz[c],
+                  __fmul_rn(wa, wyz), fp);
         }
       }
     }
   }
   __syncthreads();
   float* out = tiles + (long long)blockIdx.x * P3;
-  for (int i = threadIdx.x; i < P3; i += blockDim.x) out[i] = acc[i];
+  for (int i = threadIdx.x; i < P3; i += blockDim.x)
+    out[i] = acc_value(acc_hi, acc_lo, i, fp);
   if (MOVE) {
     const float s = block_sum(bad, red);
     if (threadIdx.x == 0) nout[blockIdx.x] = s;
@@ -307,8 +348,7 @@ struct StepParams {
   int mg[kMaxSpecies];        // gather margin, <= M
   int md[kMaxSpecies];        // deposit margin, <= M
   float ext[3];               // external E
-  float scale, inv_scale;     // 2^k, 2^-k: the density's fixed point
-  float lo_scale;             // 2^j: its residual's finer grid
+  FixedPoint fp;              // the density's fixed point
   int nspecies;
 };
 
@@ -334,26 +374,6 @@ __device__ __forceinline__ void block_sum2(float& a, float& b,
     }
   }
   __syncthreads();
-}
-
-// K5's density accumulator, a pair of int32 blocks in shared memory: a
-// contribution c (float32) becomes y = c 2^k (exact), hi = rint(y) and
-// lo = rint((y - hi) 2^j) (y - hi is exact), each added with one native
-// ATOMS.ADD; a node's value is (hi + lo 2^-j) 2^-k, formed in double and
-// rounded once to float32.  The host picks k and j so that neither sum
-// can overflow (ops/tiled_kernels.deposit_scale).
-__device__ __forceinline__ void acc_add(int* hi, int* lo, int i, float c,
-                                        const StepParams& sp) {
-  const float y = __fmul_rn(c, sp.scale);
-  const float h = rintf(y);
-  atomicAdd(hi + i, (int)h);
-  atomicAdd(lo + i, __float2int_rn(__fmul_rn(__fsub_rn(y, h), sp.lo_scale)));
-}
-
-__device__ __forceinline__ float acc_value(const int* hi, const int* lo,
-                                           int i, const StepParams& sp) {
-  const double v = (double)hi[i] + (double)lo[i] / (double)sp.lo_scale;
-  return (float)(v * (double)sp.inv_scale);
 }
 
 // K5: the particle half of a step for every species, one block per tile.
@@ -464,7 +484,7 @@ pic_step_kernel(const void* __restrict__ E, int e_bf16, const float* lpos,
             if (BF16) wyz = to_bf16(wyz);
             if (wyz == 0.0f) continue;
             acc_add(acc_hi, acc_lo, ix[a] * P2 + iy[b] * P + iz[c],
-                    mul(wa, wyz), sp);
+                    mul(wa, wyz), sp.fp);
           }
         }
       }
@@ -478,7 +498,7 @@ pic_step_kernel(const void* __restrict__ E, int e_bf16, const float* lpos,
   __syncthreads();
   float* out = tiles + (long long)blockIdx.x * P3;
   for (int i = threadIdx.x; i < P3; i += blockDim.x)
-    out[i] = acc_value(acc_hi, acc_lo, i, sp);
+    out[i] = acc_value(acc_hi, acc_lo, i, sp.fp);
 }
 
 template <typename Kernel>
@@ -491,30 +511,38 @@ int prepare(Kernel* kernel, size_t smem) {
 
 template <int ORDER, bool BF16, bool MOVE>
 int launch_deposit(const float* xyz, const float* vel, const float* weight,
-                   float q, float* tiles, float* new_xyz, float* nout, int NT,
-                   int B, int P, int M, cudaStream_t stream) {
-  const size_t smem = (size_t)P * P * P * sizeof(float);
+                   float q, const FixedPoint& fp, float* tiles,
+                   float* new_xyz, float* nout, int NT, int B, int P, int M,
+                   cudaStream_t stream) {
+  const size_t smem = (size_t)2 * P * P * P * sizeof(int);  // the int32 pair
   if (int err = prepare(deposit_kernel<ORDER, BF16, MOVE>, smem)) return err;
   deposit_kernel<ORDER, BF16, MOVE><<<NT, kThreads, smem, stream>>>(
-      xyz, vel, weight, q, tiles, new_xyz, nout, B, (long long)NT * B, P, M);
+      xyz, vel, weight, q, fp, tiles, new_xyz, nout, B, (long long)NT * B, P,
+      M);
   return (int)cudaGetLastError();
 }
 
 template <bool MOVE>
 int deposit_dispatch(int order, int bf16, const float* xyz, const float* vel,
-                     const float* weight, float q, float* tiles,
-                     float* new_xyz, float* nout, int NT, int B, int P, int M,
-                     cudaStream_t s) {
+                     const float* weight, float q, int k, int j,
+                     float* tiles, float* new_xyz, float* nout, int NT, int B,
+                     int P, int M, cudaStream_t s) {
+  FixedPoint fp;
+  if (!fixed_point(k, j, &fp)) return -1;
   if (order == 0)
-    return bf16 ? launch_deposit<0, true, MOVE>(xyz, vel, weight, q, tiles,
-                                                new_xyz, nout, NT, B, P, M, s)
-                : launch_deposit<0, false, MOVE>(xyz, vel, weight, q, tiles,
-                                                 new_xyz, nout, NT, B, P, M, s);
+    return bf16 ? launch_deposit<0, true, MOVE>(xyz, vel, weight, q, fp,
+                                                tiles, new_xyz, nout, NT, B,
+                                                P, M, s)
+                : launch_deposit<0, false, MOVE>(xyz, vel, weight, q, fp,
+                                                 tiles, new_xyz, nout, NT, B,
+                                                 P, M, s);
   if (order == 1)
-    return bf16 ? launch_deposit<1, true, MOVE>(xyz, vel, weight, q, tiles,
-                                                new_xyz, nout, NT, B, P, M, s)
-                : launch_deposit<1, false, MOVE>(xyz, vel, weight, q, tiles,
-                                                 new_xyz, nout, NT, B, P, M, s);
+    return bf16 ? launch_deposit<1, true, MOVE>(xyz, vel, weight, q, fp,
+                                                tiles, new_xyz, nout, NT, B,
+                                                P, M, s)
+                : launch_deposit<1, false, MOVE>(xyz, vel, weight, q, fp,
+                                                 tiles, new_xyz, nout, NT, B,
+                                                 P, M, s);
   return -1;
 }
 
@@ -589,19 +617,21 @@ int pic_step_dispatch(int bf16, int boris, const void* E, int e_bf16,
 
 extern "C" {
 
+// k and j: the exponents of the density's fixed point (FixedPoint)
 int pinc_tiled_deposit(const float* xyz, const float* value, float* tiles,
                        int NT, int B, int P, int M, int order, int bf16,
-                       void* stream) {
-  return deposit_dispatch<false>(order, bf16, xyz, nullptr, value, 0.0f,
-                                 tiles, nullptr, nullptr, NT, B, P, M,
+                       void* stream, int k, int j) {
+  return deposit_dispatch<false>(order, bf16, xyz, nullptr, value, 0.0f, k,
+                                 j, tiles, nullptr, nullptr, NT, B, P, M,
                                  (cudaStream_t)stream);
 }
 
 int pinc_tiled_deposit_move(const float* xyz, const float* vel,
                             const float* alive, float q, float* tiles,
                             float* new_xyz, float* nout, int NT, int B, int P,
-                            int M, int order, int bf16, void* stream) {
-  return deposit_dispatch<true>(order, bf16, xyz, vel, alive, q, tiles,
+                            int M, int order, int bf16, void* stream, int k,
+                            int j) {
+  return deposit_dispatch<true>(order, bf16, xyz, vel, alive, q, k, j, tiles,
                                 new_xyz, nout, NT, B, P, M,
                                 (cudaStream_t)stream);
 }
@@ -666,11 +696,9 @@ int pinc_tiled_pic_step(const void* E, int e_bf16, const float* lpos,
       return -1;
   }
   for (int c = 0; c < 3; ++c) sp.ext[c] = params[10 * S + c];
-  const int k = (int)params[10 * S + 3], j = (int)params[10 * S + 4];
-  if (k < -126 || k > 126 || j < 0 || j > 30) return -1;
-  sp.scale = ldexpf(1.0f, k);
-  sp.inv_scale = ldexpf(1.0f, -k);
-  sp.lo_scale = ldexpf(1.0f, j);
+  if (!fixed_point((int)params[10 * S + 3], (int)params[10 * S + 4],
+                   &sp.fp))
+    return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if ((order_acc != 0 && order_acc != 1) ||
       (order_distr != 0 && order_distr != 1))

@@ -1,4 +1,5 @@
-"""The port's kernel benchmark: ``python -m pinc_tpu_torch.kbench [reps]``.
+"""The port's kernel benchmark: ``python -m pinc_tpu_torch.kbench [reps]``
+(``--take-chunks``: the chunk sweep of take's kernel, ``take_chunks``).
 
 The counterpart of ``script/bench_kernels_tpu.py`` (K12) and of K13's
 probes: the ``main()``s of ``experiments/archive/kbench{,2,3,4,5,9}.py``
@@ -32,6 +33,9 @@ from a seed:
   the two variant kernels of ``ops/kbench_kernels.py``.  The int8 gather's
   per-tile quantization is made once, outside the timed launches.
 
+Both sweeps' deposit values are 0 or 1, so K1 runs at ``vmax=1.0`` (no
+host sync in the timed launches).
+
 * ``prims`` — the exchange primitives of ``ops/kbench_prims.py`` at the
   exchange's shapes: the gathers along lanes of 4096 tiles of (8, 2176)
   (``r4_gather_probe.py``'s extract ``gat``, merge and square) and 4096
@@ -48,7 +52,11 @@ from a seed:
   ``torch.cumsum``, which agrees bit for bit on the mask (integers below
   2^24) and within ``LIBRARY_RTOL`` of the largest row sum of |x| on
   normal inputs (it adds in another order).  ``check_prims`` holds each
-  kernel against its plain version at the probes' own shapes first.
+  kernel against its plain version at the probes' own shapes first.  A
+  prims row also times the kernel and the library call inside a CUDA
+  graph (``graph_ms``, ``library_graph_ms``): the launches' device time
+  alone, where the host cannot keep the card busy (a Python wrapper's
+  ~30 us a call against a take of (8, 128) blocks' ~15 us).
 
 ``weight_sums``, ``given_kron`` and ``no_xreduce`` are the probes'
 ceilings (a part of the work taken out), so their error against the
@@ -151,6 +159,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return begin.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps calls captured in one CUDA graph
+    and replayed, by CUDA events: the time of the launches alone, where
+    cuda_ms also counts the card waiting for a host slower than the
+    kernel (a Python wrapper's ~30 us a call against a take of 15 us)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    g.replay()
+    end.record()
+    end.synchronize()
+    del g
+    return begin.elapsed_time(end) / reps
+
+
 def _bound_ms(nbytes: float, ops: float, kind: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
@@ -198,11 +228,11 @@ def _k12_cases(k12: dict, gen, dev):
             cases.append((
                 f"K12 deposit_v M={M} {dn}", "deposit", dn, ts,
                 lambda lp=lp, v=value, ts=ts, m=mdt: tk.deposit(
-                    lp, v, ts, mxu_dtype=m),
+                    lp, v, ts, mxu_dtype=m, vmax=1.0),
                 lambda lp=lp, v=value, ts=ts, m=mdt: tk.deposit_plain(
                     lp, v, ts, mxu_dtype=m),
                 lambda lp=lp, v=value, ts=ts: tk.deposit(
-                    lp, v, ts, mxu_dtype=bf16),
+                    lp, v, ts, mxu_dtype=bf16, vmax=1.0),
                 False, slots * 4.0 + live * 12.0 + blk, live * DEPOSIT_OPS,
                 dn, live,
                 _refs("deposit", "K1, mxu_dtype")))
@@ -234,7 +264,7 @@ def _k13_cases(k13: dict, gen, dev):
     dbytes = slots * 4.0 + live * 12.0 + blk
 
     def k1():
-        return tk.deposit(xyz, val, ts, mxu_dtype=bf16)
+        return tk.deposit(xyz, val, ts, mxu_dtype=bf16, vmax=1.0)
 
     def k3():
         return tk.gather(field, xyz, ts, mxu_dtype=bf16)
@@ -396,8 +426,9 @@ def _prim_probe_cases(gen, dev) -> list:
     own shapes (ops/kbench_prims.FUNCTIONS), with indices that wrap or
     fall outside, int32 words, every static row roll, device shifts that
     are negative or pass n, tiles that G does not divide, -0.0 in the
-    prefix sum, and rows that are not a multiple of 4 words (no 16-byte
-    loads)."""
+    prefix sum, rows that are not a multiple of 4 words (no 16-byte
+    loads), and take's blocks above a CTA's shared memory and those it
+    reads through L1 (take_layout)."""
     i32 = torch.int32
 
     def normal(*shape):
@@ -439,6 +470,19 @@ def _prim_probe_cases(gen, dev) -> list:
          index(-2 ** 31, 2 ** 31 - 1, 8, 256), index(-259, 259, 8, 256), 1)
     take("rows (3, 64, 130), idx in [-67, 67)", normal(3, 64, 130),
          index(-67, 67, 3, 40, 130), 1)
+    take("lanes (5, 8, 130) by (5, 8, 77), idx in [-133, 133)",
+         normal(5, 8, 130), index(-133, 133, 5, 8, 77), 2)
+    # blocks above a CTA's 227 KB of shared memory, staged in chunks, and
+    # blocks whose least chunk is read through L1 (a word a thread where
+    # an index row is no multiple of 4 words, else 4)
+    take("lanes (2, 8, 8192) by (2, 8, 1000), idx in [-8195, 8195)",
+         normal(2, 8, 8192), index(-8195, 8195, 2, 8, 1000), 2)
+    take("rows (2, 384, 256) by (2, 200, 256), idx in [-387, 387)",
+         normal(2, 384, 256), index(-387, 387, 2, 200, 256), 1)
+    take("lanes (3, 20000) by (3, 4097), direct", normal(3, 20000),
+         index(-20003, 20003, 3, 4097), 1)
+    take("rows (1000, 68) by (77, 68), direct", normal(1000, 68),
+         index(-1003, 1003, 77, 68), 0)
     x = normal(8, 256)
     for s in (5, -3, 261):
         roll(f"dyn_roll (8, 256) lanes, device shift {s}", x,
@@ -574,7 +618,8 @@ def _prim_row(case: dict, reps: int, time: bool) -> dict:
                exact=True, bit_equal=bit_equal, library=case["library_name"],
                library_err=lib_err, library_tol=lib_tol, ok=bit_equal
                and lib_ok, bound_ms=bound, bound_by=bound_by, ms=None,
-               plain_ms=None, library_ms=None)
+               plain_ms=None, library_ms=None, graph_ms=None,
+               library_graph_ms=None)
     del got, want, lib
     if time:
         row["ms"] = cuda_ms(case["fn"], reps)
@@ -582,6 +627,8 @@ def _prim_row(case: dict, reps: int, time: bool) -> dict:
         row["library_ms"] = cuda_ms(case["library"], reps)
         row["pct_bound"] = 100.0 * bound / row["ms"]
         row["x_library"] = row["ms"] / row["library_ms"]
+        row["graph_ms"] = graph_ms(case["fn"], reps)
+        row["library_graph_ms"] = graph_ms(case["library"], reps)
     return row
 
 
@@ -649,8 +696,10 @@ def _format_prim_row(r: dict) -> str:
     return (head + f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
             f" {r['library']} {r['library_ms']:.4f} ms (kernel "
             f"{r['x_library']:.3f}x), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}, {r['pct_bound']:.1f}%), {check}, library "
-            f"{lib}, {tail}")
+            f"({r['bound_by']}, {r['pct_bound']:.1f}%); in a CUDA graph "
+            f"kernel {r['graph_ms']:.4f} ms, library "
+            f"{r['library_graph_ms']:.4f} ms; {check}, library {lib}, "
+            f"{tail}")
 
 
 def ceiling_split(rows: list) -> dict:
@@ -667,6 +716,66 @@ def ceiling_split(rows: list) -> dict:
     return out
 
 
+#: take_chunks' chunk sizes (bytes of source a CTA; 0: the source read
+#: through L1 at the default chunk shape, no staging)
+TAKE_CHUNKS = (8192, 16384, 32768, 65536, 0)
+
+
+def take_chunks(device=None, reps: int = 10, NT: int = 4096,
+                log=None) -> list:
+    """The chunk sweep of take's kernel: each production take shape of
+    the prims sweep (the exchange's extract, merge and square, and
+    PROBE_BLOCKS) at each plan of TAKE_CHUNKS, each launch bit for bit
+    with take_plain, timed (CUDA events) beside torch.gather; returns a
+    dict a row (name, chunk_bytes, plan, ms, library_ms, graph_ms,
+    library_graph_ms, bit_equal).
+    Runs on the card only."""
+    if device is None:
+        from .simulation import default_device
+        device = default_device()
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the chunk sweep times on the CUDA card only")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    R, L, W = PRIMS["R"], PRIMS["L"], PRIMS["W"]
+    shapes = [(f"take {m}", (R, cs), (R, ci), 1)
+              for m, cs, ci in (("extract", L, W), ("merge", W, L),
+                                ("square", L, L))]
+    shapes += [(f"take {m}", rc, rc, ax) for m, rc, ax, _, _ in PROBE_BLOCKS]
+    rows = []
+    for name, (rs, cs), (ri, ci), ax in shapes:
+        src = torch.randn((NT, rs, cs), generator=gen, device=dev)
+        idx = torch.randint(0, (rs, cs)[ax], (NT, ri, ci), generator=gen,
+                            device=dev, dtype=torch.int32)
+        want = kp.take_plain(src, idx, ax + 1)
+        i64 = idx.long()
+
+        def lib():
+            return torch.gather(src, ax + 1, i64)
+
+        lib_ms, lib_graph = cuda_ms(lib, reps), graph_ms(lib, reps)
+        for cb in TAKE_CHUNKS:
+            plan = kp.take_layout(rs, cs, ri, ci, ax,
+                                  chunk_bytes=cb or kp.TAKE_CHUNK_BYTES,
+                                  stage=cb > 0)
+            fn = (lambda plan=plan: kp.take(src, idx, ax + 1, plan=plan))
+            row = dict(name=name, chunk_bytes=cb, plan=plan._asdict(),
+                       bit_equal=same_bits(fn(), want),
+                       ms=cuda_ms(fn, reps), library_ms=lib_ms,
+                       graph_ms=graph_ms(fn, reps),
+                       library_graph_ms=lib_graph)
+            rows.append(row)
+            if log is not None:
+                log(f"{name:<34s} chunk {cb or 'direct':>6} {plan}: "
+                    f"{row['ms']:.4f} ms (graph {row['graph_ms']:.4f}), "
+                    f"torch.gather {lib_ms:.4f} ms (graph {lib_graph:.4f})"
+                    f", {'bit-equal' if row['bit_equal'] else 'MISMATCH'}")
+        del src, idx, want, i64
+        torch.cuda.empty_cache()
+    return rows
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     try:
@@ -681,10 +790,17 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    chunks = "--take-chunks" in argv
+    argv = [a for a in argv if a != "--take-chunks"]
     reps = int(argv[0]) if argv else 10
     from .simulation import default_device
     dev = default_device()
     card = card_line()
+    if chunks:
+        print(f"take's chunk sweep on {card}; {reps} launches a row",
+              flush=True)
+        rows = take_chunks(dev, reps, log=lambda s: print(s, flush=True))
+        return 0 if all(r["bit_equal"] for r in rows) else 1
     print(f"kernel benchmark on {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; f32 is float32 here (the TPU's default "
           f"f32 dot was one bf16 pass); {reps} launches a row", flush=True)

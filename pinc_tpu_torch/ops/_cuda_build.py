@@ -37,12 +37,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signatures of csrc/*.cu, in argument order
 SIGNATURES = {
     # -- csrc/tiled.cu
-    # xyz, value, tiles, NT, B, P, M, order, bf16, stream
-    "pinc_tiled_deposit": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # xyz, value, tiles, NT, B, P, M, order, bf16, stream, k, j (the
+    # density's fixed point)
+    "pinc_tiled_deposit": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I],
     # xyz, vel, alive, q, tiles, new_xyz, nout, NT, B, P, M, order, bf16,
-    # stream
+    # stream, k, j
     "pinc_tiled_deposit_move": [_P, _P, _P, _F, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _P, _I, _I],
     # field, xyz, out, NT, B, P, M, C, order, bf16, stream
     "pinc_tiled_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # field, xyz, vel, alive, qm, params9 (host: e_ext, T, S), boris,
@@ -85,8 +86,10 @@ SIGNATURES = {
     # field, scale, inv, xyz, out, NT, B, P, M, mode, stream
     "pinc_kb_gather": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
     # -- csrc/kbench_prims.cu
-    # src, idx, out, batch, Rs, Cs, Ri, Ci, lanes, fill (bits), stream
-    "pinc_kp_take": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # src, idx, out, batch, Rs, Cs, Ri, Ci, lanes, fill (bits), stream,
+    # the plan's rows, cols, blocks and staged (kbench_prims.take_layout)
+    "pinc_kp_take": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                     _I, _I, _I, _I],
     # x, out, shift (device int32 or null), shift_host, rows, R, C, lanes,
     # stream
     "pinc_kp_roll": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -37,7 +37,7 @@ There is no fallback from a CUDA tensor to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -96,10 +96,16 @@ SOURCE = "pinc_tpu_torch/csrc/kbench_prims.cu"
 #: the fill of an out-of-range index: float32 NaN and INT32_MIN, as bits
 FILL_BITS = {torch.float32: 0x7FC00000, torch.int32: -2 ** 31}
 MAX_PLANES = 8
-#: take stages a source block in shared memory (227 KB a block), the
-#: prefix sum a row twice
-MAX_TAKE_WORDS = 232448 // 4
+#: the prefix sum keeps a row twice in shared memory (227 KB a block)
 MAX_PREFIX_B = 232448 // 8
+#: take's chunk: about this many bytes of source a CTA (take_layout)
+TAKE_CHUNK_BYTES = 16384
+#: a chunk that needs more shared memory than this even at its least (one
+#: row along the lanes, a strip of TAKE_MIN_STRIP columns along the rows)
+#: reads the source through L1 instead of staging it
+TAKE_STAGE_MAX_BYTES = 49152
+#: a strip along the rows is at least this many columns (coalesced loads)
+TAKE_MIN_STRIP = 32
 
 WORDS = (torch.float32, torch.int32)
 #: lane_prefix keeps at most this many elements of a row a thread in
@@ -138,6 +144,55 @@ def lane_prefix_layout(B: int):
     while -(-B // W) > MAX_PREFIX_R:
         W *= 2
     return W, -(-B // W)
+
+
+class TakePlan(NamedTuple):
+    """The chunks take's kernel launches (take_layout)."""
+    rows: int        #: source rows a chunk (Rs along the rows)
+    cols: int        #: source columns a chunk (Cs along the lanes)
+    blocks: int      #: blocks a CTA (> 1 only where a chunk is a block)
+    chunks: int      #: CTAs a block (chunks of a block)
+    smem_bytes: int  #: shared memory a CTA; 0: the source read through L1
+
+    def ctas(self, batch: int) -> int:
+        """CTAs of a launch on batch blocks."""
+        return -(-batch // self.blocks) * self.chunks
+
+
+def take_layout(Rs: int, Cs: int, Ri: int, Ci: int, lanes: int,
+                chunk_bytes: int = TAKE_CHUNK_BYTES,
+                stage: bool = True) -> TakePlan:
+    """The chunk plan of take's kernel for (Rs, Cs) source blocks, (Ri,
+    Ci) index blocks, along the lanes (lanes = 1: output row r reads
+    source row r) or the rows (output column c reads source column c).  A
+    chunk holds about chunk_bytes of source: g whole rows along the lanes,
+    a strip of w >= TAKE_MIN_STRIP columns (a multiple of it) over all Rs
+    rows along the rows; the chunks of a block are balanced.  Where a
+    whole block fits, a CTA takes as many blocks as fit, counting the
+    index block too.  A chunk is staged in shared memory unless stage is
+    false or even its least (one row, one minimal strip) needs more than
+    TAKE_STAGE_MAX_BYTES; the chunk shape then splits the output alike."""
+    budget = max(1, chunk_bytes // 4)                # source words
+    # the axis a block splits along (n rows or n columns) and its part
+    if lanes:
+        n, part, least = Rs, max(1, budget // Cs), Cs
+    else:
+        step = TAKE_MIN_STRIP
+        n, part, least = Cs, max(step, budget // Rs // step * step), Rs * step
+    stage = stage and least * 4 <= TAKE_STAGE_MAX_BYTES
+    if part >= n:                                    # whole blocks
+        size, chunks = n, 1
+        blocks = max(1, budget // max(Rs * Cs, Ri * Ci))
+    else:
+        chunks = -(-n // part)
+        size = -(-n // chunks)
+        if not lanes:
+            size = -(-size // step) * step
+            chunks = -(-n // size)
+        blocks = 1
+    rows, cols = (size, Cs) if lanes else (Rs, size)
+    return TakePlan(rows, cols, blocks, chunks,
+                    blocks * rows * cols * 4 if stage else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -191,19 +246,25 @@ def lane_prefix_plain(m: torch.Tensor) -> torch.Tensor:
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def take(src: torch.Tensor, idx: torch.Tensor,
-         axis: int = -1) -> torch.Tensor:
+def take(src: torch.Tensor, idx: torch.Tensor, axis: int = -1,
+         plan: Optional[TakePlan] = None) -> torch.Tensor:
     """take_along_axis along a row or lane axis: src (R, Cs) or (batch,
     R, Cs) float32 or int32, idx int32 of src's rank whose extents equal
     src's but along ``axis`` -> idx's shape, src's type (the module's
-    index semantics); a source block of at most MAX_TAKE_WORDS words.
+    index semantics).  plan: the chunks the kernel launches (default
+    take_layout's; the benchmark's chunk sweep passes others).
 
     Replaces the lane and row gathers of r4_gather_probe{,2,3}.py
     (FUNCTIONS).  Bound on the card: src, idx and the output moved once
-    (bytes).  Design: one block a (R, Cs) block of the stack; the source
-    block is staged in shared memory with 16-byte loads (69.6 KB at the
-    extract's (8, 2176)), then each thread gathers its output words from
-    it, idx read and the output written coalesced."""
+    (bytes).  Design: a lane gather's output row reads one source row, a
+    row gather's output column one source column, so a CTA takes a chunk
+    of about TAKE_CHUNK_BYTES of source (take_layout): whole rows, or a
+    strip of columns over all rows; several small blocks a CTA, a large
+    block over several CTAs, so an SM holds several CTAs and one's loads
+    overlap another's gathers.  The chunk is staged in shared memory with
+    16-byte loads, then each thread gathers its output words from it, idx
+    read and the output written coalesced; a chunk too wide to stage
+    reads the source through L1."""
     lanes = _block_axis(src, axis, "src")
     if idx.dim() != src.dim():
         raise ValueError(f"idx has rank {idx.dim()}, src {src.dim()}")
@@ -214,19 +275,22 @@ def take(src: torch.Tensor, idx: torch.Tensor,
     _nonempty(src, "src")
     _nonempty(idx, "idx")
     (Rs, Cs), (Ri, Ci) = src.shape[-2:], idx.shape[-2:]
-    if Rs * Cs > MAX_TAKE_WORDS:
-        raise ValueError(f"take stages a source block in shared memory: "
-                         f"R * C <= {MAX_TAKE_WORDS} words, got {Rs} x "
-                         f"{Cs}")
+    if max(Rs * Cs, Ri * Ci) >= 2 ** 31:
+        raise ValueError(f"take indexes a block with int32: R * C < 2^31 "
+                         f"words, got {Rs} x {Cs} and {Ri} x {Ci}")
     if _is_cpu(src, "take"):
         return take_plain(src, idx, axis)
     batch = src.shape[0] if src.dim() == 3 else 1
+    if plan is None:
+        plan = take_layout(Rs, Cs, Ri, Ci, lanes)
     out = torch.empty(idx.shape, dtype=src.dtype, device=src.device)
     lib = _cuda_build.load()
     with torch.cuda.device(src.device):
         _launch("kbench_take", lib.pinc_kp_take, _ptr(src), _ptr(idx),
                 _ptr(out), batch, Rs, Cs, Ri, Ci, lanes,
-                FILL_BITS[src.dtype], _stream(src.device), counts=LAUNCHES)
+                FILL_BITS[src.dtype], _stream(src.device), plan.rows,
+                plan.cols, plan.blocks, int(plan.smem_bytes > 0),
+                counts=LAUNCHES)
     return out
 
 

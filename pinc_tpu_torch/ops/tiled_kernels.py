@@ -27,8 +27,8 @@ the padded node offsets -M..T+M, or -m..T+m at a working margin m <= M);
 with ``mxu_dtype=torch.bfloat16`` they
 are rounded to bf16 at the TPU kernels' points (``wx*value`` and ``wy*wz``
 in the deposit, the field and ``wy*wz`` in the gather), sums in float32
-(but the density of ``pic_step``'s kernel, summed in integers:
-``ACCUMULATOR``).
+(but the densities of the deposit kernels, ``deposit``, ``deposit_move``
+and ``pic_step``, summed in integers: ``ACCUMULATOR``).
 """
 
 from __future__ import annotations
@@ -240,25 +240,33 @@ def gather_kick_plain(field_pad: torch.Tensor, xyz: torch.Tensor,
     return new_vel, torch.sum(vdot * alive)
 
 
-#: K5's density accumulator: each contribution c = q w_x w_y w_z (float32)
-#: is scaled by 2^k and split into hi = rint(c 2^k) and lo = rint((c 2^k -
-#: hi) 2^j), two int32 blocks in shared memory (one native integer atomic
-#: each); a node's value is (hi + lo 2^-j) 2^-k, rounded once to float32
+#: the deposit kernels' density accumulator (K1, K2, K5): each
+#: contribution c = value w_x w_y w_z (float32) is scaled by 2^k and split
+#: into hi = rint(c 2^k) and lo = rint((c 2^k - hi) 2^j), two int32 blocks
+#: in shared memory (one native integer atomic each); a node's value is
+#: (hi + lo 2^-j) 2^-k, rounded once to float32
 ACCUMULATOR = "int32 pair"
 #: |a node's sum of hi parts| <= 2^HI_BITS + the grid rounding < 2^31
 HI_BITS = 30
 
 
-def deposit_scale(charge, B: int) -> Tuple[int, int]:
-    """(k, j) of K5's fixed-point density (ACCUMULATOR) for the species'
-    charges and B slots a tile.  k is the largest with 2^k * 2 * B *
-    sum|q_s| <= 2^HI_BITS, the worst case of a tile (all S x B slots on one
-    node, weight products up to 1, and a factor 2 for bf16's rounding up),
-    at most 126 (also when every charge is 0) so that 2^k and 2^-k are
-    normal float32 numbers; j is the largest <= 30 with S * B * 2^(j-1) <
-    2^31, since |lo| <= 2^(j-1).  Raises where no such k or j exists."""
-    S, B = len(charge), int(B)
-    total = 2.0 * B * sum(abs(float(q)) for q in charge)
+def deposit_scale(magnitudes, B: int) -> Tuple[int, int]:
+    """(k, j) of the deposits' fixed-point density (ACCUMULATOR) for B
+    slots a tile of each of S deposits summed in one block; magnitudes
+    holds a bound on |value| a deposit: |q_s| for pic_step's and
+    deposit_move's alive * q_s, vmax for deposit's values.  k is the
+    largest with 2^k * 2 * B * sum(magnitudes) <= 2^HI_BITS, the worst
+    case of a tile (all S x B slots on one node, weight products up to 1,
+    and a factor 2 for bf16's rounding up), at most 126 (also when every
+    magnitude is 0) so that 2^k and 2^-k are normal float32 numbers; j is
+    the largest <= 30 with S * B * 2^(j-1) < 2^31, since |lo| <= 2^(j-1).
+    Raises where no such k or j exists, and for a magnitude that is not
+    finite."""
+    S, B = len(magnitudes), int(B)
+    total = 2.0 * B * sum(abs(float(v)) for v in magnitudes)
+    if not math.isfinite(total):
+        raise ValueError(f"magnitudes {tuple(magnitudes)} are not finite: no "
+                         f"fixed-point density holds them")
     k = 126
     if total:
         m, e = math.frexp(total)           # total = m 2^e, 0.5 <= m < 1
@@ -267,8 +275,8 @@ def deposit_scale(charge, B: int) -> Tuple[int, int]:
     while j > 0 and S * B * 2 ** (j - 1) >= 2 ** 31:
         j -= 1
     if k < -126 or S * B >= 2 ** 31:
-        raise ValueError(f"charges {tuple(charge)} at B = {B} overflow the "
-                         f"fixed-point density")
+        raise ValueError(f"magnitudes {tuple(magnitudes)} at B = {B} "
+                         f"overflow the fixed-point density")
     return k, j
 
 
@@ -390,16 +398,25 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 
 
 def deposit(xyz: torch.Tensor, value: torch.Tensor, ts: TileSpec,
-            mxu_dtype=torch.float32, order: int = 1) -> torch.Tensor:
+            mxu_dtype=torch.float32, order: int = 1,
+            vmax: Optional[float] = None) -> torch.Tensor:
     """K1: xyz (3, NT, B) tile-local planes f32, value (NT, B)
-    charge*alive -> padded tile densities (NT, P, P*P) f32.
+    charge*alive -> padded tile densities (NT, P, P*P) f32.  vmax: a
+    bound on |value|, which sets the kernel's fixed-point grid
+    (deposit_scale([vmax], B)); a value above it can overflow the integer
+    sums.  With vmax=None the wrapper reads float(value.abs().max()) on a
+    CUDA tensor: one reduction and one host sync a call.
 
     Replaces pinc_tpu/ops/pallas_tiled.py ``deposit``.  Bound on the card:
-    the shared-memory atomics, 8 per live CIC slot (1 for NGP), and the
-    16 bytes/slot read (x, y, z, value) at one pass over HBM.  Design:
-    one block per tile keeps the P^3-float accumulator (5.3 KB at P=11)
-    in shared memory and writes the tile's block once — no global atomics,
-    no dense weight matrices, dead slots skipped."""
+    the 16 bytes/slot read (x, y, z, value) at one pass over HBM, and the
+    shared-memory atomics, 16 per live CIC slot (2 for NGP).  Design: one
+    block per tile keeps the tile's density in shared memory as a pair of
+    int32 fixed-point blocks (ACCUMULATOR, 10.6 KB at P=11) and writes the
+    tile's block once — no global atomics, no dense weight matrices, dead
+    slots skipped.  Each contribution adds with two native ATOMS.ADD (a
+    float32 shared atomicAdd is a compare-and-swap loop on sm_90a), and
+    the sums no longer depend on the order of the atomics, so two launches
+    on the same input give bit-identical tiles."""
     if _is_cpu(xyz, "deposit"):
         return deposit_plain(xyz, value, ts, mxu_dtype=mxu_dtype, order=order)
     _check_order(order)
@@ -408,12 +425,16 @@ def deposit(xyz: torch.Tensor, value: torch.Tensor, ts: TileSpec,
     dev = xyz.device
     _check(xyz, "xyz", (3, NT, B), dev)
     _check(value, "value", (NT, B), dev)
+    if vmax is None:
+        vmax = float(value.abs().max())
+    k, j = deposit_scale([vmax], B)
     out = torch.empty((NT, ts.P, ts.P * ts.P), dtype=torch.float32,
                       device=dev)
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
         _launch("deposit", lib.pinc_tiled_deposit, _ptr(xyz), _ptr(value),
-                _ptr(out), NT, B, ts.P, ts.M, order, int(bf16), _stream(dev))
+                _ptr(out), NT, B, ts.P, ts.M, order, int(bf16), _stream(dev),
+                k, j)
     return out
 
 
@@ -427,10 +448,11 @@ def deposit_move(xyz: torch.Tensor, vel: torch.Tensor, alive: torch.Tensor,
 
     Replaces pinc_tpu/ops/pallas_tiled.py ``deposit_move``.  Bound on the
     card: 40 bytes/slot of HBM traffic (7 planes in, 3 out) and the
-    deposit's shared atomics.  Design: K1's per-tile shared accumulator,
-    with the drift and the margin test done on the registers that feed
-    the deposit; each block writes one n_out partial and torch sums the
-    NT partials."""
+    deposit's shared atomics.  Design: K1's per-tile integer accumulator,
+    at the grid deposit_scale([charge], B) (its values alive * charge are
+    bounded by |charge|: no sync), with the drift and the margin test done
+    on the registers that feed the deposit; each block writes one n_out
+    partial and torch sums the NT partials."""
     if _is_cpu(xyz, "deposit_move"):
         return deposit_move_plain(xyz, vel, alive, charge, ts,
                                   mxu_dtype=mxu_dtype, order=order)
@@ -441,6 +463,7 @@ def deposit_move(xyz: torch.Tensor, vel: torch.Tensor, alive: torch.Tensor,
     _check(xyz, "xyz", (3, NT, B), dev)
     _check(vel, "vel", (3, NT, B), dev)
     _check(alive, "alive", (NT, B), dev)
+    k, j = deposit_scale([charge], B)
     tiles = torch.empty((NT, ts.P, ts.P * ts.P), dtype=torch.float32,
                         device=dev)
     new_xyz = torch.empty_like(xyz)
@@ -450,7 +473,7 @@ def deposit_move(xyz: torch.Tensor, vel: torch.Tensor, alive: torch.Tensor,
         _launch("deposit_move", lib.pinc_tiled_deposit_move, _ptr(xyz),
                 _ptr(vel), _ptr(alive), float(charge), _ptr(tiles),
                 _ptr(new_xyz), _ptr(nout), NT, B, ts.P, ts.M, order,
-                int(bf16), _stream(dev))
+                int(bf16), _stream(dev), k, j)
     return tiles, new_xyz, nout.sum()
 
 

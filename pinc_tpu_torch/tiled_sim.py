@@ -368,14 +368,16 @@ class TiledSimulation(Simulation):
     # --------------------------------------------------------------- step
     def _deposit_rho(self, st: TiledState) -> torch.Tensor:
         """Deposit every species with K1, sum the padded blocks, fold once
-        (K7)."""
+        (K7).  A species' values are q_s or 0, so |q_s| bounds them (no
+        host sync for the kernel's fixed-point grid)."""
         tiles = None
         for s in range(st.lpos.shape[0]):
             value = torch.where(st.alive[s] != 0,
                                 torch.tensor(self._charge[s], device=self.device),
                                 torch.zeros((), device=self.device))
             t = tk.deposit(st.lpos[s], value, self.ts,
-                           mxu_dtype=self._mxu_dtype, order=self._distr_order)
+                           mxu_dtype=self._mxu_dtype, order=self._distr_order,
+                           vmax=abs(self._charge[s]))
             tiles = t if tiles is None else tiles + t
         return fk.fold_global(tiles, self.ts).to(self.spec.dtype)
 

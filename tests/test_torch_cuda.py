@@ -8,12 +8,13 @@ port is installed (the test conftest imports jax; skip it there):
 
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: deposits max|kernel - plain| <= 1e-5 * max|plain| (atomics
-add in another order); gathered fields and velocities atol 1e-5; moved
+Tolerances: deposits max|kernel - plain| <= 1e-5 * max|plain| (the
+kernels sum in fixed point, the plain versions in float32); gathered fields and velocities atol 1e-5; moved
 planes and n_out exact; vdot rtol 1e-5.  pic_step's new positions and
 velocities are exact too (it rounds each product and sum on its own, in
 the plain version's order), its tiles and vdot as the deposits' and the
-kicks', and its tiles are bit-identical across launches (integer sums).
+kicks', and its tiles are bit-identical across launches (integer sums), as
+are deposit's and deposit_move's.
 efield_tiles and fold_global are exact (the same float32 operations in
 the same order).  The exchange kernels (extract, cleanup,
 merge) and the whole exchange re-bucket are exact: they copy bits and add
@@ -112,6 +113,51 @@ def test_kernels_match_plain(cuda, dt, order):
     assert {k: tk.LAUNCHES[k] - before[k] for k in before} == {
         "deposit": 1, "deposit_move": 1, "gather": 1, "gather_kick": 3,
         "pic_step": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["fixture", "production"])
+def test_deposit_tiles_are_deterministic(cuda, shape):
+    """K1 and K2 sum their densities in integers, so two launches on the
+    same input give bit-identical tiles: at the fixture (f32 and bf16, CIC
+    and NGP; K1 with vmax given and read from the values) and at the bench
+    deck's production shape (4096 tiles x 17,408 slots, M = 1, bf16
+    weights, its electrons' charge), where the tiles are held against the
+    plain versions too."""
+    if shape == "fixture":
+        ts, d = _fixture(cuda)
+        cases = [(mdt, o) for mdt in MXU.values() for o in (1, 0)]
+        q = -1.7
+    else:
+        ts = TileSpec(grid=(128, 128, 128), T=8, M=1, B=17408)
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(8)
+        NT, B = ts.NT, ts.B
+        alive = (torch.rand((NT, B), generator=gen, device=cuda)
+                 < 16384 / 17408).float()
+        xyz = torch.rand((3, NT, B), generator=gen, device=cuda) * (
+            ts.T + 2 * ts.M) - ts.M
+        d = dict(xyz=torch.where(alive.bool(), xyz, -4.0).contiguous(),
+                 alive=alive,
+                 vel=0.05 * torch.randn((3, NT, B), generator=gen,
+                                        device=cuda))
+        cases = [(torch.bfloat16, 1)]
+        q = -0.2 ** 2 / 32
+    value = d["alive"] * q
+    for mdt, order in cases:
+        kw = dict(mxu_dtype=mdt, order=order)
+        first = tk.deposit(d["xyz"], value, ts, vmax=abs(q), **kw)
+        assert torch.equal(first, tk.deposit(d["xyz"], value, ts, **kw))
+        moved = tk.deposit_move(d["xyz"], d["vel"], d["alive"], q, ts, **kw)
+        again = tk.deposit_move(d["xyz"], d["vel"], d["alive"], q, ts, **kw)
+        assert torch.equal(moved[0], again[0])
+        assert first.abs().max().item() > 0
+        if shape == "production":
+            want = tk.deposit_plain(d["xyz"], value, ts, **kw)
+            assert _max_err(first, want) <= 1e-5 * want.abs().max().item()
+            want = tk.deposit_move_plain(d["xyz"], d["vel"], d["alive"], q,
+                                         ts, **kw)[0]
+            assert _max_err(moved[0], want) <= 1e-5 * want.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -681,6 +727,45 @@ def test_kbench_take_matches_plain(cuda, shape):
     got = kp.take(src, idx, axis)
     want = kp.take_plain(src, idx, axis)
     assert kbench.same_bits(got, want)
+    assert torch.isnan(got).any()
+    _prim_launched(before, "kbench_take")
+
+
+#: take's blocks by chunk plan: (batch, source block, index block, axis)
+TAKE_PLANS = {
+    "lanes (256, 128), 8 CTAs a block": (4096, (256, 128), (256, 128), 2),
+    "lanes (8, 128), 4 blocks a CTA": (4096, (8, 128), (8, 128), 2),
+    "rows (8, 128), 4 blocks a CTA": (4096, (8, 128), (8, 128), 1),
+    "rows (64, 130) by (40, 130), strips": (99, (64, 130), (40, 130), 1),
+    "lanes (8, 130) by (8, 77), a word a thread": (99, (8, 130), (8, 77), 2),
+    "lanes (8, 8192), above 227 KB": (64, (8, 8192), (8, 1000), 2),
+    "rows (384, 256) by (200, 256), above 227 KB": (9, (384, 256),
+                                                    (200, 256), 1),
+    "lanes (3, 20000), direct": (5, (3, 20000), (3, 4097), 2),
+    "rows (1000, 68), direct, batch 1": (1, (1000, 68), (77, 68), 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TAKE_PLANS))
+def test_kbench_take_chunks_match_plain(cuda, case):
+    """take at each kind of chunk plan (kp.take_layout): a large block
+    over several CTAs, several small blocks a CTA, strips of columns,
+    blocks above the 227 KB a CTA's shared memory holds, and chunks read
+    through L1, each with 4 words a thread or (index rows not a multiple
+    of 4 words) one; bit for bit with the plain version, with indices
+    over [-n - 3, n + 3) (some wrap, some fill)."""
+    batch, (rs, cs), (ri, ci), axis = TAKE_PLANS[case]
+    plan = kp.take_layout(rs, cs, ri, ci, axis - 1)
+    assert ("direct" in case) == (plan.smem_bytes == 0)
+    gen = _prim_gen(cuda, rs * cs + ri * ci)
+    src = torch.randn((batch, rs, cs), generator=gen, device=cuda)
+    n = (rs, cs)[axis - 1]
+    idx = torch.randint(-n - 3, n + 3, (batch, ri, ci), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    before = dict(kp.LAUNCHES)
+    got = kp.take(src, idx, axis)
+    assert kbench.same_bits(got, kp.take_plain(src, idx, axis))
     assert torch.isnan(got).any()
     _prim_launched(before, "kbench_take")
 

@@ -33,6 +33,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
@@ -430,6 +432,130 @@ def test_lane_prefix_layout_covers_every_row():
 
 
 # ---------------------------------------------------------------------------
+# take's chunk plan
+# ---------------------------------------------------------------------------
+
+def _take_emulated(src, idx, lanes, plan):
+    """numpy emulation of take's kernel on a (batch, Rs, Cs) stack under
+    plan, CTA by CTA as the kernel maps them: CTA x takes chunk k = x %
+    chunks of the plan.blocks blocks from (x // chunks) * blocks, source
+    rows [r0, r0 + nr) (lanes) or columns [c0, c0 + nc) (rows), staged
+    into at most plan.smem_bytes (or read in place when 0), then gathers
+    its output words from the chunk alone.  Returns (output, the number of
+    CTAs that wrote each output word)."""
+    batch, Rs, Cs = src.shape
+    _, Ri, Ci = idx.shape
+    n = Cs if lanes else Rs
+    fill = np.array(kp.FILL_BITS[torch.float32], np.uint32)
+    out = np.zeros(idx.shape, np.uint32)
+    hits = np.zeros(idx.shape, np.int64)
+    bits = src.view(np.uint32)
+    for x in range(plan.ctas(batch)):
+        g, k = divmod(x, plan.chunks)
+        b0 = g * plan.blocks
+        b1 = min(b0 + plan.blocks, batch)
+        r0, c0 = (k * plan.rows, 0) if lanes else (0, k * plan.cols)
+        r1, c1 = (min(r0 + plan.rows, Rs), Cs) if lanes else \
+            (Rs, min(c0 + plan.cols, Cs))
+        chunk = bits[b0:b1, r0:r1, c0:c1]
+        if plan.smem_bytes:
+            assert chunk.size * 4 <= plan.smem_bytes
+        o = (slice(b0, b1), slice(r0, r1), slice(None)) if lanes else \
+            (slice(b0, b1), slice(None), slice(c0, c1))
+        j = idx[o].astype(np.int64)
+        j = np.where(j < 0, j + n, j)
+        inside = (j >= 0) & (j < n)
+        jc = np.clip(j, 0, n - 1)
+        got = (np.take_along_axis(chunk, jc, axis=2) if lanes else
+               np.take_along_axis(chunk, jc, axis=1))
+        out[o] = np.where(inside, got, fill)
+        hits[o] += 1
+    return out.view(np.float32), hits
+
+
+#: (batch, source block, index block, lanes): the exchange's shapes, the
+#: check_prims shapes that PROBE_BLOCKS does not hold, blocks above the
+#: 227 KB of shared memory a CTA has (the old limit of a staged block),
+#: and blocks read through L1
+TAKE_SHAPES = {
+    "extract": (3, (8, 2176), (8, 768), 1),
+    "merge": (3, (8, 768), (8, 2176), 1),
+    "square": (2, (8, 2176), (8, 2176), 1),
+    "rows (8, 2176)": (2, (8, 2176), (8, 2176), 0),
+    "rows (64, 130) by (40, 130)": (3, (64, 130), (40, 130), 0),
+    "lanes (8, 130) by (8, 77)": (5, (8, 130), (8, 77), 1),
+    "int32 lanes (8, 256)": (5, (8, 256), (8, 256), 1),
+    "lanes (8, 8192) by (8, 1000), above 227 KB": (2, (8, 8192), (8, 1000),
+                                                   1),
+    "rows (384, 256) by (200, 256), above 227 KB": (2, (384, 256),
+                                                    (200, 256), 0),
+    "lanes (3, 20000), direct": (2, (3, 20000), (3, 4097), 1),
+    "rows (1000, 68), direct": (1, (1000, 68), (77, 68), 0),
+    **{f"probe {m}": (9, rc, rc, ax)
+       for m, rc, ax, _, _ in kbench.PROBE_BLOCKS},
+}
+
+
+def _check_take_plan(batch, rc_s, rc_i, lanes, seed):
+    """take_layout's plan for the shapes: within shared memory, strips of
+    whole TAKE_MIN_STRIP multiples, blocks a CTA only where a chunk is a
+    block; and the kernel's emulation under it covers every output word
+    exactly once and equals take_plain bit for bit."""
+    (Rs, Cs), (Ri, Ci) = rc_s, rc_i
+    plan = kp.take_layout(Rs, Cs, Ri, Ci, lanes)
+    assert plan.smem_bytes <= 232448
+    if lanes:
+        assert plan.cols == Cs and plan.chunks == -(-Rs // plan.rows)
+    else:
+        assert plan.rows == Rs and plan.chunks == -(-Cs // plan.cols)
+        assert plan.cols == Cs or plan.cols % kp.TAKE_MIN_STRIP == 0
+    assert plan.blocks == 1 or plan.chunks == 1
+    if plan.smem_bytes:
+        assert plan.smem_bytes == plan.blocks * plan.rows * plan.cols * 4
+        assert plan.smem_bytes <= max(kp.TAKE_CHUNK_BYTES,
+                                      kp.TAKE_STAGE_MAX_BYTES)
+    rng = np.random.default_rng(seed)
+    n = Cs if lanes else Rs
+    src = rng.normal(size=(batch, Rs, Cs)).astype(np.float32)
+    idx = rng.integers(-n - 3, n + 3, (batch, Ri, Ci)).astype(np.int32)
+    got, hits = _take_emulated(src, idx, lanes, plan)
+    assert (hits == 1).all()
+    _bits(_t(got), kp.take_plain(_t(src), _t(idx), 1 + lanes).numpy())
+    return plan
+
+
+@pytest.mark.parametrize("shape", list(TAKE_SHAPES))
+def test_take_layout_covers_every_output_once(shape):
+    batch, rc_s, rc_i, lanes = TAKE_SHAPES[shape]
+    plan = _check_take_plan(batch, rc_s, rc_i, lanes, len(shape))
+    assert ("direct" in shape) == (plan.smem_bytes == 0)
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(batch=st.integers(1, 5), Rs=st.integers(1, 300),
+       Cs=st.integers(1, 700), other=st.integers(1, 300),
+       lanes=st.integers(0, 1))
+def test_take_layout_covers_drawn_shapes(batch, Rs, Cs, other, lanes):
+    """Any shape: Cs not a multiple of 4, Ri != Rs along the rows (Ci !=
+    Cs along the lanes), batch 1."""
+    rc_i = (Rs, other) if lanes else (other, Cs)
+    _check_take_plan(batch, (Rs, Cs), rc_i, lanes, batch * Rs + Cs)
+
+
+@pytest.mark.parametrize("axis", [1, 2])
+def test_take_above_the_old_block_limit(no_launch, axis):
+    """A block of 65,536 words, more than a CTA's 227 KB of shared memory
+    (the old limit of a staged block): take equals take_plain."""
+    rng = np.random.default_rng(axis)
+    src = rng.normal(size=(2, 64, 1024)).astype(np.float32)
+    n = src.shape[axis]
+    shape = (2, 64, 300) if axis == 2 else (2, 50, 1024)
+    idx = rng.integers(-n - 3, n + 3, shape).astype(np.int32)
+    _bits(kp.take(_t(src), _t(idx), axis),
+          kp.take_plain(_t(src), _t(idx), axis).numpy())
+
+
+# ---------------------------------------------------------------------------
 # FUNCTIONS, semantics, the sweep, the wrappers' checks
 # ---------------------------------------------------------------------------
 
@@ -565,9 +691,6 @@ def _reject(kind: str):
         "take_device": (ValueError, lambda: kp.take(f32.to("meta"),
                                                     i32.to("meta"), 2)),
         "take_empty": (ValueError, lambda: kp.take(f32, i32[:, :, :0], 2)),
-        "take_block": (ValueError, lambda: kp.take(
-            torch.zeros((8, kp.MAX_TAKE_WORDS // 8 + 1)),
-            torch.zeros((8, 4), dtype=torch.int32), 1)),
         "roll_f64": (TypeError, lambda: kp.roll(f32.double(), 1, 1)),
         "roll_shift_i64": (TypeError, lambda: kp.roll(
             f32, torch.tensor([1]), 1)),
@@ -590,7 +713,7 @@ def _reject(kind: str):
 
 @pytest.mark.parametrize("kind", [
     "take_f64", "take_i64_idx", "take_rank4", "take_batch_axis",
-    "take_extent", "take_device", "take_empty", "take_block", "roll_f64",
+    "take_extent", "take_device", "take_empty", "roll_f64",
     "roll_shift_i64", "roll_shift_two", "roll_device", "plane_add_none",
     "plane_add_nine", "plane_add_shapes", "plane_add_int32", "plane_add_g0",
     "lane_prefix_rank3", "lane_prefix_wide", "lane_prefix_f64"])

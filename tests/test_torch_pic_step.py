@@ -28,6 +28,7 @@ from pinc_tpu.ops import pallas_tiled as pt
 from pinc_tpu.ops.tiled import TileSpec as JTileSpec
 from pinc_tpu.ops.tiled import bucket as jbucket
 from pinc_tpu.ops.tiled import pad_tiles as jpad
+from fixed_point_deposit import bf16, deposit_fixed
 from pinc_tpu_torch.ops import tiled_kernels as tk
 from pinc_tpu_torch.ops.tiled import TileSpec
 
@@ -184,33 +185,32 @@ def test_pic_step_rejects_bad_margins_and_devices(fixture):
 # ---------------------------------------------------------------------------
 
 BENCH_Q = -0.2 ** 2 / 32        # bench.py's electrons: -wp^2 / (32 per cell)
+#: deposit_scale's magnitudes: K5's |q_s| (bench.py's species, zeros), K2's
+#: |charge| (the fixture's), K1's vmax (0/1 values, the fixture's 1.3, and
+#: values far above and below 1)
 SCALE_CHARGES = {"bench": (BENCH_Q, -BENCH_Q), "bench_e": (BENCH_Q,),
                  "zero": (0.0,), "zeros": (0.0, 0.0),
-                 "one_zero": (BENCH_Q, 0.0)}
-
-
-def _bf16(a):
-    """float32 -> bf16 (round to nearest even) -> float32, in numpy."""
-    b = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
-    r = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
-    return r.astype(np.uint32).view(np.float32)
+                 "one_zero": (BENCH_Q, 0.0), "k2_fixture": (-1.7,),
+                 "k1_vmax_1": (1.0,), "k1_vmax_1.3": (1.3,),
+                 "k1_vmax_3e4": (3.0e4,), "k1_vmax_1e-30": (1e-30,)}
 
 
 @pytest.mark.parametrize("charges", list(SCALE_CHARGES))
 @pytest.mark.parametrize("B", [128, 17408, 1 << 20])
 def test_deposit_scale_never_overflows(B, charges):
     """tk.deposit_scale's (k, j): in the worst case of a tile (every slot
-    of every species on one node with weight products 1, each contribution
-    rounded up by bf16), the sum of the hi parts and the sum of the lo
-    parts (each |lo| <= 2^(j-1)) both stay below 2^31; k and j are the
-    largest of their rules, and k is finite (<= 126) when a charge or all
-    charges are 0."""
+    of every deposit on one node with weight products 1, each
+    contribution rounded up by bf16), the sum of the hi parts and the sum
+    of the lo parts (each |lo| <= 2^(j-1)) both stay below 2^31; k and j
+    are the largest of their rules, and k is finite (<= 126) when a
+    magnitude or all magnitudes are 0 or tiny.  K5 and K2 pass |q_s|, K1
+    its vmax."""
     q = SCALE_CHARGES[charges]
     k, j = tk.deposit_scale(q, B)
     assert -126 <= k <= 126 and 0 <= j <= 30
     scale = np.float32(2.0 ** k)
     assert np.isfinite(scale) and np.isfinite(np.float32(2.0 ** -k))
-    hi = sum(B * int(np.rint(_bf16(np.float32(abs(qs))) * scale))
+    hi = sum(B * int(np.rint(bf16(np.float32(abs(qs))) * scale))
              for qs in q)
     assert hi < 2 ** 31
     assert len(q) * B * 2 ** (j - 1) < 2 ** 31
@@ -221,54 +221,6 @@ def test_deposit_scale_never_overflows(B, charges):
         assert k == 126 or 2.0 ** (k + 1) * total > 2.0 ** tk.HI_BITS
     else:
         assert k == 126
-
-
-def _deposit_fixed(xn, alive, charge, ts, bf16, order=1, margins=None):
-    """numpy emulation of the kernel's deposit: each float32 contribution
-    c (wx*val and wy*wz rounded to bf16 as the kernel does), y = c 2^k,
-    hi = rint(y) and lo = rint((y - hi) 2^j) (ties to even), each summed
-    in int32 per node over every species; a node's value is
-    (hi + lo 2^-j) 2^-k in float64, rounded once to float32."""
-    S, _, NT, B = xn.shape
-    P, M, T = ts.P, ts.M, ts.T
-    k, j = tk.deposit_scale(charge, B)
-    scale, lo_scale = np.float32(2.0 ** k), np.float32(2.0 ** j)
-    rnd = _bf16 if bf16 else (lambda a: np.asarray(a, np.float32))
-    hi_sum = np.zeros(NT * P ** 3, np.int64)
-    lo_sum = np.zeros(NT * P ** 3, np.int64)
-    base = (np.arange(NT) * P ** 3)[:, None]
-    for s in range(S):
-        md = ts.M if margins is None else margins[s][1]
-        val = alive[s] * np.float32(charge[s])
-
-        def nodes(x):
-            f = np.floor(x)
-            out = []
-            for kk in (0, 1):
-                n = f + np.float32(kk)
-                d = x - n
-                w = (np.maximum(np.float32(0), np.float32(1) - np.abs(d))
-                     if order else ((d >= -0.5) & (d < 0.5)).astype(
-                         np.float32))
-                inside = (n >= -md) & (n <= T + md)
-                out.append((np.where(inside, n + M, 0).astype(np.int64),
-                            np.where(inside, w, np.float32(0))))
-            return out
-
-        nx, ny, nz = (nodes(xn[s, d]) for d in range(3))
-        for ia, wx in nx:
-            wa = rnd(wx * val)
-            for ib, wy in ny:
-                for ic, wz in nz:
-                    y = (wa * rnd(wy * wz)) * scale
-                    h = np.rint(y)
-                    idx = (base + (ia * P + ib) * P + ic).ravel()
-                    np.add.at(hi_sum, idx, h.astype(np.int64).ravel())
-                    np.add.at(lo_sum, idx, np.rint(
-                        (y - h) * lo_scale).astype(np.int64).ravel())
-    assert np.abs(hi_sum).max() < 2 ** 31 and np.abs(lo_sum).max() < 2 ** 31
-    v = hi_sum.astype(np.float64) + lo_sum.astype(np.float64) / 2.0 ** j
-    return (v * 2.0 ** -k).astype(np.float32).reshape(NT, P, P * P)
 
 
 def _fixed_case(f, dt, order, margins=None):
@@ -283,8 +235,9 @@ def _fixed_case(f, dt, order, margins=None):
                               _t(f["vel"]), _t(f["alive"]), f["charge"],
                               f["qm"], f["ts"], mxu_dtype=DTYPES[dt][1],
                               **kw)
-    emu = _deposit_fixed(plain[1].numpy(), f["alive"], f["charge"], f["ts"],
-                         dt == "bf16", order=od, margins=margins)
+    values = f["alive"] * np.float32(f["charge"])[:, None, None]
+    emu = deposit_fixed(plain[1].numpy(), values, f["charge"], f["ts"],
+                        dt == "bf16", order=od, margins=margins)
     return plain, [np.asarray(w) for w in want], emu
 
 
