@@ -7,7 +7,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    per source, all started together), and checks with cuobjdump that the
    density adds of pic_step, deposit and deposit_move compile to native
    integer shared atomics (ATOMS.ADD, no compare-and-swap loop) in every
-   instantiation.
+   instantiation, and that every instantiation of the exchange's
+   extract_kernel and cleanup_kernel holds 16-byte global loads and
+   stores (LDG/STG .128).
 2. Holds each kernel against its plain PyTorch version on the card and
    times both by CUDA events: deposit, deposit_move, gather, gather_kick at
    the test fixture's size and at the bench deck's production shape (128^3
@@ -32,7 +34,13 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    the CPU) and on the calls of one exchange at the one-hot decks'
    production shapes (4096 tiles, B = 7680 for the fused row exchange, B =
    6528 for the per-tile sweeps), each timed with its bound, then the
-   whole exchange.
+   whole exchange.  The fixture also holds the one-hot extracts and
+   cleanup on rows that start off a 16-byte boundary (B = 648, cleanup
+   rows of 18), where the kernels take a scalar head.  Last, the extract
+   and cleanup calls at the headline scan window's face cap (K = 512, M =
+   2, B = 17,408; the gather exchange, the one-hot rows and the per-tile
+   sweeps on one state), each against its plain version and timed with
+   its bound.
 3. Runs the CLI entry point, pinc_tpu_torch.__main__.main, on bench.py's
    deck (128^3, 2 x 67,108,864 particles, sSolve, puAcc3D1KE, puDistr3D1,
    tiles 8 / bf16 / slack 1.0625) with methods:layout=tiled: 20 steps with
@@ -192,10 +200,11 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0].strip()
 
 
-def shared_atomics(lib_path, kernel: str) -> dict:
-    """{SASS op: count} of the shared-memory atomics (ATOMS*) in each
-    instantiation of a kernel of the built library, by cuobjdump -sass
-    (beside nvcc); {mangled name: {op: count}}."""
+def sass_ops(lib_path, kernel: str, pattern: str) -> dict:
+    """{SASS op: count} of the instructions matching the regular
+    expression pattern in each instantiation of a kernel of the built
+    library, by cuobjdump -sass (beside nvcc); {mangled name: {op:
+    count}}."""
     import re
     from pinc_tpu_torch.ops import _cuda_build
     cuobjdump = os.path.join(os.path.dirname(_cuda_build.nvcc_path()),
@@ -211,10 +220,21 @@ def shared_atomics(lib_path, kernel: str) -> dict:
             if name:
                 out[name] = {}
         elif name:
-            op = re.search(r"\b(ATOMS\S*)", line)
+            op = re.search(pattern, line)
             if op:
                 out[name][op.group(1)] = out[name].get(op.group(1), 0) + 1
     return out
+
+
+def shared_atomics(lib_path, kernel: str) -> dict:
+    """The shared-memory atomics (ATOMS*) of each instantiation."""
+    return sass_ops(lib_path, kernel, r"\b(ATOMS\S*)")
+
+
+def wide_accesses(lib_path, kernel: str) -> dict:
+    """The 16-byte global loads and stores (LDG/STG ... .128) of each
+    instantiation."""
+    return sass_ops(lib_path, kernel, r"\b((?:LDG|STG)\.E\S*\.128)\b")
 
 
 def cuda_ms(fn, reps: int, warmup: int) -> float:
@@ -622,8 +642,8 @@ def capture_calls(mod, names: dict, run) -> dict:
 def capture_exchange(gx, ex, alive, planes, ntiles, T, K):
     """The kernel calls of one gather exchange."""
     return capture_calls(
-        gx, {"extract_compact_rows_g": "extract", "cleanup_rows_g": "cleanup",
-             "merge_rows_g": "merge"},
+        gx, {"extract_compact_rows_g": "extract", "cleanup_faces_g": "cleanup",
+             "cleanup_rows_g": "cleanup", "merge_rows_g": "merge"},
         lambda: ex.rebucket_exchange_planes(
             tuple(p.clone() for p in planes), alive.clone(), ntiles, T, K=K,
             rows=True))
@@ -661,11 +681,12 @@ def exchange_bytes(kind: str, args, out) -> float:
         return (alive.numel() * (12.0 if one_axis else 20.0)
                 + copied * (20.0 if one_axis else 12.0) + buf.numel() * 4.0)
     if kind in ("cleanup", "onehot_cleanup"):
+        # the outputs the call writes: settled (none for the fused
+        # exchange's first cleanup, cleanup_faces_g) and the extras
         inc = args[0]
-        settled, extras = out
         valid = float((inc[:, 6] > 0.5).sum())
         return (inc[:, 6].numel() * 4.0 + valid * 24.0
-                + (settled.numel() + sum(e.numel() for e in extras)) * 4.0)
+                + sum(t.numel() for t in leaves(out)) * 4.0)
     alive, inc = args[0], args[1]
     placed = float((out[1] > 0.5).sum() - (alive > 0.5).sum())
     if kind.startswith("onehot_merge"):
@@ -686,7 +707,7 @@ def time_calls(calls: dict, where: str, card: str, times: dict,
     bound from the bytes it must move; per kernel the mean over its
     calls."""
     for kind, recorded in calls.items():
-        ms = plain_ms = nbytes = 0.0
+        ms = plain_ms = nbytes = settled_bytes = 0.0
         for fn, plain, args in recorded:
             def fresh(args=args):
                 return fresh_copy(args)
@@ -695,6 +716,9 @@ def time_calls(calls: dict, where: str, card: str, times: dict,
             check(len(got) == len(want) and all(map(equal, got, want)),
                   f"{kind} at {where}: differs from its plain version")
             nbytes += exchange_bytes(kind, args, out)
+            if fn.__name__ == "cleanup_faces_g":
+                # the settled output it no longer writes (inc's shape)
+                settled_bytes += args[0].numel() * 4.0
             if "merge" in kind:
                 ms += cuda_ms_fresh(fresh, fn, reps=10)
                 plain_ms += cuda_ms_fresh(fresh, plain, reps=2)
@@ -704,10 +728,13 @@ def time_calls(calls: dict, where: str, card: str, times: dict,
         n = len(recorded)
         times[kind] = (ms / n, plain_ms / n)
         bounds[kind] = bound_ms(nbytes / n)
+        old = (f" (with the settled output of its first call, as before: "
+               f"{bound_ms((nbytes + settled_bytes) / n):.4f} ms)"
+               if settled_bytes else "")
         print(f"  time {kind} at {where} (mean of {n} call(s) of one "
               f"electron exchange): kernel {ms / n:.4f} ms, plain "
-              f"{plain_ms / n:.4f} ms, bound {bounds[kind]:.4f} ms ({card})",
-              flush=True)
+              f"{plain_ms / n:.4f} ms, bound {bounds[kind]:.4f} ms{old}, "
+              f"{bounds[kind] / (ms / n):.1%} of it ({card})", flush=True)
 
 
 def check_exchange_bench(gx, ex, prod, gen, dev, card: str, times: dict,
@@ -853,6 +880,20 @@ def check_onehot_fixture(ox, gx, ex, gen, dev) -> None:
         placed = float(outs[0][0].sum() - room.sum())
         check(0 < placed < float(inc[:, 6].sum()),
               f"one-hot {name}, fixture: expected drops, placed {placed}")
+    # rows that start off a 16-byte boundary (L = 81; cleanup rows of 18
+    # and edge rows of 3): the extract's and the cleanup's scalar heads
+    alive_p, planes_p = onehot_fixture(gen, dev, 648)
+    for d in range(3):
+        both(f"extract_fused B=648 d={d}", ox.extract_fused,
+             ox.extract_fused_plain, planes_p[d], alive_p, planes_p, 32, 4)
+        both(f"extract_rows B=648 d={d}", ox.extract_rows,
+             ox.extract_rows_plain, planes_p[d], alive_p, planes_p, 16, 4)
+    b6p = both("extract_all_rows B=648", ox.extract_all_rows,
+               ox.extract_all_rows_plain, planes_p, alive_p, 16, 4)[0]
+    inc_p = b6p[..., 14:32].contiguous()       # the xm run's tail, xp's head
+    for axes in ((1, 2), (2,)):
+        both(f"cleanup_rows W=18 {axes}", ox.cleanup_rows,
+             ox.cleanup_rows_plain, inc_p, 18, 3, 4, axes)
     for B in (100, 2100):                      # the ranked (B % 8 != 0) modes
         alive_b, planes_b = onehot_fixture(gen, dev, B)
         al = alive_b > 0.5
@@ -903,8 +944,9 @@ def check_onehot_fixture(ox, gx, ex, gen, dev) -> None:
               and all(same_bits(g.cpu(), c) for g, c in zip(pg, pc)),
               f"one-hot driver {name}, fixture: card and CPU differ")
     torch.cuda.synchronize()
-    print("  one-hot exchange fixture (8 tiles x 640, 100 and 2100; caps, "
-          "edge caps and rows overflowing): ok (bit-equal)", flush=True)
+    print("  one-hot exchange fixture (8 tiles x 640, 648, 100 and 2100; "
+          "caps, edge caps and rows overflowing; rows off a 16-byte "
+          "boundary): ok (bit-equal)", flush=True)
 
 
 def check_onehot_bench(ox, ex, gen, dev, card: str, times: dict,
@@ -958,6 +1000,45 @@ def check_onehot_bench(ox, ex, gen, dev, card: str, times: dict,
               flush=True)
         del alive, planes
         torch.cuda.empty_cache()
+
+
+def check_headline_cap(gx, ox, ex, gen, dev, card: str) -> None:
+    """Phase 2, the headline scan window's exchange (phase 5's deck: M =
+    2, B = 17,408, face cap K = 512; electrons with velocities N(0, 0.1)
+    moved by one 4-step cadence): the extract and cleanup calls of one
+    gather exchange (Ks = 128, KU = 384, Ke = 128) and, on the same state,
+    of the one-hot row exchange (tiles:exchangeImpl=onehot: Ks = 128, Ke
+    = 32) and the per-tile one-hot sweeps (K = 512), each against its
+    plain version and timed with its bound.  Printed only: the kernels
+    line keeps the deck shapes above."""
+    import torch
+    from pinc_tpu_torch.ops.tiled import TileSpec
+    ts = TileSpec(grid=(128, 128, 128), T=8, M=2, B=17408)
+    alive, planes = bench_species(ts, gen, dev, 0.1, 4, -1.0 / 32)
+    routes = {
+        "gather": (gx, {"extract_compact_rows_g": "extract",
+                        "cleanup_faces_g": "cleanup",
+                        "cleanup_rows_g": "cleanup"},
+                   dict(rows=True), same),
+        "onehot rows": (ox, {"extract_all_rows": "onehot_extract_rows",
+                             "cleanup_rows": "onehot_cleanup"},
+                        dict(rows=True, impl="onehot"), same_bits),
+        "onehot tile": (ox, {"extract_fused": "onehot_extract_tile"},
+                        dict(rows=False), same_bits),
+    }
+    for route, (mod, names, kw, equal) in routes.items():
+        # a function the package lacks is skipped, so that the same phase
+        # can time an earlier version of the package
+        names = {n: k for n, k in names.items() if hasattr(mod, n)}
+        calls = capture_calls(mod, names, lambda: ex.rebucket_exchange_planes(
+            tuple(p.clone() for p in planes), alive.clone(), ts.ntiles, ts.T,
+            K=512, **kw))
+        time_calls(calls, f"{ts.NT}x{ts.B} M=2, the headline window's face "
+                   f"cap 512 ({route})", card, {}, {}, equal=equal)
+        del calls
+        torch.cuda.empty_cache()
+    del alive, planes
+    torch.cuda.empty_cache()
 
 
 def onehot_deck(route: str) -> str:
@@ -1476,6 +1557,22 @@ def main() -> int:
           f"instantiation {sorted({tuple(o.items()) for o in k5.values()})}"
           f"; deposit and deposit_move's "
           f"{sorted({tuple(o.items()) for o in k12.values()})}", flush=True)
+    # the exchange's extract and cleanup walk rows in 16-byte lane groups:
+    # every instantiation must load and store 16 bytes at a time (extract:
+    # 3 kinds x (K8's R = 8, K11's R = 8 and 1); cleanup: 3 axes tuples x
+    # bit copies or x + 0.0)
+    for kernel, count in (("extract_kernel", 9), ("cleanup_kernel", 6)):
+        got = wide_accesses(lib, kernel)
+        check(len(got) == count and all(
+            any(op.startswith("LDG") for op in ops)
+            and any(op.startswith("STG") for op in ops)
+            for ops in got.values()),
+              f"{kernel}'s {count} instantiations do not all hold 16-byte "
+              f"global loads and stores: {got}")
+        print(f"phase 1 SASS (cuobjdump): {kernel}'s 16-byte global "
+              f"accesses per instantiation "
+              f"{sorted({tuple(sorted(o.items())) for o in got.values()})}",
+              flush=True)
 
     # -- phase 2: kernels vs plain versions on the card -------------------
     print(f"phase 2 kernels vs plain (deposit err <= {DEPOSIT_RTOL}*max, "
@@ -1605,6 +1702,7 @@ def main() -> int:
     check_exchange_bench(gx, ex, prod, gen, dev, card, times, bounds)
     check_onehot_fixture(ox, gx, ex, gen, dev)
     check_onehot_bench(ox, ex, gen, dev, card, times, bounds)
+    check_headline_cap(gx, ox, ex, gen, dev, card)
     # the exchange kernels are checked bit-equal (bit pattern for K11)
     errs.update({k: 0.0 for m in (gx, ox) for k in m.LAUNCHES})
 

@@ -30,65 +30,119 @@ namespace {
 // every remaining axis, cap W), then minus/plus of each remaining axis in
 // order (cap Ke each); the first axis a column is out of wins.  The
 // remaining axes are (3 - NAX, ..., 2), the tuples the drivers use.  Any
-// W and Ke; CANON copies as stored<true> (the one-hot cleanup_rows).
-// Bound: bytes: the flag plane is read, a valid column reads 7 floats and
-// writes 7, and every output is written once (entries or zeros).
+// W and Ke; CANON copies as stored<true> (the one-hot cleanup_rows).  A
+// null settled output (outs.p[0]) is neither written nor zeroed: the
+// first cleanup of the fused exchange, whose columns are all out on some
+// axis.
+// Bound: bytes: the flag plane is read, a valid column reads 6 more floats
+// and writes 7, and every output is written once (entries or zeros); the
+// zero tails are most of it.  Design: the extract's (RowWalk, rank_class,
+// fill_segments): a ranking pass loads each lane's 4 columns of the flags
+// and of the remaining axes' coordinates with 16-byte loads, issued
+// together, the next chunk's in flight while a chunk is ranked, and a valid
+// column writes only its column index into its output's flag entry; then
+// the fill pass writes every output entry once with 16-byte stores,
+// gathering the valid columns' 7 values from the row just read (L2) with
+// all the block's warps, zeros beyond each count, so that a short row's
+// tails do not wait on the longest row.  A row whose start is not 16-byte
+// aligned (W % 4 != 0) takes a scalar head.
+template <int NAX>
+struct CleanupGroup {
+  int off, n;
+  float f[kVec];
+  float c[NAX][kVec];   // the remaining axes' coordinates
+};
+
+// 4 blocks an SM (64 registers): faster on the card than the 3 that 80
+// registers allow NAX = 3.
 template <int NAX, bool CANON>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 cleanup_kernel(const float* __restrict__ inc, Outs outs, int W, int Ke,
                float T) {
   constexpr int NCLS = 1 + 2 * NAX;
+  using G = CleanupGroup<NAX>;
+  __shared__ int counts[kRows][NCLS];
   const int row = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1u;
-  const long long tile_row = (long long)blockIdx.x * kNPay * kRows + row;
+  const long long tile_row0 = (long long)blockIdx.x * kNPay * kRows;
   const long long ipstride = (long long)kRows * W;
-  const float* in = inc + tile_row * W;
+  const float* in = inc + (tile_row0 + row) * W;
+  // the payload rows lie 32 W bytes apart: one alignment for all seven
+  const RowWalk walk(in, W);
   int run[NCLS];
 #pragma unroll
   for (int c = 0; c < NCLS; ++c) run[c] = 0;
-  for (int c0 = 0; c0 < W; c0 += 32) {
-    const int j = c0 + lane;
-    const bool valid = j < W && in[6 * ipstride + j] > 0.5f;
-    if (!__any_sync(kFull, valid)) continue;
-    int cls = -1;
-    if (valid) {
-      cls = 0;
+
+  walk_pipelined<G>(
+      walk.first, walk.end,
+      [&](G& g, int c) {
+        walk.group(c, lane, &g.off, &g.n);
+        load4(g.f, in + 6 * ipstride + g.off, g.n);
 #pragma unroll
-      for (int a = 0; a < NAX; ++a) {
-        const float cc = in[(3 - NAX + a) * ipstride + j];
-        if (cc < 0.0f) {
-          cls = 1 + 2 * a;
-          break;
-        }
-        if (cc >= T) {
-          cls = 2 + 2 * a;
-          break;
-        }
-      }
-    }
+        for (int a = 0; a < NAX; ++a)
+          load4(g.c[a], in + (3 - NAX + a) * ipstride + g.off, g.n);
+      },
+      [&](const G& g) {
+        int cls[kVec];
+        bool any = false;
 #pragma unroll
-    for (int c = 0; c < NCLS; ++c) {
-      const unsigned m = __ballot_sync(kFull, cls == c);
-      if (cls == c) {
-        const int cap = c == 0 ? W : Ke;
-        const int rank = run[c] + __popc(m & lt);
-        if (rank < cap) {
-          const long long opstride = (long long)kRows * cap;
-          float* dst = outs.p[c] + tile_row * cap + rank;
+        for (int j = 0; j < kVec; ++j) {
+          cls[j] = -1;
+          if (g.f[j] > 0.5f) {
+            any = true;
+            cls[j] = 0;
 #pragma unroll
-          for (int p = 0; p < kNPay; ++p)
-            dst[p * opstride] = stored<CANON>(in[p * ipstride + j]);
+            for (int a = 0; a < NAX; ++a) {
+              if (g.c[a][j] < 0.0f) {
+                cls[j] = 1 + 2 * a;
+                break;
+              }
+              if (g.c[a][j] >= T) {
+                cls[j] = 2 + 2 * a;
+                break;
+              }
+            }
+          }
         }
-      }
-      run[c] += __popc(m);
-    }
+        if (!__any_sync(kFull, any)) return;
+#pragma unroll
+        for (int c = 0; c < NCLS; ++c)
+          rank_class(cls, c, lt, &run[c], [&](int j, int rank) {
+            const int cap = c == 0 ? W : Ke;
+            if (rank < cap && outs.p[c] != nullptr)
+              outs.p[c][(tile_row0 + 6 * kRows + row) * cap + rank] =
+                  __int_as_float(g.off + j);
+          });
+      });
+
+  // the outputs' table in shared memory: the fill indexes it by a class
+  // known only at run time, which would copy the parameter to local memory
+  __shared__ float* outp[NCLS];
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < NCLS; ++c) counts[row][c] = run[c];
   }
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int c = 0; c < NCLS; ++c) {
-    const int cap = c == 0 ? W : Ke;
-    zero_tail(outs.p[c] + tile_row * cap, (long long)kRows * cap,
-              min(run[c], cap), cap, lane, 32);
+    for (int c = 0; c < NCLS; ++c) outp[c] = outs.p[c];
   }
+  __syncthreads();
+  fill_segments(
+      kRows * NCLS, max(W, Ke),
+      [&](int s, float** o, long long* ps, int* n, int* cap) {
+        const int r = s / NCLS, c = s - r * NCLS;
+        if (outp[c] == nullptr) return false;
+        const int w = c == 0 ? W : Ke;
+        *o = outp[c] + (tile_row0 + r) * w;
+        *ps = (long long)kRows * w;
+        *n = min(counts[r][c], w);
+        *cap = w;
+        return true;
+      },
+      [&](int s, int q, int j) {
+        return stored<CANON>(
+            inc[(tile_row0 + s / NCLS) * W + q * ipstride + j]);
+      });
 }
 
 // K9.  Replaces _merge_g_kernel.  Pass 0: row r's free slots (alive <=
@@ -195,6 +249,7 @@ int pinc_gx_extract(const float* alive, const float* x, const float* y,
                                       NT, B, Ks, T, (cudaStream_t)stream);
 }
 
+// settled may be null: no settled output is written.
 int pinc_gx_cleanup(const float* inc, float* settled, float* e0, float* e1,
                     float* e2, float* e3, float* e4, float* e5, int NT, int W,
                     int Ke, int naxes, int canon, float T, void* stream) {

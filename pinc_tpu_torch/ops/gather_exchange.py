@@ -274,14 +274,19 @@ def _extract(alive, planes, kind: int, Ks: int, T: int):
     B/slot for one axis, 16 for all axes) and alive written (4 B/slot),
     plus 24 B read and 28 B written per leaver and the zero tail of the
     buffer.  Design: one block per tile, one warp per row walking its L
-    slots in 32-slot chunks; ranks by ballot/popc with the run carried in
-    registers, velocities read only for leavers."""
+    slots in 128-slot chunks, 4 slots a lane: 16-byte loads of alive and
+    the classifier planes, the next chunk's in flight while a chunk is
+    ranked, a 16-byte store of alive; slot-order ranks from four ballots a
+    class with the run carried in registers, a leaver writing only its
+    slot into its buffer column; then the whole block fills the buffer:
+    the leavers' values gathered by slot, zeros beyond, 16-byte stores."""
     dev = alive.device
     NT, B = _check_planes(alive, planes, dev)
     if Ks % 128:
         raise ValueError(f"the extract cap must be a multiple of 128, got {Ks}")
     if _is_cpu(alive, "extract"):
         return _extract_plain(alive, planes, kind, Ks, T)
+    check_aligned16(alive=alive, **classifier_planes(planes, kind))
     n_cls = {_ALL: 6, _ANY: 1}.get(kind, 2)
     buf = torch.empty((NT, NPAY, 8, n_cls * Ks), dtype=torch.float32,
                       device=dev)
@@ -323,17 +328,39 @@ def cleanup_rows_g(inc: torch.Tensor, Ke: int, T: int, axes):
     (NT, 7, 8, W), tuple of 2*len(axes) extras (NT, 7, 8, Ke)).
 
     Replaces pinc_tpu/ops/pallas_gather_exchange.py ``cleanup_rows_g``.
-    Bound on the card: bytes — the flag plane read, 28 B read per valid
+    Bound on the card: bytes — the flag plane read, 24 B read per valid
     column and every output written once.  Design: one block per tile, one
-    warp per row, ballot/popc ranks; one template per axes tuple the
-    drivers use: (0, 1, 2), (1, 2) and (2,)."""
-    axes = tuple(axes)
+    warp per row in 128-column chunks, 4 columns a lane: 16-byte loads of
+    the flags and the remaining axes' coordinates, the next chunk's in
+    flight; slot-order ranks from four ballots a class, a valid column
+    writing only its index into its output; then the whole block fills
+    the outputs: the valid columns' 7 values gathered from the row, zeros
+    beyond, 16-byte stores.  One template per axes tuple the exchanges
+    use: (0, 1, 2), (1, 2) and (2,)."""
+    return _cleanup(inc, Ke, T, tuple(axes), settled=True)
+
+
+def cleanup_faces_g(inc: torch.Tensor, Ks: int, T: int):
+    """K10 as the first cleanup of rebucket_exchange_all_rows_g: inc is the
+    compact extract's buffer, whose valid columns are all out on some axis,
+    so cleanup_rows_g(inc, Ks, T, (0, 1, 2)) leaves its settled output
+    empty; the kernel neither computes nor writes it.  Returns the six face
+    buffers (NT, 7, 8, Ks) [xm, xp, ym, yp, zm, zp]."""
+    return _cleanup(inc, Ks, T, (0, 1, 2), settled=False)[1]
+
+
+def cleanup_faces_g_plain(inc: torch.Tensor, Ks: int, T: int):
+    return cleanup_rows_g_plain(inc, Ks, T, (0, 1, 2))[1]
+
+
+def _cleanup(inc: torch.Tensor, Ke: int, T: int, axes, settled: bool):
     W = _check_inc(inc)
     if W % 128 or Ke % 128:
         raise ValueError(f"W and Ke must be multiples of 128, got {W}, {Ke}")
     if _is_cpu(inc, "cleanup"):
         return cleanup_rows_g_plain(inc, Ke, T, axes)
-    return launch_cleanup(inc, Ke, T, axes, False, "cleanup", LAUNCHES)
+    return launch_cleanup(inc, Ke, T, axes, False, "cleanup", LAUNCHES,
+                          settled=settled)
 
 
 def _check_inc(inc: torch.Tensor) -> int:
@@ -344,27 +371,48 @@ def _check_inc(inc: torch.Tensor) -> int:
     return inc.shape[-1]
 
 
+def classifier_planes(planes, kind: int) -> dict:
+    """The planes an extract of this kind classifies on, by name: the
+    coordinate plane of one axis (kind 0, 1, 2), else x, y and z."""
+    axes = (kind,) if kind in (0, 1, 2) else (0, 1, 2)
+    return {f"planes[{d}]": planes[d] for d in axes}
+
+
+def check_aligned16(**tensors) -> None:
+    """The extract kernels load and store alive, its classifier planes and
+    the new alive in 16-byte groups that start at the same slot in each:
+    the inputs must start on a 16-byte boundary, as a fresh allocation and
+    a (NT, B) plane of a stacked state with B % 4 == 0 do."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"(the kernel's 16-byte loads), got address "
+                             f"{t.data_ptr():#x}")
+
+
 def launch_cleanup(inc: torch.Tensor, Ke: int, T: int, axes, canon: bool,
-                   name: str, counts: dict):
+                   name: str, counts: dict, settled: bool = True):
     """Launch K10 on CUDA tensors (any W and Ke), adding one to
     counts[name]: the kernel of cleanup_rows_g and of the one-hot
-    exchange's cleanup_rows (canon)."""
+    exchange's cleanup_rows (canon).  settled=False: no settled output is
+    written, and None is returned in its place."""
     if axes not in ((0, 1, 2), (1, 2), (2,)):
         raise ValueError(f"the cleanup kernel takes axes (0, 1, 2), (1, 2) "
                          f"or (2,), got {axes}")
     NT, _, _, W = inc.shape
     dev = inc.device
-    settled = torch.empty_like(inc)
+    out = torch.empty_like(inc) if settled else None
     extras = [torch.empty((NT, NPAY, 8, Ke), dtype=torch.float32, device=dev)
               for _ in range(2 * len(axes))]
     ptrs = [_ptr(e) for e in extras] + [ctypes.c_void_p(None)] * (
         6 - len(extras))
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
-        _launch(name, lib.pinc_gx_cleanup, _ptr(inc), _ptr(settled),
+        _launch(name, lib.pinc_gx_cleanup, _ptr(inc),
+                ctypes.c_void_p(None) if out is None else _ptr(out),
                 *ptrs, NT, W, Ke, len(axes), int(canon), float(T),
                 _stream(dev), counts=counts)
-    return settled, tuple(extras)
+    return out, tuple(extras)
 
 
 def merge_rows_g(alive: torch.Tensor, inc: torch.Tensor, planes, blocks):
@@ -466,7 +514,7 @@ def rebucket_exchange_all_rows_g(planes, alive: torch.Tensor,
 
     KU = round_cap(KU) if KU else total_cap(Ks)
     bufs, alive2 = extract_compact_rows_g(alive, planes, KU, T)
-    _, face6 = cleanup_rows_g(bufs, Ks, T, axes=(0, 1, 2))
+    face6 = cleanup_faces_g(bufs, Ks, T)
     del bufs
     face = [f.reshape(nt + (NPAY, 8, Ks)) for f in face6]
 

@@ -290,6 +290,9 @@ def _extract(name, coord, alive, planes, kind: int, R: int, K: int, T: int):
         raise ValueError(f"the extract cap must be positive, got {K}")
     if _is_cpu(alive, name):
         return _extract_plain(coord, alive, planes, kind, R, K, T)
+    gx.check_aligned16(alive=alive, **({"coord": coord} if coord is not None
+                                       else gx.classifier_planes(planes,
+                                                                 kind)))
     dev = alive.device
     n_cls = 6 if kind == _ALL else 2
     buf = torch.empty((NT, NPAY, R, n_cls * K), dtype=torch.float32,
@@ -318,7 +321,9 @@ def extract_fused(coord: torch.Tensor, alive: torch.Tensor, planes, K: int,
     B/slot), 24 B read and 28 B written per copied leaver, the buffer's
     zero tail.  Design: one block per tile, one warp per 1/8 of it; a
     counting pass gives each warp the tile-wide rank its slots start from,
-    then ballot/popc ranks as in K8."""
+    then the ranks of K8's kernel: 16-byte lane groups of 4 slots (a
+    scalar head and a short last group where a warp's slice does not start
+    on a 16-byte boundary, B % 32 != 0), four ballots a class."""
     return _extract("onehot_extract_tile", coord, alive, planes, _DIM_KIND,
                     1, K, T)
 
@@ -330,7 +335,9 @@ def extract_rows(coord: torch.Tensor, alive: torch.Tensor, planes, Ks: int,
 
     Kernel onehot_extract_rows, replaces pallas_exchange.extract_rows.
     Bound on the card: bytes, as extract_fused.  Design: K8's kernel
-    (exchange_common.cuh), one warp per row, copies x + 0.0."""
+    (exchange_common.cuh), one warp per row in 16-byte lane groups (a
+    scalar head where a row does not start on a 16-byte boundary, B % 32
+    != 0), copies x + 0.0."""
     return _extract("onehot_extract_rows", coord, alive, planes, _DIM_KIND,
                     8, Ks, T)
 

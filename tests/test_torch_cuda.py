@@ -415,6 +415,11 @@ def test_exchange_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError, match="is on"):
         gx.merge_rows_g(alive, torch.zeros((8, 7, 8, 128)), planes,
                         ((0, 128),))
+    # the extract's 16-byte loads: a plane one float past a boundary
+    shifted = torch.zeros(8 * 2048 + 1, device=cuda)[1:].view(8, 2048)
+    with pytest.raises(ValueError, match="16-byte"):
+        gx.extract_rows_g(1, alive, (planes[0], shifted) + planes[2:], 128,
+                          4)
 
 
 def _onehot_fixture(dev, seed=0, B=640):
@@ -588,6 +593,118 @@ def test_onehot_wrappers_check_their_inputs(cuda):
     alive, planes = _onehot_fixture(cuda)
     with pytest.raises(ValueError, match="is on"):
         ox.merge_fused(alive, torch.zeros((8, 7, 1, 64)), planes, 32)
+
+
+# extract_kernel and cleanup_kernel walk rows in 16-byte lane groups: rows
+# that start on a 16-byte boundary (the gather exchange's B = 17,408, the
+# one-hot B = 7680) and rows that do not (L = 81, 83: a scalar head and a
+# short last group), tile 0 flooded past the caps (tests/
+# test_torch_exchange_vec.py emulates the arithmetic on the CPU)
+VEC_ROWS = {"aligned_L2176": 17408, "aligned_L960": 7680,
+            "peeled_L81": 648, "peeled_L83": 664}
+
+
+def _vec_state(dev, B, flood, seed=4):
+    """8 tiles, 80% alive over [-1.5, 5.5); the first `flood` slots of
+    every row of tile 0 leave through -x; every 7th vy is -0.0."""
+    rng = np.random.default_rng(seed)
+    alive = (rng.uniform(size=(8, B)) < 0.8).astype(np.float32)
+    planes = [rng.uniform(-1.5, 5.5, (8, B)).astype(np.float32)
+              for _ in range(3)]
+    planes += [rng.normal(size=(8, B)).astype(np.float32) for _ in range(3)]
+    planes[0][0].reshape(8, B // 8)[:, :flood] = -0.5
+    alive[0].reshape(8, B // 8)[:, :flood] = 1.0
+    planes[4][:, ::7] = -0.0
+    return (torch.from_numpy(alive).to(dev),
+            tuple(torch.from_numpy(p).to(dev) for p in planes))
+
+
+def _vec_runs(dev, W_run, n_runs, seed=5):
+    """A cleanup input (8, 7, 8, n_runs * W_run): each row's runs a valid
+    prefix of random length over [-1.5, 5.5), zeros beyond."""
+    rng = np.random.default_rng(seed)
+    inc = np.zeros((8, 7, 8, W_run * n_runs), np.float32)
+    for t in range(8):
+        for r in range(8):
+            for b in range(n_runs):
+                n = int(rng.integers(0, W_run + 1))
+                cols = slice(b * W_run, b * W_run + n)
+                inc[t, :3, r, cols] = rng.uniform(-1.5, 5.5, (3, n))
+                inc[t, 3:6, r, cols] = rng.normal(size=(3, n))
+                inc[t, 6, r, cols] = 1.0
+    return torch.from_numpy(inc).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(VEC_ROWS))
+def test_vec_extracts_match_plain(cuda, shape):
+    """Every extract_kernel instantiation the wrappers launch, bit pattern
+    for bit pattern: K8's (R = 8) where B % 1024 == 0, K11's (R = 8 and
+    1) at every shape."""
+    B = VEC_ROWS[shape]
+    alive, planes = _vec_state(cuda, B, flood=min(B // 8, 200))
+    before = {**gx.LAUNCHES, **ox.LAUNCHES}
+    calls = [(ox.extract_fused, ox.extract_fused_plain, (planes[d], alive,
+                                                         planes, 32, 4))
+             for d in range(3)]
+    calls += [(ox.extract_rows, ox.extract_rows_plain, (planes[d], alive,
+                                                        planes, 16, 4))
+              for d in range(3)]
+    calls.append((ox.extract_all_rows, ox.extract_all_rows_plain,
+                  (planes, alive, 16, 4)))
+    if gx.supported(B):
+        calls += [(gx.extract_rows_g, gx.extract_rows_g_plain,
+                   (d, alive, planes, 128, 4)) for d in range(3)]
+        calls += [(f, fp, (alive, planes, 128, 4)) for f, fp in (
+            (gx.extract_all_rows_g, gx.extract_all_rows_g_plain),
+            (gx.extract_compact_rows_g, gx.extract_compact_rows_g_plain))]
+    for kern, plain, args in calls:
+        b, a2 = kern(*args)
+        br, a2r = plain(*args)
+        assert _bits_equal(b, br) and _bits_equal(a2, a2r), kern.__name__
+    # tile 0's first run overflows its cap
+    b, _ = ox.extract_rows(planes[0], alive, planes, 16, 4)
+    assert float(b[0, 6, :, :16].sum()) == 8 * 16
+    torch.cuda.synchronize()
+    after = {**gx.LAUNCHES, **ox.LAUNCHES}
+    assert after["onehot_extract_tile"] - before["onehot_extract_tile"] == 3
+    assert after["onehot_extract_rows"] - before["onehot_extract_rows"] == 5
+    assert after["extract"] - before["extract"] == (5 if gx.supported(B)
+                                                    else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W_run, n_runs, Ke", [(128, 3, 128), (64, 2, 16),
+                                               (9, 2, 3), (65, 2, 5)],
+                         ids=["aligned_W384", "aligned_W128", "peeled_W18",
+                              "peeled_W130"])
+def test_vec_cleanups_match_plain(cuda, W_run, n_runs, Ke):
+    """cleanup_kernel, bit pattern for bit pattern: K10 (bit copies) at a
+    width of 128s, K11's (x + 0.0) at every width; the fused exchange's
+    first cleanup (no settled output) against the plain version's
+    extras; edge caps overflowing."""
+    inc = _vec_runs(cuda, W_run, n_runs)
+    W = W_run * n_runs
+    before = {**gx.LAUNCHES, **ox.LAUNCHES}
+    for axes in ((0, 1, 2), (1, 2), (2,)):
+        st, e = ox.cleanup_rows(inc, W, Ke, 4, axes)
+        sr, er = ox.cleanup_rows_plain(inc, W, Ke, 4, axes)
+        assert _bits_equal(st, sr) and all(map(_bits_equal, e, er)), axes
+        if W % 128 == 0 and Ke % 128 == 0:
+            st, e = gx.cleanup_rows_g(inc, Ke, 4, axes)
+            sr, er = gx.cleanup_rows_g_plain(inc, Ke, 4, axes)
+            assert _bits_equal(st, sr) and all(map(_bits_equal, e, er))
+    if W % 128 == 0 and Ke % 128 == 0:
+        faces = gx.cleanup_faces_g(inc, Ke, 4)
+        want = gx.cleanup_rows_g_plain(inc, Ke, 4, (0, 1, 2))[1]
+        assert len(faces) == 6 and all(map(_bits_equal, faces, want))
+    if Ke < W_run:
+        assert float(er[0][:, 6].sum(-1).max()) == Ke     # overflow
+    torch.cuda.synchronize()
+    after = {**gx.LAUNCHES, **ox.LAUNCHES}
+    assert after["onehot_cleanup"] - before["onehot_cleanup"] == 3
+    assert after["cleanup"] - before["cleanup"] == (
+        4 if W % 128 == 0 and Ke % 128 == 0 else 0)
 
 
 # the kernel benchmark's variants: tests/test_torch_kbench.py's fixture

@@ -124,8 +124,8 @@ def _compact_buffer():
 @pytest.mark.parametrize("axes", [(0, 1, 2), (1, 2), (2,)])
 def test_cleanup_matches_pinc_tpu(axes):
     buf, _, _ = _compact_buffer()
-    js, je = pgx.cleanup_rows_g(jnp.asarray(buf.numpy()), 128, T, axes,
-                                interpret=True)
+    js, je = _jax("cleanup", pgx.cleanup_rows_g, Ke=128, T=T, axes=axes)(
+        jnp.asarray(buf.numpy()))
     ts, te = gx.cleanup_rows_g(buf, 128, T, axes)
     _eq(ts, js)
     assert len(te) == len(je) == 2 * len(axes)
@@ -255,6 +255,45 @@ def test_full_tile_drops_match():
     lp[src, :50, 0] = 4.25
     alive, planes = _planes_of(lp, lv, la)
     assert _run_both(alive, planes)[2] == 50
+
+
+def _bench_like_state(seed=5, n=8 * 1800):
+    """The bench deck's electrons at this module's layout: uniform
+    particles filling 88% of the slots, velocities N(0, 0.02) cells a step,
+    moved by one 10-step re-bucket cadence."""
+    ts = JTileSpec(grid=GRID, T=T, M=1, B=B)
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, GRID[0], (n, 3)).astype(np.float32)
+    vel = rng.normal(0, 0.02, (n, 3)).astype(np.float32)
+    lp, lv, la, _ = jbucket(jnp.asarray(pos), jnp.asarray(vel),
+                            jnp.ones(n, bool), ts)
+    assert int(np.asarray(la).sum()) == n
+    lp = np.asarray(lp) + 10.0 * np.asarray(lv) * np.asarray(la)[..., None]
+    return _planes_of(lp, np.asarray(lv), np.asarray(la))
+
+
+@pytest.mark.parametrize("state", ["fixture", "bench_like"])
+def test_first_cleanup_settles_nothing(state):
+    """The fused exchange's first cleanup splits the compact extract into
+    the six faces.  Every valid column of that buffer is out on some axis,
+    so pinc_tpu's settled output holds no valid column; the port's
+    cleanup_faces_g, whose kernel writes no settled output, gives the same
+    faces, and the port's fused exchange the same planes, alive and
+    drops."""
+    alive, planes = _rows_state() if state == "fixture" \
+        else _bench_like_state()
+    _, (ta, tp) = _both(alive, planes)
+    Ks = gx.round_cap(ox.default_row_cap(K, B))
+    buf, _ = gx.extract_compact_rows_g(ta, tp, gx.total_cap(Ks, K), T)
+    js, je = _jax("cleanup", pgx.cleanup_rows_g, Ke=Ks, T=T,
+                  axes=(0, 1, 2))(jnp.asarray(buf.numpy()))
+    assert float(buf[:, 6].sum()) > 0
+    assert not (np.asarray(js)[:, 6] > 0.5).any()
+    faces = gx.cleanup_faces_g(buf, Ks, T)
+    assert len(faces) == len(je) == 6
+    for mine, theirs in zip(faces, je):
+        _eq(mine, theirs)
+    _run_both(alive, planes)
 
 
 # ---------------------------------------------------------------------------
