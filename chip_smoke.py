@@ -24,7 +24,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    bit); the exchange kernels extract, cleanup and merge at the fixture
    size (with forced overflow, spill and drops) and at the production
    shape, on the calls one whole exchange makes on a bucketed state moved
-   by one K2 drift of bench-like velocities (bit for bit).  It also times
+   by one K2 drift of bench-like velocities (bit for bit), the merge also
+   with rows 0-3 of every tile full (its spill passes in every tile); each
+   merge prints how many tiles it found with leftovers.  It also times
    one whole exchange re-bucket per species, and the electrons' through
    the one-hot exchange (tiles:exchangeImpl=onehot) in turns with the
    gather.  The one-hot exchange kernels (K11: extract, cleanup and merge
@@ -54,7 +56,8 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    after), that the state stayed on the card, that no particle was
    dropped, and that the energies are finite and conserved; particles
    reaching the margin (re-bucketed early) are allowed on the one-hot
-   decks only.
+   decks only.  The gather run and phase 5's warm windows also count the
+   merge calls and tiles whose spill passes run.
 4. Times each part of one step of the exchange run (the two kernel pairs,
    the K7 fold, FFT solve, gradient, E padding, state stacking, and each
    species' exchange and sort re-bucket of a state moved by one cadence)
@@ -102,6 +105,7 @@ production row named in PRIM_ROWS, None for the others); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -441,6 +445,7 @@ def time_step_and_field(tk, fk, ts, gen, dev, card: str, charge, qm,
     against their plain versions, then timed.  Returns {name: (ms,
     plain_ms, bound_ms)}."""
     import torch
+    from pinc_tpu_torch import kbench
     mdt = torch.bfloat16
     d = step_inputs(ts, gen, dev, 0.05, 16384 / 17408)
     compare_step(tk, ts, d, mdt, [(1, 1)], {"leapfrog": dict()},
@@ -469,9 +474,14 @@ def time_step_and_field(tk, fk, ts, gen, dev, card: str, charge, qm,
         ms = cuda_ms(kern, reps=20, warmup=3)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         res[name] = (ms, plain_ms, bound_ms(nbytes))
+        # the field kernels also in a CUDA graph: their launches without
+        # the wrapper's host time
+        graph = (f", in a CUDA graph {kbench.graph_ms(kern, 20):.4f} ms"
+                 if name != "pic_step" else "")
         print(f"  time {name} at {ts.NT}x{ts.B}, M={ts.M} (P={ts.P}) bf16: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{res[name][2]:.4f} ms ({card})", flush=True)
+              f"kernel {ms:.4f} ms{graph}, plain {plain_ms:.4f} ms, bound "
+              f"{res[name][2]:.4f} ms, {res[name][2] / ms:.1%} of it "
+              f"({card})", flush=True)
     del d, E, args, out, phi, tiles
     torch.cuda.empty_cache()
     return res
@@ -700,6 +710,46 @@ def exchange_bytes(kind: str, args, out) -> float:
             + placed * 52.0)
 
 
+def merge_leftovers(alive, inc, blocks):
+    """The tiles of one gather merge call (K9) whose pass 0 leaves
+    leftovers (a row with more arrivals than free slots), so that its
+    spill passes run: a device tensor, read after the run (no host sync
+    in the call)."""
+    import torch
+    NT, B = alive.shape
+    cols = torch.zeros(inc.shape[-1], dtype=torch.bool, device=inc.device)
+    for o, w in blocks:
+        cols[o:o + w] = True
+    arrivals = ((inc[:, 6] > 0.5) & cols).sum(-1)                # (NT, 8)
+    free = (alive <= 0.5).reshape(NT, 8, B // 8).sum(-1)
+    return (arrivals > free).any(-1).sum()
+
+
+@contextlib.contextmanager
+def leftover_spy(gx):
+    """gx.merge_rows_g spied: each call appends (its tiles with leftovers,
+    a device tensor; its tiles) to the yielded list."""
+    seen, orig = [], gx.merge_rows_g
+
+    def spy(alive, inc, planes, blocks):
+        seen.append((merge_leftovers(alive, inc, blocks), alive.shape[0]))
+        return orig(alive, inc, planes, blocks)
+    gx.merge_rows_g = spy
+    try:
+        yield seen
+    finally:
+        gx.merge_rows_g = orig
+
+
+def leftover_text(seen) -> str:
+    if not seen:
+        return "no K9 merge call"
+    lo = [int(n) for n, _ in seen]
+    return (f"K9 merge calls whose spill passes run: {sum(map(bool, lo))} "
+            f"of {len(lo)}; tiles with leftovers {sum(lo)} of "
+            f"{sum(nt for _, nt in seen)}")
+
+
 def time_calls(calls: dict, where: str, card: str, times: dict,
                bounds: dict, equal=same) -> None:
     """Each recorded call against its plain version (equal), then timed
@@ -708,6 +758,7 @@ def time_calls(calls: dict, where: str, card: str, times: dict,
     calls."""
     for kind, recorded in calls.items():
         ms = plain_ms = nbytes = settled_bytes = 0.0
+        leftovers = 0
         for fn, plain, args in recorded:
             def fresh(args=args):
                 return fresh_copy(args)
@@ -716,6 +767,8 @@ def time_calls(calls: dict, where: str, card: str, times: dict,
             check(len(got) == len(want) and all(map(equal, got, want)),
                   f"{kind} at {where}: differs from its plain version")
             nbytes += exchange_bytes(kind, args, out)
+            if kind == "merge":
+                leftovers += int(merge_leftovers(args[0], args[1], args[3]))
             if fn.__name__ == "cleanup_faces_g":
                 # the settled output it no longer writes (inc's shape)
                 settled_bytes += args[0].numel() * 4.0
@@ -731,6 +784,9 @@ def time_calls(calls: dict, where: str, card: str, times: dict,
         old = (f" (with the settled output of its first call, as before: "
                f"{bound_ms((nbytes + settled_bytes) / n):.4f} ms)"
                if settled_bytes else "")
+        if kind == "merge":
+            old += (f" ({leftovers} of {n * args[0].shape[0]} tiles with "
+                    f"leftovers)")
         print(f"  time {kind} at {where} (mean of {n} call(s) of one "
               f"electron exchange): kernel {ms / n:.4f} ms, plain "
               f"{plain_ms / n:.4f} ms, bound {bounds[kind]:.4f} ms{old}, "
@@ -752,7 +808,16 @@ def check_exchange_bench(gx, ex, prod, gen, dev, card: str, times: dict,
     check([len(calls[k]) for k in ("extract", "cleanup", "merge")]
           == [1, 3, 1], f"one exchange made {calls}")
     time_calls(calls, f"{prod.NT}x{prod.B} ({caps})", card, times, bounds)
-    del calls
+    # the merge's spill passes at this shape: the same call with rows 0-3
+    # of every tile full, so that their arrivals spill into rows 4-7
+    fn, plain, args = calls["merge"][0]
+    full = args[0].clone().reshape(prod.NT, 8, -1)
+    full[:, :4] = 1.0
+    time_calls({"merge": [(fn, plain, (full.reshape(prod.NT, -1),)
+                           + tuple(args[1:]))]},
+               f"{prod.NT}x{prod.B} ({caps}), rows 0-3 of every tile full",
+               card, {}, {})
+    del calls, full
     for name, (vth, cadence, q) in species.items():
         if name != "electrons":
             del alive, planes
@@ -1005,8 +1070,9 @@ def check_onehot_bench(ox, ex, gen, dev, card: str, times: dict,
 def check_headline_cap(gx, ox, ex, gen, dev, card: str) -> None:
     """Phase 2, the headline scan window's exchange (phase 5's deck: M =
     2, B = 17,408, face cap K = 512; electrons with velocities N(0, 0.1)
-    moved by one 4-step cadence): the extract and cleanup calls of one
-    gather exchange (Ks = 128, KU = 384, Ke = 128) and, on the same state,
+    moved by one 4-step cadence): the extract, cleanup and merge calls of
+    one gather exchange (Ks = 128, KU = 384, Ke = 128) and, on the same
+    state,
     of the one-hot row exchange (tiles:exchangeImpl=onehot: Ks = 128, Ke
     = 32) and the per-tile one-hot sweeps (K = 512), each against its
     plain version and timed with its bound.  Printed only: the kernels
@@ -1018,7 +1084,8 @@ def check_headline_cap(gx, ox, ex, gen, dev, card: str) -> None:
     routes = {
         "gather": (gx, {"extract_compact_rows_g": "extract",
                         "cleanup_faces_g": "cleanup",
-                        "cleanup_rows_g": "cleanup"},
+                        "cleanup_rows_g": "cleanup",
+                        "merge_rows_g": "merge"},
                    dict(rows=True), same),
         "onehot rows": (ox, {"extract_all_rows": "onehot_extract_rows",
                              "cleanup_rows": "onehot_cleanup"},
@@ -1276,6 +1343,7 @@ def run_scan(label: str, deck: str, modules, card: str, expect: dict,
     result)."""
     import torch
     from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.ops import gather_exchange as gx
     from pinc_tpu_torch.tiled_sim import TiledSimulation
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -1309,11 +1377,16 @@ def run_scan(label: str, deck: str, modules, card: str, expect: dict,
             m.reset_launches()
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        carry, (ke, pe, dropped) = run_n(carry)
+        # the untimed warm window counts the merge calls whose spill
+        # passes run (a few device ops a call)
+        with (leftover_spy(gx) if window == "warm"
+              else contextlib.nullcontext([])) as seen:
+            carry, (ke, pe, dropped) = run_n(carry)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
-        print(f"  {window} window: {wall:.3f} s, launches {launches}",
+        print(f"  {window} window: {wall:.3f} s, launches {launches}"
+              + (f"; {leftover_text(seen)}" if window == "warm" else ""),
               flush=True)
         want = {"deposit": S, "pic_step": steps, "fold_global": steps + 1,
                 "efield_tiles": steps + 1}
@@ -1561,14 +1634,21 @@ def main() -> int:
     # every instantiation must load and store 16 bytes at a time (extract:
     # 3 kinds x (K8's R = 8, K11's R = 8 and 1); cleanup: 3 axes tuples x
     # bit copies or x + 0.0)
-    for kernel, count in (("extract_kernel", 9), ("cleanup_kernel", 6)):
+    # the gather merge (K9) counts and walks its rows in 16-byte groups
+    # (its stores to the scattered free slots stay scalar), and efield
+    # stages phi and writes its tiles 16 bytes at a time (f32 and bf16,
+    # each with P = 11, 13 compiled in and any P)
+    for kernel, count, ops_needed in (
+            ("extract_kernel", 9, ("LDG", "STG")),
+            ("cleanup_kernel", 6, ("LDG", "STG")),
+            ("merge_rows_kernel", 1, ("LDG",)),
+            ("efield_kernel", 6, ("LDG", "STG"))):
         got = wide_accesses(lib, kernel)
         check(len(got) == count and all(
-            any(op.startswith("LDG") for op in ops)
-            and any(op.startswith("STG") for op in ops)
+            all(any(op.startswith(k) for op in ops) for k in ops_needed)
             for ops in got.values()),
               f"{kernel}'s {count} instantiations do not all hold 16-byte "
-              f"global loads and stores: {got}")
+              f"global {' and '.join(ops_needed)}: {got}")
         print(f"phase 1 SASS (cuobjdump): {kernel}'s 16-byte global "
               f"accesses per instantiation "
               f"{sorted({tuple(sorted(o.items())) for o in got.values()})}",
@@ -1622,11 +1702,13 @@ def main() -> int:
             compare_step(tk, fx2, d2, mdt, [(1, 1)], {"leapfrog": dict()},
                          [margins], (-1.0, 1.0), (-1.0, 1.0 / 1836.0), errs,
                          f"fixture M=2 {str(mdt)[6:]}")
-    # K6 and K7 at tests/test_pallas_field.py's grid, M = 1 and 2, and a
-    # T <= 2M+1 layout (tiles that overlap from both sides)
+    # K6 and K7 at tests/test_pallas_field.py's grid, M = 1 and 2, a
+    # T <= 2M+1 layout (tiles that overlap from both sides), and ntz = 10
+    # (K6's runs of 8 tiles along z and a rest of 2)
     for fts in (TileSpec(grid=(16, 24, 32), T=8, M=1, B=128),
                 TileSpec(grid=(16, 24, 32), T=8, M=2, B=128),
-                TileSpec(grid=(16, 8, 24), T=4, M=2, B=128)):
+                TileSpec(grid=(16, 8, 24), T=4, M=2, B=128),
+                TileSpec(grid=(16, 16, 80), T=8, M=2, B=128)):
         compare_field(fk, fts, gen, dev, errs,
                       f"fixture {fts.grid} T={fts.T} M={fts.M}")
     errs = {k: 0.0 for k in tk.LAUNCHES}
@@ -1708,10 +1790,12 @@ def main() -> int:
 
     # -- phase 3: the main path through the CLI, default re-bucket --------
     modules = (tk, fk, gx, ox)
-    res = run_main_path(cli_main, modules, [], MAIN_STEPS)
+    with leftover_spy(gx) as seen:    # a few device ops a merge call
+        res = run_main_path(cli_main, modules, [], MAIN_STEPS)
     launches = res[2]
     sim, run_ms, run_psteps = check_main_path(
         "exchange run (default)", *res, MAIN_STEPS, prod, card, "gather")
+    print(f"  {leftover_text(seen)}", flush=True)
     # -- phase 4: where the time of a step goes ---------------------------
     step_breakdown(sim, card)
     del sim, res

@@ -4,10 +4,11 @@
 // A tile's B slots are 8 rows of L = B/8 contiguous slots (pinc_tpu's
 // (8, B/8) sublane view, whose rows are part of the result: caps, ranks and
 // the order in which free slots are filled are per row).  One thread block
-// of 8 warps handles one tile, warp w walking row w.  The extract and the
-// cleanup walk a row in chunks of 128 slots, each lane owning 4 consecutive
-// slots that it loads and stores with one 16-byte access (RowWalk); the
-// merges walk 32-slot chunks, a slot a lane.  __ballot_sync +
+// of 8 warps handles one tile, warp w walking row w.  The extract, the
+// cleanup and the gather merge walk a row in chunks of 128 slots, each
+// lane owning 4 consecutive slots that it loads and stores with one
+// 16-byte access (RowWalk); K11's merges walk 32-slot chunks, a slot a
+// lane.  __ballot_sync +
 // __popc(mask & lanemask_lt) gives each slot its rank inside a chunk, and
 // the warp carries the run from chunk to chunk.
 //
@@ -129,20 +130,30 @@ __device__ __forceinline__ void load4(float (&v)[kVec], const float* p,
 
 // Walk chunks first..end-1 with the loads of chunk c + 1 issued before
 // chunk c is processed (registers double-buffered): load(g, c) fills g
-// (or part of it: g starts zeroed), proc(g) uses it.
+// (or part of it: g starts zeroed), proc(g) uses it and returns whether to
+// go on (a warp-uniform value).
 template <class G, class Load, class Proc>
-__device__ __forceinline__ void walk_pipelined(int first, int end, Load load,
-                                               Proc proc) {
+__device__ __forceinline__ void walk_until(int first, int end, Load load,
+                                           Proc proc) {
   if (first >= end) return;
   G cur{}, nxt{};
   load(cur, first);
   for (int c = first;; ++c) {
     const bool more = c + 1 < end;
     if (more) load(nxt, c + 1);
-    proc(cur);
-    if (!more) break;
+    if (!proc(cur) || !more) return;
     cur = nxt;
   }
+}
+
+// walk_until over every chunk: proc(g) returns nothing.
+template <class G, class Load, class Proc>
+__device__ __forceinline__ void walk_pipelined(int first, int end, Load load,
+                                               Proc proc) {
+  walk_until<G>(first, end, load, [&](const G& g) {
+    proc(g);
+    return true;
+  });
 }
 
 // Ranks of the lane's slots of class c (cls[j] == c) among the warp's, in

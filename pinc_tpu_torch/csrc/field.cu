@@ -6,10 +6,10 @@
 // the bytes they move: phi (8.4 MB at 128^3) and the padded tile blocks
 // (22-36 MB).  The TPU kernels keep a transposed (y, x, z) phi resident in
 // VMEM and build lane rolls and concatenations around the Mosaic tiling;
-// none of that is needed here.  efield_tiles is one block per tile: the
-// tile's (P+2)^3 periodic window of phi is staged in shared memory (phi
-// itself fits the 50 MB L2), then the tile's 3 P^3 values are written
-// contiguously.  fold_global is one thread per grid node, reading the tile
+// none of that is needed here.  efield_tiles is one block per run of
+// tiles along z: the run's periodic window of phi is staged in shared
+// memory once (phi itself fits the 50 MB L2), then the run's contiguous
+// span of outputs is written with 16-byte stores.  fold_global is one thread per grid node, reading the tile
 // entries that cover it.  Index arithmetic is 32-bit where the sizes allow
 // (the entry points check).
 //
@@ -25,13 +25,17 @@
 // returns the cudaGetLastError() code of its launch (-1 for an argument
 // the kernels do not take).
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLoads = 4;
+constexpr int kWarps = kThreads / 32;
+constexpr int kLoads = 2;     // efield's staging groups a thread in flight
+constexpr int kRunMax = 8;   // tiles a run, at most
 
 __device__ __forceinline__ int wrap(int g, int n) {
   while (g < 0) g += n;
@@ -39,25 +43,24 @@ __device__ __forceinline__ int wrap(int g, int n) {
   return g;
 }
 
-// The digits (fastest first) of a flat index that advances by a fixed
-// stride, in the mixed radix r: the loops below walk a tile's nodes
-// without an integer division per element.  The last digit is unbounded.
+__device__ __forceinline__ int floor_div4(int x) { return x >> 2; }
+
+// Mixed-radix digits, fastest first, of a flat index; the last digit is
+// unbounded.  add() advances digits d by the digits s of a stride (each
+// below its radix), so the loops below walk a tile's nodes without an
+// integer division per element.
 template <int N>
-struct Digits {
-  int d[N], s[N], r[N];
-  __device__ __forceinline__ Digits(int i, int stride, const int (&radix)[N]) {
+struct Radix {
+  int r[N - 1];
+  __device__ __forceinline__ void split(int i, int (&d)[N]) const {
 #pragma unroll
     for (int k = 0; k < N - 1; ++k) {
-      r[k] = radix[k];
       d[k] = i % r[k];
       i /= r[k];
-      s[k] = stride % r[k];
-      stride /= r[k];
     }
     d[N - 1] = i;
-    s[N - 1] = stride;
   }
-  __device__ __forceinline__ void next() {
+  __device__ __forceinline__ void add(int (&d)[N], const int (&s)[N]) const {
     int carry = 0;
 #pragma unroll
     for (int k = 0; k < N - 1; ++k) {
@@ -69,46 +72,179 @@ struct Digits {
   }
 };
 
+template <bool BF16>
+struct EOut {
+  using T = float;
+  __device__ static float cast(float v) { return v; }
+};
+template <>
+struct EOut<true> {
+  using T = __nv_bfloat16;
+  __device__ static __nv_bfloat16 cast(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+
+// Shared memory of efield_kernel for runs of g tiles, in floats: the
+// window (rounded to 16 bytes), then each warp's staging of its outputs,
+// 32 rows of P values and up to 16 bytes of alignment shift, in 16-byte
+// units.
+__host__ __device__ inline int efield_window_floats(int g, int T, int M) {
+  const int W = T + 2 * M + 3;
+  return (W * (W * (g * T + 2 * M + 3) + 32) + 3) & ~3;
+}
+
+// The window's x-plane x starts at x (W Zw + 32) + skew(x): with the skew
+// below, the rows (a, b) of 32 consecutive output rows of one (tile, c)
+// fall on 32 distinct banks (bank = ((a P + b) Zw + const) % 32, Zw odd),
+// where the plain layout, whose rows step by W Zw from a to a + 1, puts
+// two on one bank.
+__device__ __forceinline__ int plane_base(int x, int W, int Zw) {
+  return x * (W * Zw + 32) + (((1 - 2 * x - W) * Zw) & 31);
+}
+__host__ __device__ inline int efield_stage_floats(int T, int M) {
+  const int P = T + 1 + 2 * M;
+  return (32 * P * 4 + 16 + 15) / 16 * 4;   // f32: 32 P values + shift
+}
+__host__ __device__ inline size_t efield_smem(int g, int T, int M) {
+  return (size_t)(efield_window_floats(g, T, M) +
+                  kWarps * efield_stage_floats(T, M)) * sizeof(float);
+}
+
+// The default run length: the longest run of 8, 4 or 2 tiles whose shared
+// memory stays within kRunSmem bytes, else one tile.
+constexpr size_t kRunSmem = 56 * 1024;
+inline int efield_run(int T, int M) {
+  for (int g = kRunMax; g > 1; g /= 2)
+    if (efield_smem(g, T, M) <= kRunSmem) return g;
+  return 1;
+}
+
 // K6: E = -grad(phi) = 0.5 (phi[n-1] - phi[n+1]) per component, written
 // as padded component-major tiles; E is computed in float32 and cast to
-// the output type once.  One block per tile; win holds phi at the tile's
-// offsets -M-1..T+M+1 on each axis, periodic.
-template <bool OUT_BF16>
-__global__ void __launch_bounds__(kThreads)
+// the output type once.  Bound: bytes (phi read once, the tiles written
+// once).  Design: one block per run of up to g consecutive tiles along z
+// (tile t = (tx nty + ty) ntz + tz, so their outputs are one contiguous
+// span; a pencil's last run takes the ntz % g rest).  The run's periodic
+// window of phi, (P+2)^2 rows along z of g T + 2M + 3 nodes (offsets -M-1
+// .. on each axis), is staged in shared memory once, with 16-byte loads
+// of phi's aligned 4-node groups (a row wraps only where it crosses the
+// grid's z edge; Z % 4 != 0 takes scalar loads), kLoads groups a thread
+// in flight.  The span is rows of P outputs along z (one (tile, c, a, b)
+// each); a warp takes 32 consecutive rows, a lane a row: the index
+// arithmetic is per row, and per output two shared reads, a difference
+// and a cast.  The window's x-planes are skewed (plane_base) so that the
+// lanes' reads fall on distinct banks.  The warp puts its 32 P outputs in its staging
+// slice, shifted to the span's 16-byte alignment, and stores the aligned
+// groups with 16-byte stores, the partial groups at either end scalar.
+template <bool OUT_BF16, int PC>
+__global__ void __launch_bounds__(kThreads, 3)
 efield_kernel(const float* __restrict__ phi, void* __restrict__ out, int X,
-              int Y, int Z, int nty, int ntz, int T, int M, int P) {
-  extern __shared__ float win[];
-  const int W = P + 2, W2 = W * W, W3 = W2 * W;
-  const int t = blockIdx.x;
-  const int tz = t % ntz, ty = (t / ntz) % nty, tx = t / (ntz * nty);
-  const int gx0 = tx * T - M - 1, gy0 = ty * T - M - 1, gz0 = tz * T - M - 1;
-  const int wr[3] = {W, W, W};
-  Digits<3> w(threadIdx.x, blockDim.x, wr);   // (e, b, a) of window index i
-  // kLoads loads in flight per thread before their stores
-  for (int i0 = threadIdx.x; i0 < W3; i0 += kLoads * blockDim.x) {
-    float v[kLoads];
+              int Y, int Z, int nty, int ntz, int T, int M, int P_, int g) {
+  using Out = typename EOut<OUT_BF16>::T;
+  constexpr int V = 16 / sizeof(Out);
+  extern __shared__ __align__(16) float smem[];
+  const int P = PC ? PC : P_;   // a compile-time P unrolls the rows
+  const int W = P + 2;
+  const int runs = (ntz + g - 1) / g;
+  const int rz = blockIdx.x % runs, pencil = blockIdx.x / runs;
+  const int ty = pencil % nty, tx = pencil / nty;
+  const int tz0 = rz * g, ng = min(g, ntz - tz0);
+  const int Zw = ng * T + 2 * M + 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* win = smem;
+  Out* stage = reinterpret_cast<Out*>(smem + efield_window_floats(g, T, M) +
+                                      warp * efield_stage_floats(T, M));
+
+  // the window: item (row, group) loads phi's 4-node group q0 + group of
+  // window row (x, y) and keeps the nodes inside [gz0, gz0 + Zw)
+  const int gx0 = tx * T - M - 1, gy0 = ty * T - M - 1, gz0 = tz0 * T - M - 1;
+  const int q0 = floor_div4(gz0);
+  const int nq = floor_div4(gz0 + Zw - 1) - q0 + 1;
+  const bool vec = (Z & 3) == 0 && ((uintptr_t)phi & 15u) == 0;
+  const int items = W * W * nq;
+  const Radix<3> wr = {{nq, W}};
+  int it[3], st[3];
+  wr.split(threadIdx.x, it);     // (group, y, x) of item i
+  wr.split(kThreads, st);
+  for (int i0 = threadIdx.x; i0 < items; i0 += kLoads * kThreads) {
+    float v[kLoads][4];
+    int dst[kLoads], z0[kLoads];
 #pragma unroll
-    for (int u = 0; u < kLoads; ++u, w.next())
-      if (i0 + u * (int)blockDim.x < W3)
-        v[u] = phi[((long long)wrap(gx0 + w.d[2], X) * Y +
-                    wrap(gy0 + w.d[1], Y)) * Z + wrap(gz0 + w.d[0], Z)];
+    for (int u = 0; u < kLoads; ++u, wr.add(it, st)) {
+      if (i0 + u * kThreads >= items) continue;
+      const float* rowp =
+          phi + ((long long)wrap(gx0 + it[2], X) * Y + wrap(gy0 + it[1], Y)) *
+                    Z;
+      z0[u] = 4 * (q0 + it[0]);
+      dst[u] = plane_base(it[2], W, Zw) + it[1] * Zw - gz0;
+      if (vec) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(rowp + wrap(z0[u], Z));
+        v[u][0] = t.x;
+        v[u][1] = t.y;
+        v[u][2] = t.z;
+        v[u][3] = t.w;
+      } else {
 #pragma unroll
-    for (int u = 0; u < kLoads; ++u)
-      if (i0 + u * (int)blockDim.x < W3) win[i0 + u * blockDim.x] = v[u];
+        for (int j = 0; j < 4; ++j) v[u][j] = rowp[wrap(z0[u] + j, Z)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      if (i0 + u * kThreads >= items) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int zi = z0[u] + j - gz0;
+        if (zi >= 0 && zi < Zw) win[dst[u] + z0[u] + j] = v[u][j];
+      }
+    }
   }
   __syncthreads();
-  const int P3 = P * P * P;
-  const int pr[4] = {P, P, P, 3};
-  Digits<4> o(threadIdx.x, blockDim.x, pr);   // (e, b, a, c) of output r
-  const long long base = (long long)t * 3 * P3;
-  for (int r = threadIdx.x; r < 3 * P3; r += blockDim.x, o.next()) {
-    const int s = ((o.d[2] + 1) * W + o.d[1] + 1) * W + o.d[0] + 1;
-    const int d = o.d[3] == 0 ? W2 : (o.d[3] == 1 ? W : 1);
-    const float v = 0.5f * (win[s - d] - win[s + d]);
-    if (OUT_BF16)
-      static_cast<__nv_bfloat16*>(out)[base + r] = __float2bfloat16_rn(v);
-    else
-      static_cast<float*>(out)[base + r] = v;
+
+  // row rho of the span is (b, a, c, k): offsets (a, b, 0..P-1) of
+  // component c of the run's tile k; its P outputs are [rho P, rho P + P)
+  const int n = ng * 3 * P * P * P, nrows = ng * 3 * P * P;
+  const long long R0 = (long long)((tx * nty + ty) * ntz + tz0) * 3 * P * P * P;
+  Out* o = static_cast<Out*>(out) + R0;   // out starts on 16 bytes
+  const int nch = (nrows + 31) / 32;
+  const Radix<4> rr = {{P, P, 3}};
+  int d[4], hop[4];
+  rr.split(warp * 32 + lane, d);
+  rr.split(kWarps * 32, hop);
+  for (int ch = warp; ch < nch; ch += kWarps, rr.add(d, hop)) {
+    const int x0 = ch * 32 * P, x1 = min(x0 + 32 * P, n);
+    const int sh = (int)((R0 + x0) % V);   // the chunk's 16-byte offset
+    if (ch * 32 + lane < nrows) {
+      // the row's neighbours along component c: planes a, a + 2 (x),
+      // rows b, b + 2 of plane a + 1 (y), nodes -1, +1 (z)
+      const int a = d[1], b = d[0], c = d[2], zo = d[3] * T + 1;
+      const int mid = plane_base(a + 1, W, Zw);
+      const int lo_i = c == 0 ? plane_base(a, W, Zw) + (b + 1) * Zw + zo
+                     : (c == 1 ? mid + b * Zw + zo : mid + (b + 1) * Zw + zo - 1);
+      const int hi_i = c == 0 ? plane_base(a + 2, W, Zw) + (b + 1) * Zw + zo
+                     : (c == 1 ? lo_i + 2 * Zw : lo_i + 2);
+      const float* lo = win + lo_i;
+      const float* hi = win + hi_i;
+      Out* op = stage + sh + lane * P;
+#pragma unroll (PC ? PC : 4)
+      for (int e = 0; e < P; ++e)
+        op[e] = EOut<OUT_BF16>::cast(0.5f * (lo[e] - hi[e]));
+    }
+    __syncwarp();
+    // [ga, gb): the chunk's whole 16-byte groups (span offsets)
+    const int ga = min(x1, x0 + (V - sh) % V);
+    const int gb = max(ga, x1 - (int)((R0 + x1) % V));
+    for (int x = ga + lane * V; x < gb; x += 32 * V) {
+      const uint4 w = *reinterpret_cast<const uint4*>(stage + sh + x - x0);
+      asm volatile("st.global.v4.b32 [%0], {%1, %2, %3, %4};" ::"l"(o + x),
+                   "r"(w.x), "r"(w.y), "r"(w.z), "r"(w.w)
+                   : "memory");
+    }
+    if (lane < ga - x0) o[x0 + lane] = stage[sh + lane];
+    if (lane >= 16 && lane - 16 < x1 - gb)
+      o[gb + lane - 16] = stage[sh + gb - x0 + lane - 16];
+    __syncwarp();
   }
 }
 
@@ -186,21 +322,31 @@ extern "C" {
 
 int pinc_field_efield(const float* phi, void* out, int X, int Y, int Z,
                       int T, int M, int out_bf16, void* stream) {
-  if (X % T || Y % T || Z % T || M < 0 || X <= M || Y <= M || Z <= M)
+  if (X % T || Y % T || Z % T || M < 0 || X <= M || Y <= M || Z <= M ||
+      ((uintptr_t)out & 15u))
     return -1;
   const int P = T + 1 + 2 * M;
-  const long long NT = (long long)(X / T) * (Y / T) * (Z / T);
-  if (NT > 0x7fffffff) return -1;
-  const size_t smem = (size_t)(P + 2) * (P + 2) * (P + 2) * sizeof(float);
+  const int ntz = Z / T;
+  const int g = min(efield_run(T, M), ntz);
+  const long long blocks = (long long)(X / T) * (Y / T) * ((ntz + g - 1) / g);
+  if (blocks > 0x7fffffff) return -1;
+  const size_t smem = efield_smem(g, T, M);
+  if (smem > 227 * 1024) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  auto* kernel = out_bf16 ? efield_kernel<true> : efield_kernel<false>;
+  // P = 11 and 13 (T = 8 at M = 1 and 2) compiled with P known
+  auto* kernel = out_bf16 ? (P == 11   ? efield_kernel<true, 11>
+                             : P == 13 ? efield_kernel<true, 13>
+                                       : efield_kernel<true, 0>)
+                          : (P == 11   ? efield_kernel<false, 11>
+                             : P == 13 ? efield_kernel<false, 13>
+                                       : efield_kernel<false, 0>);
   if (smem > 48 * 1024) {
     if (int err = (int)cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
       return err;
   }
-  kernel<<<(int)NT, kThreads, smem, s>>>(phi, out, X, Y, Z, Y / T, Z / T, T,
-                                         M, P);
+  kernel<<<(int)blocks, kThreads, smem, s>>>(phi, out, X, Y, Z, Y / T, Z / T,
+                                             T, M, P, g);
   return (int)cudaGetLastError();
 }
 

@@ -153,69 +153,203 @@ cleanup_kernel(const float* __restrict__ inc, Outs outs, int W, int Ke,
 // IN PLACE into the planes and alive; no other slot is touched, so a dead
 // slot that is not refilled keeps its stale payload, as in pinc_tpu.
 // Bound: bytes: the alive plane up to the last free slot a row needs, the
-// flag plane, and 24 B read plus 28 B written per placed arrival.  Design:
-// per-row block counts and per-source-row consumed counters in shared
-// memory; each slot is always handled by the same lane, which therefore
-// reads back its own alive writes in later passes.
+// flag plane, and 24 B read plus 28 B written per placed arrival.  The 6
+// scattered plane stores are most of the kernel's time.  Design: (1) each
+// warp counts its row's arrivals per block from the flag plane in 16-byte
+// lane groups (one RowWalk over the span the blocks cover, the next
+// chunk's loads in flight).  (2) It walks its row's alive the same way,
+// chunk c being slots [128 c, 128 c + 128) (the host checks that alive
+// starts on a 16-byte boundary), turns the chunk's four ballots into four
+// words of 32 free-slot bits, and places pass 0 as it goes: lane l takes
+// slot 32 s + l of word s, free rank k < a_r taking the row's arrival k,
+// its block and column from the per-block counts (in registers).  A store
+// instruction thus covers one 128-byte line of a plane, as few as the
+// free slots allow (a lane storing its own 4 consecutive slots covers
+// four lines an instruction, and took 1.8x as long).  A lane's 4 x 6
+// payload loads are issued together before its stores.  The walk stops
+// once a_r slots are placed or the row ends, so alive is read up to the
+// last slot the row needs.  (3) Only while the tile has leftovers do the
+// spill passes run, each rescanning the row from slot 0 in 32-slot
+// chunks, a slot a lane, with per-source-row consumed counters in shared
+// memory: lane l handles slots 32 i + l in both steps, so it reads back
+// its own alive writes.
+struct RowGroup {
+  int off, n;
+  float v[kVec];
+};
+
+// Bits 0..7 of x to bits 0, 4, ..., 28.
+__device__ __forceinline__ unsigned spread8(unsigned x) {
+  x &= 0xffu;
+  x = (x ^ (x << 12)) & 0x000f000fu;
+  x = (x ^ (x << 6)) & 0x03030303u;
+  return (x ^ (x << 3)) & 0x11111111u;
+}
+
 __global__ void __launch_bounds__(kThreads)
-merge_kernel(float* __restrict__ alive, const float* __restrict__ inc,
-             MutPlanes pl, BlockTable bt, int B, int KT) {
-  __shared__ int nb[kRows][kMaxBlocks];
-  __shared__ int narr[kRows];
+merge_rows_kernel(float* __restrict__ alive, const float* __restrict__ inc,
+                  MutPlanes pl, BlockTable bt, int B, int KT) {
+  __shared__ int nb_end[kRows][kMaxBlocks];   // arrivals through block b
+  __shared__ int boff[kMaxBlocks];
+  __shared__ int narr[kRows];                 // arrivals per row
   __shared__ int consumed[kRows];
   const int row = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1u;
   const long long ipstride = (long long)kRows * KT;
   const float* tile_in = inc + (long long)blockIdx.x * kNPay * kRows * KT;
+  const int L = B / kRows;
 
-  int total = 0;
+  // (1) arrivals per block: one walk over the span the blocks cover
+  int lo = KT, hi = 0;
   for (int b = 0; b < bt.n; ++b) {
-    const float* flag = tile_in + 6 * ipstride + (long long)row * KT + bt.off[b];
-    int cnt = 0;
-    for (int c0 = 0; c0 < bt.w[b]; c0 += 32) {
-      const int j = c0 + lane;
-      cnt += __popc(__ballot_sync(kFull, j < bt.w[b] && flag[j] > 0.5f));
-    }
-    if (lane == 0) nb[row][b] = cnt;
-    total += cnt;
+    lo = min(lo, bt.off[b]);
+    hi = max(hi, bt.off[b] + bt.w[b]);
   }
-  if (lane == 0) {
-    narr[row] = total;
-    consumed[row] = 0;
+  int cnt[kMaxBlocks];
+#pragma unroll
+  for (int b = 0; b < kMaxBlocks; ++b) cnt[b] = 0;
+  if (lo < hi) {
+    const float* flag = tile_in + 6 * ipstride + (long long)row * KT + lo;
+    const RowWalk fw(flag, hi - lo);
+    walk_pipelined<RowGroup>(
+        fw.first, fw.end,
+        [&](RowGroup& g, int c) {
+          fw.group(c, lane, &g.off, &g.n);
+          load4(g.v, flag + g.off, g.n);
+        },
+        [&](const RowGroup& g) {
+          int k = 0;
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) k += g.v[j] > 0.5f;   // 0 past n
+          if (!__any_sync(kFull, k)) return;
+          // the group's columns [c0, c1): whole blocks add k, a block
+          // boundary inside the group counts slot by slot
+          const int c0 = lo + g.off, c1 = c0 + g.n;
+#pragma unroll
+          for (int b = 0; b < kMaxBlocks; ++b) {
+            if (b >= bt.n) break;
+            const int b0 = bt.off[b], b1 = b0 + bt.w[b];
+            if (c0 >= b0 && c1 <= b1) {
+              cnt[b] += k;
+            } else if (c0 < b1 && c1 > b0) {
+#pragma unroll
+              for (int j = 0; j < kVec; ++j)
+                cnt[b] += g.v[j] > 0.5f && c0 + j >= b0 && c0 + j < b1;
+            }
+          }
+        });
   }
+  int nbe[kMaxBlocks];   // the row's arrivals through block b
+  int total = 0;
+#pragma unroll
+  for (int b = 0; b < kMaxBlocks; ++b) {
+    total += __reduce_add_sync(kFull, cnt[b]);
+    nbe[b] = b < bt.n ? total : 0x7fffffff;
+    if (lane == 0) nb_end[row][b] = nbe[b];
+  }
+  if (lane == 0) narr[row] = total;
+  if (threadIdx.x < kMaxBlocks) boff[threadIdx.x] = bt.off[threadIdx.x];
   __syncthreads();
 
-  const int L = B / kRows;
-  const long long base = (long long)blockIdx.x * B + (long long)row * L;
-  for (int p = 0; p < kRows; ++p) {
-    if (p > 0) {
-      int left = 0;
-      for (int s = 0; s < kRows; ++s) left += narr[s] - consumed[s];
-      if (left == 0) break;
+  // (2) the walk: pass 0 placed as the free slots are ranked.  The row
+  // starts on a 16-byte boundary (the host checks), so chunk c is slots
+  // [128 c, 128 c + 128) and its free slots are four 32-slot words; lane l
+  // places slot 32 s + l of word s, so that a store covers one 128-byte
+  // line of a plane, as few lines as the free slots allow.
+  const long long row0 = (long long)blockIdx.x * B + (long long)row * L;
+  float* arow = alive + row0;
+  const float* rsrc = tile_in + (long long)row * KT;
+  const RowWalk aw(arow, L);
+  auto load_alive = [&](RowGroup& g, int c) {
+    aw.group(c, lane, &g.off, &g.n);
+    load4(g.v, arow + g.off, g.n);
+  };
+  // the chunk's free slots as 4 words (bit i of word s: slot 32 s + i)
+  auto words = [&](const RowGroup& g, unsigned (&w)[kVec]) {
+    unsigned m[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j)
+      m[j] = __ballot_sync(kFull, j < g.n && g.v[j] <= 0.5f);
+#pragma unroll
+    for (int s = 0; s < kVec; ++s) {
+      w[s] = 0u;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) w[s] |= spread8(m[j] >> (8 * s)) << j;
     }
+  };
+  const int a_r = total;
+  int run = 0;
+  if (a_r > 0) {
+    walk_until<RowGroup>(0, aw.end, load_alive, [&](const RowGroup& g) {
+      unsigned w[kVec];
+      words(g, w);
+      const int c0 = g.off - kVec * lane;   // the chunk's first slot
+      const float* src[kVec];
+#pragma unroll
+      for (int s = 0; s < kVec; ++s) {
+        const int rank = run + __popc(w[s] & lt);
+        src[s] = nullptr;
+        if ((w[s] >> lane & 1u) && rank < a_r) {
+          int b = 0, base = 0;
+#pragma unroll
+          for (int q = 0; q < kMaxBlocks - 1; ++q)
+            if (rank >= nbe[q]) {
+              b = q + 1;
+              base = nbe[q];
+            }
+          src[s] = rsrc + boff[b] + rank - base;
+        }
+        run += __popc(w[s]);
+      }
+      float v[kVec][6];
+#pragma unroll
+      for (int s = 0; s < kVec; ++s)
+#pragma unroll
+        for (int q = 0; q < 6; ++q)
+          v[s][q] = src[s] != nullptr ? src[s][q * ipstride] : 0.0f;
+#pragma unroll
+      for (int s = 0; s < kVec; ++s) {
+        if (src[s] == nullptr) continue;
+        const int k = c0 + 32 * s + lane;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) pl.p[q][row0 + k] = v[s][q];
+        arow[k] = 1.0f;
+      }
+      return run < a_r;
+    });
+  }
+  if (lane == 0) consumed[row] = min(run, a_r);
+  __syncthreads();
+
+  // (3) spill pass p: row r's free slots left take the leftovers of row
+  // (r - p) & 7, from its consumed count on
+  for (int p = 1; p < kRows; ++p) {
+    int left = 0;
+    for (int s = 0; s < kRows; ++s) left += narr[s] - consumed[s];
+    if (left == 0) break;
     const int s = (row - p) & (kRows - 1);
     const int first = consumed[s];
     const int avail = narr[s] - first;
     int taken = 0;
     if (avail > 0) {
-      int run = 0;
-      for (int c0 = 0; c0 < L && run < avail; c0 += 32) {
-        const long long k = base + c0 + lane;
-        const bool is_free = alive[k] <= 0.5f;
+      int frun = 0;
+      for (int c0 = 0; c0 < L && frun < avail; c0 += 32) {
+        const int k = c0 + lane;
+        const bool is_free = arow[k] <= 0.5f;
         const unsigned m = __ballot_sync(kFull, is_free);
-        const int frank = run + __popc(m & lt);
+        const int frank = frun + __popc(m & lt);
         if (is_free && frank < avail) {
-          int arank = first + frank;
-          int b = 0;
-          while (arank >= nb[s][b]) arank -= nb[s][b++];
-          const float* src = tile_in + (long long)s * KT + bt.off[b] + arank;
+          int a = first + frank, b = 0;
+          while (a >= nb_end[s][b]) ++b;
+          a -= b ? nb_end[s][b - 1] : 0;
+          const float* src = tile_in + (long long)s * KT + boff[b] + a;
 #pragma unroll
-          for (int q = 0; q < 6; ++q) pl.p[q][k] = src[q * ipstride];
-          alive[k] = 1.0f;
+          for (int q = 0; q < 6; ++q) pl.p[q][row0 + k] = src[q * ipstride];
+          arow[k] = 1.0f;
         }
-        run += __popc(m);
+        frun += __popc(m);
       }
-      taken = min(run, avail);
+      taken = min(frun, avail);
     }
     __syncthreads();
     if (lane == 0) consumed[s] += taken;
@@ -272,9 +406,10 @@ int pinc_gx_merge(float* alive, const float* inc, float* x, float* y,
   if (NT <= 0 || B <= 0 || B % (kRows * 32) != 0 ||
       !read_table(table, nblocks, KT, &bt))
     return -1;
+  if (misalign16(alive)) return -1;   // rows on 16-byte boundaries
   const MutPlanes pl = {{x, y, z, vx, vy, vz}};
-  merge_kernel<<<NT, kThreads, 0, (cudaStream_t)stream>>>(alive, inc, pl, bt,
-                                                          B, KT);
+  merge_rows_kernel<<<NT, kThreads, 0, (cudaStream_t)stream>>>(alive, inc, pl,
+                                                               bt, B, KT);
   return (int)cudaGetLastError();
 }
 

@@ -154,10 +154,14 @@ def efield_tiles(phi: torch.Tensor, ts: TileSpec,
 
     Replaces pinc_tpu/ops/pallas_field.py ``efield_tiles``.  Bound on the
     card: the bytes, phi read once and the tiles written once (0.012 ms at
-    128^3, M=1, bf16).  Design: one block per tile stages the tile's
-    (P+2)^3 periodic window of phi in shared memory (phi sits in L2) and
-    writes the tile's 3 P^3 values contiguously; no transposed input, wrap
-    pad or lane rolls."""
+    128^3, M=1, bf16).  Design: one block per run of consecutive tiles
+    along z (4 at T = 8), whose outputs are one contiguous span: it stages
+    the run's periodic window of phi in shared memory once (16-byte loads;
+    phi sits in L2), then a warp takes 32 rows of P outputs, a lane a row
+    (its window planes skewed so that the lanes' reads fall on distinct
+    banks), passes them through its shared staging slice and writes them
+    with 16-byte stores; the ends off a 16-byte boundary take scalar
+    stores."""
     if _is_cpu(phi, "efield_tiles"):
         return efield_tiles_plain(phi, ts, out_dtype=out_dtype)
     _check_out_dtype(out_dtype)

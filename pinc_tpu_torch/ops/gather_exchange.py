@@ -380,9 +380,10 @@ def classifier_planes(planes, kind: int) -> dict:
 
 def check_aligned16(**tensors) -> None:
     """The extract kernels load and store alive, its classifier planes and
-    the new alive in 16-byte groups that start at the same slot in each:
-    the inputs must start on a 16-byte boundary, as a fresh allocation and
-    a (NT, B) plane of a stacked state with B % 4 == 0 do."""
+    the new alive in 16-byte groups that start at the same slot in each,
+    and the gather merge walks alive in 16-byte groups: the inputs must
+    start on a 16-byte boundary, as a fresh allocation and a (NT, B) plane
+    of a stacked state with B % 4 == 0 do."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary "
@@ -428,9 +429,15 @@ def merge_rows_g(alive: torch.Tensor, inc: torch.Tensor, planes, blocks):
     Bound on the card: bytes — the alive plane read up to the last free
     slot a row needs, the flag plane read, and 24 B read plus 28 B
     written per placed arrival.  Design: one block per tile, one warp per
-    destination row; per-row block counts and per-source-row consumed
-    counters in shared memory; the spill passes run only while the tile
-    has leftovers, each after a __syncthreads()."""
+    row: each warp counts its row's arrivals per block (flag plane), then
+    walks its row's alive, both in 16-byte lane groups with the next
+    chunk's loads in flight, and places pass 0 as it ranks the free slots
+    (a lane a slot of each 32-slot word, so a store covers one 128-byte
+    line of a plane).  Only a tile with leftovers runs the spill passes,
+    each rescanning the row from slot 0, a slot a lane, with
+    per-source-row consumed counters in shared memory.  alive must start
+    on a 16-byte boundary (a fresh allocation, or a plane of a stacked
+    state with B % 4 == 0)."""
     blocks = tuple((int(o), int(w)) for o, w in blocks)
     dev = alive.device
     NT, B = _check_planes(alive, planes, dev)
@@ -445,6 +452,7 @@ def merge_rows_g(alive: torch.Tensor, inc: torch.Tensor, planes, blocks):
                          f"inside [0, {KT}), got {blocks}")
     if _is_cpu(alive, "merge"):
         return merge_rows_g_plain(alive, inc, planes, blocks)
+    check_aligned16(alive=alive)
     table = (ctypes.c_int * 16)(*[v for ow in blocks for v in ow])
     lib = _cuda_build.load()
     with torch.cuda.device(dev):

@@ -276,7 +276,10 @@ def test_pic_step_tiles_are_deterministic(cuda, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T, M, shape", [(8, 1, (16, 24, 32)),
                                          (8, 2, (16, 24, 32)),
-                                         (4, 2, (16, 8, 24))])
+                                         (4, 2, (16, 8, 24)),
+                                         (8, 1, (16, 16, 80)),
+                                         (8, 2, (8, 16, 24)),
+                                         (6, 1, (6, 12, 18))])
 def test_field_kernels_match_plain(cuda, T, M, shape):
     ts = TileSpec(grid=shape, T=T, M=M, B=128)
     rng = np.random.default_rng(T + M)
@@ -294,6 +297,38 @@ def test_field_kernels_match_plain(cuda, T, M, shape):
     torch.cuda.synchronize()
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
         "efield_tiles": 2, "fold_global": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("T, M, shape", [(8, 2, (16, 16, 80)),
+                                         (8, 1, (8, 8, 56)),
+                                         (4, 2, (8, 8, 28)),
+                                         (4, 1, (8, 8, 72)),
+                                         (6, 2, (6, 12, 30))])
+def test_efield_runs_match_plain(cuda, T, M, shape, dt):
+    """K6's runs of tiles along z (4 at T = 8, 8 at T = 4 and 6): ntz % run
+    != 0 (ntz = 10, 7, 7, 18, 5), spans off a 16-byte boundary, T <= 2M+1,
+    Z % 4 != 0, and P compiled in (13, 11) or not (9, 7)."""
+    ts = TileSpec(grid=shape, T=T, M=M, B=128)
+    phi = torch.from_numpy(np.random.default_rng(T * M).normal(size=shape)
+                           .astype(np.float32)).to(cuda)
+    got = fk.efield_tiles(phi, ts, out_dtype=MXU[dt])
+    assert torch.equal(got, fk.efield_tiles_plain(phi, ts,
+                                                  out_dtype=MXU[dt]))
+
+
+@pytest.mark.cuda
+def test_efield_tiles_at_128(cuda):
+    """K6 at the scan's 128^3 shape, M = 1 and 2, f32 and bf16."""
+    rng = np.random.default_rng(128)
+    phi = torch.from_numpy(rng.normal(size=(128, 128, 128))
+                           .astype(np.float32)).to(cuda)
+    for M in (1, 2):
+        ts = TileSpec(grid=(128, 128, 128), T=8, M=M, B=17408)
+        for dt in MXU.values():
+            assert torch.equal(fk.efield_tiles(phi, ts, out_dtype=dt),
+                               fk.efield_tiles_plain(phi, ts, out_dtype=dt))
 
 
 @pytest.mark.cuda
@@ -382,6 +417,71 @@ def test_exchange_kernels_match_plain(cuda):
     torch.cuda.synchronize()
     assert {k: gx.LAUNCHES[k] - before[k] for k in before} == {
         "extract": 5, "cleanup": 4, "merge": 1}
+
+
+def _merge_case(dev, L, rows_full, seed):
+    """A merge at rows of L slots, 2 tiles: ~12% of the slots free (the
+    bench deck after an extract), rows 0-3 full where rows_full; arrivals
+    in the fused driver's 8 blocks (K = 256), a prefix of random length in
+    each, ~25% of a block's width in rows 0-3 of tile 0 (spill, and at
+    rows_full drops)."""
+    rng = np.random.default_rng(seed)
+    NT, B = 2, 8 * L
+    widths = (256, 512, 128, 128, 128, 128, 128, 128)
+    offs = np.cumsum((0,) + widths[:-1])
+    blocks = tuple(zip(offs.tolist(), widths))
+    alive = (rng.uniform(size=(NT, 8, L)) > 0.12).astype(np.float32)
+    if rows_full:
+        alive[0, :4] = 1.0
+    inc = np.zeros((NT, 7, 8, sum(widths)), np.float32)
+    for t in range(NT):
+        for r in range(8):
+            for o, w in blocks:
+                frac = 0.25 if (t == 0 and r < 4) else 0.06
+                n = int(rng.integers(0, int(w * frac) + 1))
+                inc[t, :6, r, o:o + n] = rng.normal(size=(6, n))
+                inc[t, 6, r, o:o + n] = 1.0
+    planes = tuple(torch.from_numpy(rng.normal(size=(NT, B))
+                                    .astype(np.float32)).to(dev)
+                   for _ in range(6))
+    return (torch.from_numpy(alive.reshape(NT, B)).to(dev),
+            torch.from_numpy(inc).to(dev), planes, blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L, rows_full", [(2176, False), (2176, True),
+                                          (256, True), (128, False)])
+def test_merge_kernel_matches_plain(cuda, L, rows_full):
+    """K9 against its plain version, planes and alive bit for bit: the
+    bench deck's rows (L = 2176) at its free density, and with rows 0-3 of
+    tile 0 full (spill into rows 4-7); at L = 256 and 128 the rows have
+    less room than arrivals (spill passes and drops)."""
+    alive, inc, planes, blocks = _merge_case(cuda, L, rows_full, L)
+    before = dict(gx.LAUNCHES)
+    a_k, p_k = _clone(alive, planes)
+    a_p, p_p = _clone(alive, planes)
+    gx.merge_rows_g(a_k, inc, p_k, blocks)
+    gx.merge_rows_g_plain(a_p, inc, p_p, blocks)
+    torch.cuda.synchronize()
+    assert _equal(a_k, a_p) and all(map(_equal, p_k, p_p))
+    placed = float(a_k.sum() - alive.sum())
+    assert placed > 0
+    if L == 2176 and rows_full:
+        rows = a_k.view(2, 8, L)[0, 4:] - alive.view(2, 8, L)[0, 4:]
+        assert float(rows.sum()) > float(inc[0, 6, 4:].sum())     # spill
+    if L < 2176:
+        assert placed < float(inc[:, 6].sum())                    # drops
+    assert gx.LAUNCHES["merge"] - before["merge"] == 1
+
+
+@pytest.mark.cuda
+def test_merge_kernel_needs_aligned_alive(cuda):
+    """K9 walks alive in 16-byte groups from each row's start."""
+    alive, inc, planes, blocks = _merge_case(cuda, 256, False, 3)
+    shifted = torch.zeros(alive.numel() + 1, device=cuda)[1:].view(
+        alive.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        gx.merge_rows_g(shifted, inc, planes, blocks)
 
 
 @pytest.mark.cuda

@@ -9,7 +9,17 @@ phi[n+1]), cast once).  K7 bit-equal to pinc_tpu's fold_to_global (the same
 three per-axis overlap-add passes in the same order), and rtol 1e-6 with
 atol 1e-6 * max|rho| against the TPU fold kernel, which sums the same
 entries in another order.  The CUDA kernels themselves are held against
-these plain versions on the card by tests/test_torch_cuda.py."""
+these plain versions on the card by tests/test_torch_cuda.py.
+
+K6's kernel takes runs of up to 8 tiles along z in one block (a pencil's
+last run the ntz % 8 rest).  A numpy emulation of its index arithmetic
+(the run's staged window of phi from 4-node groups; each warp's chunks of
+32 rows of P outputs, a lane a row, with the rows' mixed-radix digits
+stepped as the kernel steps them; each chunk's staging shifted to the
+span's 16-byte alignment, its whole 16-byte groups and its scalar ends)
+is held bit for bit against the plain version at every run length, and
+the plain version against pinc_tpu where ntz % 8 != 0 and where the z-wrap
+falls inside a run's window."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +55,165 @@ def test_efield_tiles_plain_matches_pallas(M, dt):
         ts.NT, 3 * ts.P, ts.P ** 2)
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("T, M, shape", [(8, 1, (16, 16, 80)),
+                                         (8, 2, (8, 16, 24)),
+                                         (4, 2, (8, 8, 28))])
+def test_efield_tiles_plain_matches_pallas_on_runs(T, M, shape):
+    """ntz = 10 (a run of 8 and a rest of 2), ntz = 3 (one run whose
+    window wraps at both z edges) and T <= 2M+1 with ntz = 7."""
+    jts, ts = _specs(T, M, shape)
+    phi = np.random.default_rng(T + M).normal(size=shape).astype(np.float32)
+    want = pf.efield_tiles(jnp.asarray(phi), jts, interpret=True,
+                           out_dtype=jnp.bfloat16)
+    got = fk.efield_tiles(torch.from_numpy(phi), ts, out_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def _split(i, radix):
+    """Mixed-radix digits of i, fastest first, the last unbounded (the
+    kernel's Radix::split)."""
+    d = []
+    for r in radix:
+        d.append(i % r)
+        i = i // r
+    return d + [i]
+
+
+def _add(d, s, radix):
+    """The kernel's Radix::add: d + s digit by digit with carries, each
+    stride digit below its radix (so one subtraction a digit)."""
+    out, carry = [], 0
+    for k, r in enumerate(radix):
+        v = d[k] + s[k] + carry
+        assert (v < 2 * r).all()
+        carry = (v >= r).astype(int)
+        out.append(v - r * carry)
+    return out + [d[-1] + s[-1] + carry]
+
+
+def efield_runs(phi, T, M, g, bf16):
+    """efield_kernel<bf16> with runs of g tiles on a numpy phi (X, Y, Z):
+    the flat output (NT * 3P^3) as float32 values of the output type.
+    Asserts that every output element is written once, that the 16-byte
+    stores and staging reads start on 16-byte boundaries, that no unstaged
+    window node is read and that a warp's lanes read distinct banks."""
+    X, Y, Z = phi.shape
+    P, W = T + 1 + 2 * M, T + 3 + 2 * M
+    V = 8 if bf16 else 4
+    ntx, nty, ntz = X // T, Y // T, Z // T
+    g = min(g, ntz)
+    runs = -(-ntz // g)
+    P3 = P ** 3
+    out = np.full(ntx * nty * ntz * 3 * P3, np.nan, np.float32)
+    writes = np.zeros(out.size, np.int64)
+    cast = ((lambda v: torch.from_numpy(v).to(torch.bfloat16).float()
+             .numpy()) if bf16 else (lambda v: v))
+    for blk in range(ntx * nty * runs):
+        rz, pencil = blk % runs, blk // runs
+        ty, tx = pencil % nty, pencil // nty
+        tz0 = rz * g
+        ng = min(g, ntz - tz0)
+        Zw = ng * T + 2 * M + 3
+        gx0, gy0, gz0 = tx * T - M - 1, ty * T - M - 1, tz0 * T - M - 1
+        q0 = gz0 // 4
+        nq = (gz0 + Zw - 1) // 4 - q0 + 1
+        PS = W * Zw + 32
+
+        def plane(x):                          # the kernel's plane_base
+            return x * PS + ((1 - 2 * x - W) * Zw) % 32
+        win = np.full(W * PS, np.nan, np.float32)
+        for x in range(W):
+            for y in range(W):
+                row = phi[(gx0 + x) % X, (gy0 + y) % Y]
+                for qi in range(nq):
+                    z0 = 4 * (q0 + qi)
+                    if Z % 4 == 0:           # one 16-byte load
+                        assert (z0 % Z) % 4 == 0
+                    for j in range(4):
+                        zi = z0 + j - gz0
+                        if 0 <= zi < Zw:
+                            win[plane(x) + y * Zw + zi] = row[(z0 + j) % Z]
+        n, nrows = ng * 3 * P3, ng * 3 * P * P
+        R0 = ((tx * nty + ty) * ntz + tz0) * 3 * P3
+
+        def put(x, v, vector=False):
+            if vector:                         # one 16-byte store
+                assert (R0 + x) % V == 0, f"16-byte store at {R0 + x}"
+                x = np.arange(x, x + V)
+            out[R0 + x] = v
+            writes[R0 + x] += 1
+
+        lanes = np.arange(32)
+        radix = (P, P, 3)
+        hop = _split(np.full(32, 8 * 32), radix)
+        for warp in range(8):
+            d = _split(warp * 32 + lanes, radix)
+            for ch in range(warp, -(-nrows // 32), 8):
+                # lane l: row 32 ch + l, digits (b, a, c, k), P outputs
+                rows = ch * 32 + lanes
+                assert all((x == y).all() for x, y in zip(
+                    d, _split(rows, radix)))
+                x0, x1 = ch * 32 * P, min(ch * 32 * P + 32 * P, n)
+                sh = (R0 + x0) % V
+                stage = np.full(32 * P + V, np.nan, np.float32)
+                firsts = {}                    # (c, k) -> lanes' first reads
+                for lane in lanes[rows < nrows]:
+                    b, a, c, k = (int(x[lane]) for x in d)
+                    zo = k * T + 1 + np.arange(P)
+                    mid = plane(a + 1)
+                    lo, hi = [win[i] for i in (
+                        (plane(a) + (b + 1) * Zw + zo,
+                         plane(a + 2) + (b + 1) * Zw + zo) if c == 0 else
+                        (mid + b * Zw + zo, mid + (b + 2) * Zw + zo)
+                        if c == 1 else
+                        (mid + (b + 1) * Zw + zo - 1,
+                         mid + (b + 1) * Zw + zo + 1))]
+                    assert not (np.isnan(lo).any() or np.isnan(hi).any())
+                    stage[sh + lane * P + np.arange(P)] = cast(
+                        np.float32(0.5) * (lo - hi))
+                    firsts.setdefault((c, k), []).append(
+                        plane(a) + (b + 1) * Zw + zo[0] if c == 0
+                        else mid + b * Zw + zo[0])
+                # the skewed planes: lanes of one (tile, component) read
+                # distinct banks (Zw odd)
+                if Zw % 2:
+                    for idx in firsts.values():
+                        assert len({i % 32 for i in idx}) == len(idx)
+                ga = min(x1, x0 + (V - sh) % V)
+                gb = max(ga, x1 - (R0 + x1) % V)
+                for x in range(ga, gb, V):
+                    i = sh + x - x0
+                    assert i % V == 0             # an aligned staging read
+                    put(x, stage[i:i + V], vector=True)
+                for x in list(range(x0, ga)) + list(range(gb, x1)):
+                    put(x, stage[sh + x - x0])
+                d = _add(d, hop, radix)
+    assert (writes == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("T, M, shape", [(8, 1, (16, 16, 80)),
+                                         (8, 2, (8, 16, 24)),
+                                         (4, 2, (8, 8, 28)),
+                                         (6, 1, (6, 12, 18))])
+def test_efield_run_emulation_matches_plain(T, M, shape, dt, g):
+    """Run lengths 1-8 (g = 3: spans that start off a 16-byte boundary in
+    f32 too), ntz % g != 0, a window wrapping at both z edges, T <= 2M+1,
+    and Z % 4 != 0 (scalar staging loads)."""
+    _, ts = _specs(T, M, shape)
+    phi = np.random.default_rng(60 + T + M).normal(size=shape).astype(
+        np.float32)
+    bf16 = dt == "bf16"
+    got = efield_runs(phi, T, M, g, bf16)
+    want = fk.efield_tiles_plain(torch.from_numpy(phi), ts,
+                                 out_dtype=torch.bfloat16 if bf16
+                                 else torch.float32)
+    np.testing.assert_array_equal(got, want.float().numpy().reshape(-1))
 
 
 def _tiles(ts, seed):
