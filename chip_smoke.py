@@ -8,8 +8,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    density adds of pic_step, deposit and deposit_move compile to native
    integer shared atomics (ATOMS.ADD, no compare-and-swap loop) in every
    instantiation, and that every instantiation of the exchange's
-   extract_kernel and cleanup_kernel holds 16-byte global loads and
-   stores (LDG/STG .128).
+   extract_kernel and cleanup_kernel, of efield_kernel and of fold_kernel
+   holds 16-byte global loads and stores (LDG/STG .128), and the merges
+   (merge_rows_kernel, both merge_kernel instantiations) 16-byte loads.
 2. Holds each kernel against its plain PyTorch version on the card and
    times both by CUDA events: deposit, deposit_move, gather, gather_kick at
    the test fixture's size and at the bench deck's production shape (128^3
@@ -21,7 +22,8 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    and at the production shape at M = 1 and M = 2, each launched twice
    (its integer density sums must give bit-identical tiles); efield_tiles
    and fold_global at M = 1, 2 and a T <= 2M+1 layout, and at 128^3 (bit for
-   bit); the exchange kernels extract, cleanup and merge at the fixture
+   bit; fold_global also at ntz = 5, 1, 2, T = 6 and 3 and M >= T); the
+   exchange kernels extract, cleanup and merge at the fixture
    size (with forced overflow, spill and drops) and at the production
    shape, on the calls one whole exchange makes on a bucketed state moved
    by one K2 drift of bench-like velocities (bit for bit), the merge also
@@ -35,10 +37,15 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    slots overflowing; B % 8 != 0 for the ranked modes; the drivers against
    the CPU) and on the calls of one exchange at the one-hot decks'
    production shapes (4096 tiles, B = 7680 for the fused row exchange, B =
-   6528 for the per-tile sweeps), each timed with its bound, then the
-   whole exchange.  The fixture also holds the one-hot extracts and
-   cleanup on rows that start off a 16-byte boundary (B = 648, cleanup
-   rows of 18), where the kernels take a scalar head.  Last, the extract
+   6528 for the per-tile sweeps), each timed with its bound (the merges
+   also in a CUDA graph), then the merge of that exchange on a fuller
+   destination (rows 0-3 of every tile full, or one free slot in 512:
+   arrivals drop) and the whole exchange.  The fixture also holds the
+   one-hot extracts, cleanup and merges on rows that start off a 16-byte
+   boundary (B = 648, cleanup rows of 18, merge runs of 13 columns with
+   their flags not a prefix), where the kernels take a scalar head.  The
+   ranked modes (pinc_tpu's extract and merge, for B % 8 != 0) are timed
+   at 4096 x 6524.  Last, the extract
    and cleanup calls at the headline scan window's face cap (K = 512, M =
    2, B = 17,408; the gather exchange, the one-hot rows and the per-tile
    sweeps on one state), each against its plain version and timed with
@@ -423,12 +430,23 @@ def compare_field(fk, ts, gen, dev, errs: dict, label: str):
         want = fk.efield_tiles_plain(phi, ts, out_dtype=out_dtype)
         check(same(got, want), f"efield_tiles {label} {out_dtype}: differs "
               f"from its plain version")
-    check(same(fk.fold_global(tiles, ts), fk.fold_global_plain(tiles, ts)),
+    check(same_bits(fk.fold_global(tiles, ts),
+                    fk.fold_global_plain(tiles, ts)),
           f"fold_global {label}: differs from its plain version")
     errs["efield_tiles"] = errs["fold_global"] = 0.0
     torch.cuda.synchronize()
     print(f"  efield_tiles, fold_global {label}: ok (bit-equal)", flush=True)
     return phi, tiles
+
+
+def compare_fold(fk, ts, gen, dev) -> None:
+    """K7 against its plain version, bit for bit."""
+    import torch
+    tiles = torch.randn((ts.NT, ts.P, ts.P * ts.P), generator=gen, device=dev)
+    check(same_bits(fk.fold_global(tiles, ts),
+                    fk.fold_global_plain(tiles, ts)),
+          f"fold_global {ts.grid} T={ts.T} M={ts.M}: differs from its plain "
+          f"version")
 
 
 def step_bytes(ts, S: int, e_bytes: int) -> float:
@@ -756,8 +774,9 @@ def time_calls(calls: dict, where: str, card: str, times: dict,
     (kernel, plain) by CUDA events on fresh copies of its inputs, with its
     bound from the bytes it must move; per kernel the mean over its
     calls."""
+    from pinc_tpu_torch import kbench
     for kind, recorded in calls.items():
-        ms = plain_ms = nbytes = settled_bytes = 0.0
+        ms = plain_ms = nbytes = settled_bytes = graph = 0.0
         leftovers = 0
         for fn, plain, args in recorded:
             def fresh(args=args):
@@ -775,6 +794,7 @@ def time_calls(calls: dict, where: str, card: str, times: dict,
             if "merge" in kind:
                 ms += cuda_ms_fresh(fresh, fn, reps=10)
                 plain_ms += cuda_ms_fresh(fresh, plain, reps=2)
+                graph += kbench.graph_ms_inplace(fn, args)
             else:
                 ms += cuda_ms(lambda: fn(*args), reps=10, warmup=2)
                 plain_ms += cuda_ms(lambda: plain(*args), reps=2, warmup=1)
@@ -787,6 +807,8 @@ def time_calls(calls: dict, where: str, card: str, times: dict,
         if kind == "merge":
             old += (f" ({leftovers} of {n * args[0].shape[0]} tiles with "
                     f"leftovers)")
+        if "merge" in kind:
+            old += f", in a CUDA graph {graph / n:.4f} ms"
         print(f"  time {kind} at {where} (mean of {n} call(s) of one "
               f"electron exchange): kernel {ms / n:.4f} ms, plain "
               f"{plain_ms / n:.4f} ms, bound {bounds[kind]:.4f} ms{old}, "
@@ -959,6 +981,42 @@ def check_onehot_fixture(ox, gx, ex, gen, dev) -> None:
     for axes in ((1, 2), (2,)):
         both(f"cleanup_rows W=18 {axes}", ox.cleanup_rows,
              ox.cleanup_rows_plain, inc_p, 18, 3, 4, axes)
+    # the merges on rows off a 16-byte boundary (L = 81) from buffers
+    # whose rows are too (runs of 13 columns; merge_all_rows' eight runs of
+    # 26, 36, 13, 5, 5, 13, 5, 5), flags set at random columns of each run
+    # (not a prefix), more arrivals than free slots (rows 0-2 full; the
+    # tiles of merge_fused one free slot in 60)
+    room_r = (torch.rand((8, 648), generator=gen, device=dev) < 0.7).float()
+    room_r.view(8, 8, 81)[:, :3] = 1.0
+    room_f = torch.ones((8, 648), device=dev)
+    room_f[:, ::60] = 0.0
+    eight, off = [], 0
+    for w in (26, 36, 13, 5, 5, 13, 5, 5):
+        eight.append((off, w))
+        off += w
+    for name, kern, plain, R, arg, KT, room in (
+            ("merge_rows", ox.merge_rows, ox.merge_rows_plain, 8, 13, 26,
+             room_r),
+            ("merge_all_rows", ox.merge_all_rows, ox.merge_all_rows_plain, 8,
+             tuple(eight), off, room_r),
+            ("merge_fused", ox.merge_fused, ox.merge_fused_plain, 1, 13, 26,
+             room_f)):
+        inc = torch.randn((8, 7, R, KT), generator=gen, device=dev)
+        inc[:, 6] = (torch.rand((8, R, KT), generator=gen, device=dev)
+                     < 0.6).float()
+        inc[:, 4, :, ::7] = -0.0
+        outs = []
+        for fn in (kern, plain):
+            a, p = room.clone(), tuple(q.clone() for q in planes_p)
+            fn(a, inc, p, arg)
+            outs.append([a, *p])
+        check(all(map(same_bits, *outs)),
+              f"one-hot {name} B=648, fixture: differs from its plain "
+              f"version")
+        placed = float(outs[0][0].sum() - room.sum())
+        check(0 < placed < float((inc[:, 6] > 0.5).sum()),
+              f"one-hot {name} B=648, fixture: expected drops, placed "
+              f"{placed}")
     for B in (100, 2100):                      # the ranked (B % 8 != 0) modes
         alive_b, planes_b = onehot_fixture(gen, dev, B)
         al = alive_b > 0.5
@@ -1011,7 +1069,8 @@ def check_onehot_fixture(ox, gx, ex, gen, dev) -> None:
     torch.cuda.synchronize()
     print("  one-hot exchange fixture (8 tiles x 640, 648, 100 and 2100; "
           "caps, edge caps and rows overflowing; rows off a 16-byte "
-          "boundary): ok (bit-equal)", flush=True)
+          "boundary; merge flags not a prefix of their runs): ok "
+          "(bit-equal)", flush=True)
 
 
 def check_onehot_bench(ox, ex, gen, dev, card: str, times: dict,
@@ -1047,6 +1106,8 @@ def check_onehot_bench(ox, ex, gen, dev, card: str, times: dict,
         caps = "Ks=64, Ke=16" if rows else "K=256"
         time_calls(calls, f"{ts.NT}x{ts.B} ({route}, {caps})", card, times,
                    bounds, equal=same_bits)
+        merge_overflow(calls[names[next(n for n in names if "merge" in n)]],
+                       rows, f"{ts.NT}x{ts.B} ({route}, {caps})", card)
         del calls
         _, a1, d1 = run()
         n0 = int((alive > 0.5).sum())
@@ -1065,6 +1126,112 @@ def check_onehot_bench(ox, ex, gen, dev, card: str, times: dict,
               flush=True)
         del alive, planes
         torch.cuda.empty_cache()
+
+
+def merge_overflow(recorded, rows: bool, where: str, card: str) -> None:
+    """A one-hot merge call of the exchange on a fuller destination, so
+    that arrivals drop: rows 0-3 of every tile full (R = 8), or one free
+    slot in 512 of every tile (R = 1).  Against its plain version bit for
+    bit, then timed (events, and in a CUDA graph)."""
+    import torch
+    from pinc_tpu_torch import kbench
+    fn, plain, args = recorded[0]
+    alive = args[0].clone()
+    NT, B = alive.shape
+    if rows:
+        alive.view(NT, 8, B // 8)[:, :4] = 1.0
+        label = "rows 0-3 of every tile full"
+    else:
+        alive.fill_(1.0)
+        alive[:, ::512] = 0.0
+        label = "one free slot in 512"
+    args = (alive,) + args[1:]
+    got = leaves(fn(*fresh_copy(args)))
+    want = leaves(plain(*fresh_copy(args)))
+    check(all(map(same_bits, got, want)),
+          f"one-hot merge at {where}, {label}: differs from its plain "
+          f"version")
+    placed = float(got[-1].sum() - alive.sum())
+    arrivals = float((args[1][:, 6] > 0.5).sum())
+    check(0 < placed < arrivals, f"one-hot merge at {where}, {label}: "
+          f"placed {placed} of {arrivals}, expected drops")
+    ms = cuda_ms_fresh(lambda: fresh_copy(args), fn, reps=10)
+    print(f"  time merge at {where}, {label} ({arrivals - placed:.0f} of "
+          f"{arrivals:.0f} arrivals dropped, bit-equal): kernel {ms:.4f} "
+          f"ms, in a CUDA graph {kbench.graph_ms_inplace(fn, args):.4f} ms "
+          f"({card})", flush=True)
+    del alive, args, got, want
+    torch.cuda.empty_cache()
+
+
+def check_ranked_bench(ox, gen, dev, card: str) -> None:
+    """Phase 2: K11's ranked modes (pinc_tpu's extract and merge, kept for
+    B % 8 != 0; no deck reaches them) at a shape near the v3 deck's, 4096
+    tiles x 6524 slots (6144 particles a tile, velocities N(0, 0.1) moved
+    by one 4-step cadence), the z sweep with K = 256: ranks as pinc_tpu's
+    exchange_dim computes them, the free ranks and the active flags of
+    the extract's output.  Each against its plain version, bit for bit,
+    and timed with its bound.  Printed only."""
+    import torch
+    from pinc_tpu_torch.ops.tiled import TileSpec
+    ts = TileSpec(grid=(128, 128, 128), T=8, M=2, B=6524)
+    alive, planes = bench_species(ts, gen, dev, 0.1, 4, -1.0 / ONEHOT_PC,
+                                  per_tile=ONEHOT_PC * 8 ** 3)
+    K = 256
+    al = alive > 0.5
+    lm, lp = al & (planes[2] < 0), al & (planes[2] >= ts.T)
+    rm = torch.cumsum(lm, 1, dtype=torch.int32) - 1
+    rp = torch.cumsum(lp, 1, dtype=torch.int32) - 1
+    none = torch.full_like(rm, -1)
+    rank = torch.where(lm & (rm < K), rm,
+                       torch.where(lp & (rp < K), K + rp, none))
+    rank = torch.where((lm & (rm >= K)) | (lp & (rp >= K)),
+                       torch.full_like(rm, 2 * K), rank)
+    del al, lm, lp, rm, rp, none
+    args = (rank, alive, planes, 2 * K)
+    buf, alive2 = ox.extract(*args)
+    pbuf, palive2 = ox.extract_plain(*args)
+    check(same_bits(buf, pbuf) and same_bits(alive2, palive2),
+          f"one-hot extract (ranked) at {ts.NT}x{ts.B}: differs from its "
+          f"plain version")
+    copied = float((buf[:, 6] > 0.5).sum())
+    x_bytes = alive.numel() * 12.0 + copied * 24.0 + buf.numel() * 4.0
+    x_ms = cuda_ms(lambda: ox.extract(*args), reps=10, warmup=2)
+    x_plain = cuda_ms(lambda: ox.extract_plain(*args), reps=2, warmup=1)
+    # the merge into the extract's output: the arrivals are the leavers
+    # themselves, placed into the slots they left and the others free
+    free = alive2 <= 0.5
+    fr_incl = torch.cumsum(free, 1, dtype=torch.int32)
+    frank = torch.where(free, fr_incl - 1, torch.full_like(fr_incl, -1))
+    CB = ox._chunk(ts.B)
+    ends = fr_incl[:, CB - 1::CB]
+    base = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
+    act = ((base < buf[:, 6].sum((-2, -1))[:, None]) & (ends > base)).to(
+        torch.int32)
+    margs = (frank, alive2, buf, planes)
+    got = leaves(ox.merge(*fresh_copy(margs), active=act))
+    want = leaves(ox.merge_plain(*fresh_copy(margs), active=act))
+    check(all(map(same_bits, got, want)),
+          f"one-hot merge (ranked) at {ts.NT}x{ts.B}: differs from its "
+          f"plain version")
+    placed = float(got[-1].sum() - alive2.sum())
+    active_slots = float(act.sum()) * CB
+    m_bytes = active_slots * 4.0 + buf[:, 6].numel() * 4.0 + placed * 52.0
+    m_ms = cuda_ms_fresh(lambda: fresh_copy(margs),
+                         lambda *a: ox.merge(*a, active=act), reps=10)
+    m_plain = cuda_ms_fresh(lambda: fresh_copy(margs),
+                            lambda *a: ox.merge_plain(*a, active=act),
+                            reps=2)
+    for name, ms, plain_ms, nbytes in (
+            ("extract_ranked_kernel", x_ms, x_plain, x_bytes),
+            ("merge_ranked_kernel", m_ms, m_plain, m_bytes)):
+        b = bound_ms(nbytes)
+        print(f"  time {name} at {ts.NT}x{ts.B} (ranked mode, K = {K}, "
+              f"{copied:.0f} copied, {placed:.0f} placed, bit-equal): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} "
+              f"ms, {b / ms:.1%} of it ({card})", flush=True)
+    del alive, planes, rank, args, buf, alive2, margs, got, want, frank
+    torch.cuda.empty_cache()
 
 
 def check_headline_cap(gx, ox, ex, gen, dev, card: str) -> None:
@@ -1634,15 +1801,19 @@ def main() -> int:
     # every instantiation must load and store 16 bytes at a time (extract:
     # 3 kinds x (K8's R = 8, K11's R = 8 and 1); cleanup: 3 axes tuples x
     # bit copies or x + 0.0)
-    # the gather merge (K9) counts and walks its rows in 16-byte groups
-    # (its stores to the scattered free slots stay scalar), and efield
-    # stages phi and writes its tiles 16 bytes at a time (f32 and bf16,
-    # each with P = 11, 13 compiled in and any P)
+    # the merges (K9, K11's R = 8 and 1) count and walk their rows in
+    # 16-byte groups (their stores to the scattered free slots stay
+    # scalar), efield stages phi and writes its tiles 16 bytes at a time
+    # (f32 and bf16, each with P = 11, 13 compiled in and any P), and the
+    # fold stages its tiles and writes rho 16 bytes at a time ((T, M) =
+    # (8, 1), (8, 2) compiled in and any)
     for kernel, count, ops_needed in (
             ("extract_kernel", 9, ("LDG", "STG")),
             ("cleanup_kernel", 6, ("LDG", "STG")),
             ("merge_rows_kernel", 1, ("LDG",)),
-            ("efield_kernel", 6, ("LDG", "STG"))):
+            ("merge_kernel", 2, ("LDG",)),
+            ("efield_kernel", 6, ("LDG", "STG")),
+            ("fold_kernel", 3, ("LDG", "STG"))):
         got = wide_accesses(lib, kernel)
         check(len(got) == count and all(
             all(any(op.startswith(k) for op in ops) for k in ops_needed)
@@ -1711,6 +1882,15 @@ def main() -> int:
                 TileSpec(grid=(16, 16, 80), T=8, M=2, B=128)):
         compare_field(fk, fts, gen, dev, errs,
                       f"fixture {fts.grid} T={fts.T} M={fts.M}")
+    # K7's runs of tiles along z at more shapes: ntz = 5, 1, 2 (the run's
+    # z-neighbours wrap into it or onto its one tile), T = 6 (rows of rho
+    # off a 16-byte boundary) and 3, and M >= T (fold_generic_kernel)
+    for grid, T, M in (((16, 8, 40), 8, 1), ((8, 8, 8), 8, 2),
+                       ((16, 8, 16), 8, 1), ((12, 6, 18), 6, 2),
+                       ((6, 6, 9), 3, 2), ((8, 8, 8), 2, 2)):
+        compare_fold(fk, TileSpec(grid=grid, T=T, M=M, B=128), gen, dev)
+    print("  fold_global at ntz = 5, 1, 2, T = 6 and 3, M >= T: ok "
+          "(bit-equal)", flush=True)
     errs = {k: 0.0 for k in tk.LAUNCHES}
     # the production shape of the bench deck: M=1 (derived from its
     # electron thermal velocity), B=17408, 16384 live slots per tile on
@@ -1784,6 +1964,7 @@ def main() -> int:
     check_exchange_bench(gx, ex, prod, gen, dev, card, times, bounds)
     check_onehot_fixture(ox, gx, ex, gen, dev)
     check_onehot_bench(ox, ex, gen, dev, card, times, bounds)
+    check_ranked_bench(ox, gen, dev, card)
     check_headline_cap(gx, ox, ex, gen, dev, card)
     # the exchange kernels are checked bit-equal (bit pattern for K11)
     errs.update({k: 0.0 for m in (gx, ox) for k in m.LAUNCHES})

@@ -4,11 +4,10 @@
 // A tile's B slots are 8 rows of L = B/8 contiguous slots (pinc_tpu's
 // (8, B/8) sublane view, whose rows are part of the result: caps, ranks and
 // the order in which free slots are filled are per row).  One thread block
-// of 8 warps handles one tile, warp w walking row w.  The extract, the
-// cleanup and the gather merge walk a row in chunks of 128 slots, each
-// lane owning 4 consecutive slots that it loads and stores with one
-// 16-byte access (RowWalk); K11's merges walk 32-slot chunks, a slot a
-// lane.  __ballot_sync +
+// of 8 warps handles one tile, warp w walking row w.  The kernels walk a
+// row in chunks of 128 slots, each lane owning 4 consecutive slots that it
+// loads and stores with one 16-byte access (RowWalk); only K9's spill
+// passes rescan 32 slots a chunk, a slot a lane.  __ballot_sync +
 // __popc(mask & lanemask_lt) gives each slot its rank inside a chunk, and
 // the warp carries the run from chunk to chunk.
 //
@@ -176,6 +175,65 @@ __device__ __forceinline__ void rank_class(const int (&cls)[kVec], int c,
   for (int j = 0; j < kVec; ++j)
     if (cls[j] == c) take(j, r++);
   *run += total;
+}
+
+// One lane's group of a walked row as loaded: its first slot, slot count
+// and chunk, and the values (zeros past the count).
+struct RowGroup {
+  int off, n, c;
+  float v[kVec];
+};
+
+// Bits 0..7 of x to bits 0, 4, ..., 28.
+__device__ __forceinline__ unsigned spread8(unsigned x) {
+  x &= 0xffu;
+  x = (x ^ (x << 12)) & 0x000f000fu;
+  x = (x ^ (x << 6)) & 0x03030303u;
+  return (x ^ (x << 3)) & 0x11111111u;
+}
+
+// The free slots (alive <= 0.5) of a chunk of alive as four 32-slot words:
+// bit i of word s is slot 32 s + i of the chunk (the chunk's four ballots,
+// one per slot of a lane's group, spread).  Lane l of a merge then places
+// slot 32 s + l, so that one store instruction covers one 128-byte line.
+__device__ __forceinline__ void free_words(const RowGroup& g,
+                                           unsigned (&w)[kVec]) {
+  unsigned m[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j)
+    m[j] = __ballot_sync(kFull, j < g.n && g.v[j] <= 0.5f);
+#pragma unroll
+  for (int s = 0; s < kVec; ++s) {
+    w[s] = 0u;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) w[s] |= spread8(m[j] >> (8 * s)) << j;
+  }
+}
+
+// The merges' arrival count per block: a group of a walk over the flag
+// row's columns [lo, ...) adds its set flags (> 0.5) to cnt[b] for each
+// block b of the table that holds them; whole blocks take the group's
+// count, a block boundary inside the group counts slot by slot.
+__device__ __forceinline__ void count_flags(const RowGroup& g, int lo,
+                                            const BlockTable& bt,
+                                            int (&cnt)[kMaxBlocks]) {
+  int k = 0;
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) k += g.v[j] > 0.5f;   // 0 past n
+  if (!__any_sync(kFull, k)) return;
+  const int c0 = lo + g.off, c1 = c0 + g.n;
+#pragma unroll
+  for (int b = 0; b < kMaxBlocks; ++b) {
+    if (b >= bt.n) break;
+    const int b0 = bt.off[b], b1 = b0 + bt.w[b];
+    if (c0 >= b0 && c1 <= b1) {
+      cnt[b] += k;
+    } else if (c0 < b1 && c1 > b0) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j)
+        cnt[b] += g.v[j] > 0.5f && c0 + j >= b0 && c0 + j < b1;
+    }
+  }
 }
 
 // p[0, n) = v[0, n): one 16-byte st.global for a whole group that starts

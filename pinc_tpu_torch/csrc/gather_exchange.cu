@@ -173,19 +173,6 @@ cleanup_kernel(const float* __restrict__ inc, Outs outs, int W, int Ke,
 // chunks, a slot a lane, with per-source-row consumed counters in shared
 // memory: lane l handles slots 32 i + l in both steps, so it reads back
 // its own alive writes.
-struct RowGroup {
-  int off, n;
-  float v[kVec];
-};
-
-// Bits 0..7 of x to bits 0, 4, ..., 28.
-__device__ __forceinline__ unsigned spread8(unsigned x) {
-  x &= 0xffu;
-  x = (x ^ (x << 12)) & 0x000f000fu;
-  x = (x ^ (x << 6)) & 0x03030303u;
-  return (x ^ (x << 3)) & 0x11111111u;
-}
-
 __global__ void __launch_bounds__(kThreads)
 merge_rows_kernel(float* __restrict__ alive, const float* __restrict__ inc,
                   MutPlanes pl, BlockTable bt, int B, int KT) {
@@ -217,27 +204,7 @@ merge_rows_kernel(float* __restrict__ alive, const float* __restrict__ inc,
           fw.group(c, lane, &g.off, &g.n);
           load4(g.v, flag + g.off, g.n);
         },
-        [&](const RowGroup& g) {
-          int k = 0;
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) k += g.v[j] > 0.5f;   // 0 past n
-          if (!__any_sync(kFull, k)) return;
-          // the group's columns [c0, c1): whole blocks add k, a block
-          // boundary inside the group counts slot by slot
-          const int c0 = lo + g.off, c1 = c0 + g.n;
-#pragma unroll
-          for (int b = 0; b < kMaxBlocks; ++b) {
-            if (b >= bt.n) break;
-            const int b0 = bt.off[b], b1 = b0 + bt.w[b];
-            if (c0 >= b0 && c1 <= b1) {
-              cnt[b] += k;
-            } else if (c0 < b1 && c1 > b0) {
-#pragma unroll
-              for (int j = 0; j < kVec; ++j)
-                cnt[b] += g.v[j] > 0.5f && c0 + j >= b0 && c0 + j < b1;
-            }
-          }
-        });
+        [&](const RowGroup& g) { count_flags(g, lo, bt, cnt); });
   }
   int nbe[kMaxBlocks];   // the row's arrivals through block b
   int total = 0;
@@ -264,25 +231,12 @@ merge_rows_kernel(float* __restrict__ alive, const float* __restrict__ inc,
     aw.group(c, lane, &g.off, &g.n);
     load4(g.v, arow + g.off, g.n);
   };
-  // the chunk's free slots as 4 words (bit i of word s: slot 32 s + i)
-  auto words = [&](const RowGroup& g, unsigned (&w)[kVec]) {
-    unsigned m[kVec];
-#pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      m[j] = __ballot_sync(kFull, j < g.n && g.v[j] <= 0.5f);
-#pragma unroll
-    for (int s = 0; s < kVec; ++s) {
-      w[s] = 0u;
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) w[s] |= spread8(m[j] >> (8 * s)) << j;
-    }
-  };
   const int a_r = total;
   int run = 0;
   if (a_r > 0) {
     walk_until<RowGroup>(0, aw.end, load_alive, [&](const RowGroup& g) {
       unsigned w[kVec];
-      words(g, w);
+      free_words(g, w);
       const int c0 = g.off - kVec * lane;   // the chunk's first slot
       const float* src[kVec];
 #pragma unroll

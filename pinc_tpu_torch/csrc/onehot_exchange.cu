@@ -14,7 +14,8 @@
 //            extract_rows, extract_all_rows (R = 8), extract_fused (R = 1)
 //   extract_ranked_kernel   extract (ranks given, any B)
 //   merge_kernel<R>         merge_rows, merge_all_rows (R = 8), merge_fused
-//                           (R = 1): a block table of compacted runs
+//                           (R = 1): a block table of compacted runs,
+//                           rows walked in 16-byte lane groups
 //   merge_ranked_kernel     merge (free ranks given, any B)
 //
 // cleanup_rows runs K10's kernel (gather_exchange.cu, canon = 1).
@@ -36,72 +37,175 @@ namespace {
 // K11 merge: merge_rows and merge_all_rows (R = 8: row r's free slots take
 // row r's arrivals), merge_fused (R = 1: the tile's free slots take the
 // tile's arrivals).  Free slot f of a segment (alive <= 0.5, counted in slot
-// order) takes arrival f, counted over the compacted blocks in table order;
-// it is placed if its flag is set.  Arrivals beyond the free slots are
-// dropped: there is no spill pass.  The arrivals are written IN PLACE into
-// the planes and alive; no other slot is touched (pinc_tpu passes them
-// through).  Bound: bytes: the alive plane up to the last free slot a row
-// needs (all of it for R = 1, whose first pass counts each warp's free
-// slots), the flag plane of the buffer, and 28 B read and written per
-// placed arrival.
+// order) takes arrival f, counted over the compacted blocks in table order
+// (every set flag of a block counts, wherever it lies in the block); it is
+// placed if the flag of that column is set.  Arrivals beyond the free slots
+// are dropped: there is no spill pass.  The arrivals are written IN PLACE
+// into the planes and alive, as x + 0.0f; no other slot is touched
+// (pinc_tpu passes them through).  Bound: bytes: the alive plane up to the
+// last free slot a segment needs, the flag plane of the buffer, and 28 B
+// read and written per placed arrival.
+//
+// Design.  (1) Flag counts per block in 16-byte lane groups (one RowWalk
+// over the span the blocks cover, the next chunk's loads in flight): for R
+// = 8 each warp its row; for R = 1 the tile's one row split over all 8
+// warps, chunk c to warp c % 8, the per-warp counts summed through shared
+// memory.  Their prefix (arrivals through block b) is held in registers,
+// the blocks' offsets in shared memory: a rank finds its block in 7
+// compares.  (2) Alive is walked in 16-byte lane groups (a scalar head
+// where a segment starts off a 16-byte boundary); a chunk's four ballots
+// become four words of 32 free-slot bits (free_words), and a lane places
+// as the chunk is ranked: lane l takes slot 32 s + l of word s, free rank
+// k < arrivals taking arrival k, so that a store instruction covers one
+// 128-byte line of a plane.  A lane issues its 4 x 7 loads (payloads and
+// flag) before its stores.  R = 8: each warp walks its row, the next
+// chunk's loads in flight, and stops once the row's arrivals are ranked.
+// R = 1: ranks run over the tile in slot order, so the 8 warps walk the
+// tile in rounds of 8 chunks, chunk c to warp c % 8: each warp counts its
+// chunk's free slots, one __syncthreads makes the round's counts known,
+// each warp places its chunk from the count before it, and the rounds
+// stop once the tile's arrivals are ranked.  Alive is read once, up to the
+// round of the last slot the tile needs, and all 8 warps place (a first
+// build walked a slice of B/8 slots a warp: all of alive read, the
+// placing left to the warps whose slices hold the first free slots).
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(float* __restrict__ alive, const float* __restrict__ inc,
              MutPlanes pl, BlockTable bt, int B, int KT) {
-  __shared__ int nb[R][kMaxBlocks];
-  __shared__ int nfree[kRows];
+  __shared__ int part[kWarps][kMaxBlocks];    // R = 1: each warp's counts
+  __shared__ int boff[kMaxBlocks];
+  __shared__ int rfree[2][kWarps];            // R = 1: a round's counts
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1u;
-  const int L = B / kRows;
-  const int row = R == 1 ? 0 : warp;
   const long long ipstride = (long long)R * KT;
-  const float* rin = inc + ((long long)blockIdx.x * kNPay * R + row) * KT;
-  const long long base = (long long)blockIdx.x * B + (long long)warp * L;
+  const float* rin =
+      inc + ((long long)blockIdx.x * kNPay * R + (R == 1 ? 0 : warp)) * KT;
+  // the segment: row `warp` of the tile (R = 8), or the whole tile
+  const long long seg0 =
+      (long long)blockIdx.x * B + (R == 1 ? 0 : (long long)warp * (B / kRows));
+  float* seg = alive + seg0;
+  const RowWalk aw(seg, R == 1 ? B : B / kRows);
 
-  if (R == kRows || warp == 0) {
-    for (int b = 0; b < bt.n; ++b) {
-      const float* flag = rin + 6 * ipstride + bt.off[b];
-      int cnt = 0;
-      for (int c0 = 0; c0 < bt.w[b]; c0 += 32) {
-        const int j = c0 + lane;
-        cnt += __popc(__ballot_sync(kFull, j < bt.w[b] && flag[j] > 0.5f));
-      }
-      if (lane == 0) nb[row][b] = cnt;
-    }
+  // (1) arrivals per block
+  int lo = KT, hi = 0;
+  for (int b = 0; b < bt.n; ++b) {
+    lo = min(lo, bt.off[b]);
+    hi = max(hi, bt.off[b] + bt.w[b]);
   }
-  if (R == 1) {
-    int f = 0;
-    for (int c0 = 0; c0 < L; c0 += 32) {
-      const int i = c0 + lane;
-      f += __popc(__ballot_sync(kFull, i < L && alive[base + i] <= 0.5f));
-    }
-    if (lane == 0) nfree[warp] = f;
-  }
-  __syncthreads();
-
-  int narr = 0;
-  for (int b = 0; b < bt.n; ++b) narr += nb[row][b];
-  int run = 0;   // free slots of the segment before this warp's next chunk
-  if (R == 1)
-    for (int w = 0; w < warp; ++w) run += nfree[w];
-  for (int c0 = 0; c0 < L && run < narr; c0 += 32) {
-    const int i = c0 + lane;
-    const long long k = base + i;
-    const bool is_free = i < L && alive[k] <= 0.5f;
-    const unsigned m = __ballot_sync(kFull, is_free);
-    const int frank = run + __popc(m & lt);
-    if (is_free && frank < narr) {
-      int a = frank, b = 0;
-      while (a >= nb[row][b]) a -= nb[row][b++];
-      const float* src = rin + bt.off[b] + a;
-      if (src[6 * ipstride] > 0.5f) {
+  int cnt[kMaxBlocks];
 #pragma unroll
-        for (int q = 0; q < 6; ++q)
-          pl.p[q][k] = stored<true>(src[q * ipstride]);
-        alive[k] = 1.0f;
-      }
+  for (int b = 0; b < kMaxBlocks; ++b) cnt[b] = 0;
+  if (lo < hi) {
+    const float* flag = rin + 6 * ipstride + lo;
+    const RowWalk fw(flag, hi - lo);
+    const int step = R == 1 ? kWarps : 1;
+    const int c0 = fw.first + (R == 1 ? warp : 0);
+    const int n = c0 < fw.end ? (fw.end - c0 + step - 1) / step : 0;
+    walk_pipelined<RowGroup>(
+        0, n,
+        [&](RowGroup& g, int i) {
+          fw.group(c0 + i * step, lane, &g.off, &g.n);
+          load4(g.v, flag + g.off, g.n);
+        },
+        [&](const RowGroup& g) { count_flags(g, lo, bt, cnt); });
+  }
+  int nbe[kMaxBlocks];   // arrivals through block b (max past the table)
+  int narr = 0;
+#pragma unroll
+  for (int b = 0; b < kMaxBlocks; ++b) {
+    cnt[b] = __reduce_add_sync(kFull, cnt[b]);
+    narr += cnt[b];
+    nbe[b] = b < bt.n ? narr : 0x7fffffff;
+    if (R == 1 && lane == 0) part[warp][b] = cnt[b];
+  }
+  if (threadIdx.x < kMaxBlocks) boff[threadIdx.x] = bt.off[threadIdx.x];
+  __syncthreads();
+  if (R == 1) {
+    narr = 0;
+#pragma unroll
+    for (int b = 0; b < kMaxBlocks; ++b) {
+      for (int w = 0; w < kWarps; ++w) narr += part[w][b];
+      nbe[b] = b < bt.n ? narr : 0x7fffffff;
     }
-    run += __popc(m);
+  }
+
+  // (2) placing: the free slots of a chunk whose first slot is c0, as four
+  // words; run counts the segment's free slots before the chunk
+  int run = 0;
+  auto place = [&](const unsigned (&w)[kVec], int c0) {
+    const float* src[kVec];
+#pragma unroll
+    for (int s = 0; s < kVec; ++s) {
+      const int rank = run + __popc(w[s] & lt);
+      src[s] = nullptr;
+      if ((w[s] >> lane & 1u) && rank < narr) {
+        int b = 0, base = 0;
+#pragma unroll
+        for (int q = 0; q < kMaxBlocks - 1; ++q)
+          if (rank >= nbe[q]) {
+            b = q + 1;
+            base = nbe[q];
+          }
+        src[s] = rin + boff[b] + rank - base;
+      }
+      run += __popc(w[s]);
+    }
+    float v[kVec][kNPay];
+#pragma unroll
+    for (int s = 0; s < kVec; ++s)
+#pragma unroll
+      for (int q = 0; q < kNPay; ++q)
+        v[s][q] = src[s] != nullptr ? src[s][q * ipstride] : 0.0f;
+#pragma unroll
+    for (int s = 0; s < kVec; ++s) {
+      if (src[s] == nullptr || !(v[s][6] > 0.5f)) continue;
+      const int k = c0 + 32 * s + lane;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) pl.p[q][seg0 + k] = stored<true>(v[s][q]);
+      seg[k] = 1.0f;
+    }
+  };
+  auto load_alive = [&](RowGroup& g, int c) {
+    aw.group(c, lane, &g.off, &g.n);
+    g.c = c;
+    load4(g.v, seg + g.off, g.n);
+  };
+  auto first_slot = [&](int c) { return c < 0 ? 0 : aw.h + kChunk * c; };
+  if (R == kRows) {
+    if (narr > 0)
+      walk_until<RowGroup>(aw.first, aw.end, load_alive,
+                           [&](const RowGroup& g) {
+        unsigned w[kVec];
+        free_words(g, w);
+        place(w, first_slot(g.c));
+        return run < narr;
+      });
+    return;
+  }
+  // R = 1: rounds of 8 chunks, the next round's chunk loaded ahead
+  RowGroup g{};
+  int c = aw.first + warp;
+  if (c < aw.end) load_alive(g, c);
+  int before = 0;   // the tile's free slots before the round
+  for (int round = 0; aw.first + kWarps * round < aw.end && before < narr;
+       ++round, c += kWarps) {
+    unsigned w[kVec];
+    free_words(g, w);   // no free slot in a chunk past the end (n = 0)
+    int mine = 0;
+#pragma unroll
+    for (int s = 0; s < kVec; ++s) mine += __popc(w[s]);
+    RowGroup next{};
+    if (c + kWarps < aw.end) load_alive(next, c + kWarps);
+    if (lane == 0) rfree[round & 1][warp] = mine;
+    __syncthreads();
+    run = before;
+    for (int v = 0; v < kWarps; ++v) {
+      const int f = rfree[round & 1][v];
+      run += v < warp ? f : 0;
+      before += f;
+    }
+    if (c < aw.end) place(w, first_slot(c));
+    g = next;
   }
 }
 

@@ -181,6 +181,37 @@ def graph_ms(fn, reps: int) -> float:
     return begin.elapsed_time(end) / reps
 
 
+def _tensors(x) -> list:
+    """The tensors of a nested tuple or list, in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return [x] if isinstance(x, torch.Tensor) else []
+
+
+def _cloned(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cloned(y) for y in x)
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def graph_ms_inplace(fn, args, reps: int = 10) -> float:
+    """graph_ms of fn(*work) for a call that updates its tensor arguments in
+    place (args: a tuple, tensors nested in tuples or lists): the graph
+    restores copies of args before each call, and the restores alone,
+    captured the same way, are subtracted."""
+    work = _cloned(tuple(args))
+    pairs = list(zip(_tensors(work), _tensors(args)))
+
+    def restore():
+        for w, a in pairs:
+            w.copy_(a)
+
+    def call():
+        restore()
+        fn(*work)
+    return graph_ms(call, reps) - graph_ms(restore, reps)
+
+
 def _bound_ms(nbytes: float, ops: float, kind: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3

@@ -1,0 +1,190 @@
+"""Trial builds of the fold (K7) and the one-hot merges (K11), timed beside
+the package's own build: ``python -m pinc_tpu_torch.kernel_trials DIR
+[DIR ...]``.
+
+Each DIR holds edited copies of ``csrc`` sources (``field.cu`` and/or
+``onehot_exchange.cu``, with the headers they include).  Each is compiled
+with the package's nvcc flags into a library of its own (under the
+git-ignored ``_build/trials/``), and its ``pinc_field_fold`` and
+``pinc_ox_merge`` run in one process beside the package's build, on the
+same inputs:
+
+* K7 at 128^3, T = 8, M = 1 and 2, on normal tiles;
+* the merge calls of one electron exchange of the one-hot decks (4096
+  tiles, 6144 particles a tile, velocities N(0, 0.1) moved by one 4-step
+  cadence): B = 7680 takes the fused row exchange (``merge_kernel<8>``),
+  B = 6528 the per-tile sweeps (``merge_kernel<1>``).
+
+Each result is compared with the plain version bit for bit (a trial that
+leaves work out is reported as differing, not refused) and timed in a
+CUDA graph (the merges write in place: ``kbench.graph_ms_inplace``), the
+fold also by CUDA events.  ptxas's registers and spills are printed for
+each trial's fold and merge kernels.  It raises without a card.
+``PERF.md`` names the edits of the trials it quotes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from . import kbench
+from .ops import _cuda_build, exchange as ex, field_kernels as fk
+from .ops import onehot_exchange as ox, tiled_kernels as tk
+from .ops.tiled import TileSpec, bucket
+
+SOURCES = ("field.cu", "onehot_exchange.cu")
+ONEHOT_B = {"rows": 7680, "tile": 6528}
+
+
+def build(src_dir: Path, name: str):
+    """(library, ptxas lines of the fold and merge kernels) of a trial."""
+    out_dir = _cuda_build.BUILD_DIR / "trials"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / f"lib{name}.so"
+    srcs = [str(src_dir / f) for f in SOURCES if (src_dir / f).exists()]
+    if not srcs:
+        raise ValueError(f"{src_dir} holds none of {SOURCES}")
+    cmd = [_cuda_build.nvcc_path(), "--ptxas-options=-v",
+           *_cuda_build.NVCC_FLAGS, "-shared", "-I", str(src_dir),
+           "-o", str(out), *srcs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {src_dir}:\n{proc.stderr}")
+    lines = proc.stderr.splitlines()
+    regs = [f"{lines[i].split('for ')[-1][:70]}: {lines[i + 2].strip()}"
+            for i in range(len(lines) - 2)
+            if "Function properties" in lines[i]
+            and ("fold_kernel" in lines[i] or "merge_kernel" in lines[i])]
+    lib = ctypes.CDLL(str(out))
+    for fn, args in _cuda_build.SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib, regs
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _species(ts: TileSpec, gen, dev):
+    """A bucketed electron species of the one-hot decks, moved by one
+    4-step drift: (alive, 6 planes)."""
+    n = 12 * 8 ** 3 * ts.NT
+    pos = torch.rand((n, 3), generator=gen, device=dev) * ts.grid[0]
+    vel = torch.randn((n, 3), generator=gen, device=dev) * 0.1
+    lp, lv, la, dropped = bucket(pos, vel, torch.ones(n, dtype=torch.bool,
+                                                      device=dev), ts)
+    if int(dropped):
+        raise RuntimeError("bucketing the trial state dropped particles")
+    xyz = lp.permute(2, 0, 1).contiguous()
+    v = lv.permute(2, 0, 1).contiguous()
+    alive = la.float()
+    _, moved, _ = tk.deposit_move(xyz, v * 4.0, alive, -1.0 / 12, ts,
+                                  mxu_dtype=torch.bfloat16)
+    return alive, tuple(moved) + tuple(v)
+
+
+def _merge_calls(route: str, gen, dev) -> list:
+    """The (alive, inc, planes, blocks) of each merge call of one
+    exchange on the route's deck."""
+    ts = TileSpec(grid=(128, 128, 128), T=8, M=2, B=ONEHOT_B[route])
+    alive, planes = _species(ts, gen, dev)
+    name = "merge_all_rows" if route == "rows" else "merge_fused"
+    orig, calls = getattr(ox, name), []
+
+    def spy(a, inc, pl, arg):
+        blocks = arg if route == "rows" else ((0, arg), (arg, arg))
+        calls.append((a.clone(), inc.clone(), tuple(p.clone() for p in pl),
+                      tuple(blocks)))
+        return orig(a, inc, pl, arg)
+    setattr(ox, name, spy)
+    try:
+        ex.rebucket_exchange_planes(planes, alive, ts.ntiles, ts.T, K=256,
+                                    rows=route == "rows")
+    finally:
+        setattr(ox, name, orig)
+    return calls
+
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def main(argv=None) -> int:
+    dirs = [Path(d) for d in (sys.argv[1:] if argv is None else argv)]
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_trials needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    print(kbench.card_line(), flush=True)
+    libs = {"package": _cuda_build.load()}
+    for d in dirs:
+        libs[d.name], regs = build(d, d.name)
+        for r in regs:
+            print(f"  {d.name} {r}", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for M in (1, 2):
+        ts = TileSpec(grid=(128, 128, 128), T=8, M=M, B=17408)
+        tiles = torch.randn((ts.NT, ts.P, ts.P * ts.P), generator=gen,
+                            device=dev)
+        want = fk.fold_global_plain(tiles, ts)
+        for name, lib in libs.items():
+            if not hasattr(lib, "pinc_field_fold"):
+                continue
+            rho = torch.empty(ts.grid, device=dev)
+
+            def call(lib=lib, rho=rho):
+                if lib.pinc_field_fold(_ptr(tiles), _ptr(rho), *ts.grid, 8,
+                                       M, _stream()):
+                    raise RuntimeError(f"{name}: fold launch failed")
+            call()
+            ok = _same_bits(rho, want)
+            print(f"fold M={M} {name}: graph {kbench.graph_ms(call, 20):.4f}"
+                  f" ms, events {kbench.cuda_ms(call, 20):.4f} ms, "
+                  f"bit-equal {ok}", flush=True)
+        del tiles, want
+    for route in ("rows", "tile"):
+        calls = _merge_calls(route, gen, dev)
+        for name, lib in libs.items():
+            if not hasattr(lib, "pinc_ox_merge"):
+                continue
+            graph = 0.0
+            ok = True
+            for alive, inc, planes, blocks in calls:
+                R, KT = inc.shape[2], inc.shape[3]
+                table = (ctypes.c_int * 16)(*[v for b in blocks for v in b])
+
+                def call(a, inc, *pl, lib=lib, table=table, n=len(blocks)):
+                    if lib.pinc_ox_merge(_ptr(a), _ptr(inc),
+                                         *[_ptr(p) for p in pl], table, n,
+                                         a.shape[0], a.shape[1], R, KT,
+                                         _stream()):
+                        raise RuntimeError(f"{name}: merge launch failed")
+                got = [alive.clone(), inc] + [p.clone() for p in planes]
+                call(*got)
+                wp, wa = ox._merge_plain(alive.clone(), inc,
+                                         tuple(p.clone() for p in planes),
+                                         blocks)
+                ok &= _same_bits(got[0], wa) and all(
+                    map(_same_bits, got[2:], wp))
+                graph += kbench.graph_ms_inplace(call, (alive, inc, *planes))
+            n = len(calls)
+            print(f"merge {route} {name}: graph {graph / n:.4f} ms, "
+                  f"bit-equal {ok} (mean of {n} call(s))", flush=True)
+        del calls
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -184,10 +184,15 @@ def fold_global(tiles: torch.Tensor, ts: TileSpec) -> torch.Tensor:
 
     Replaces pinc_tpu/ops/pallas_field.py ``fold_global_t``.  Bound on the
     card: the bytes, the tiles read once and rho written once (0.009 ms at
-    128^3, M=1).  Design: the gather form — one thread per grid node sums
-    the ceil(P/T)^3 tile entries that cover it in a fixed order (the plain
-    version's), so the result is deterministic, needs no atomics, and
-    holds for any T and M (grids of fewer than 2^31 nodes)."""
+    128^3, M=1).  Design (M < T): one block per run of consecutive tiles
+    along z (4 at T = 8, M = 2; 8 at M = 1): it stages the run's tiles and
+    their two z-neighbours, each as a padded block assembled from the
+    (x, y) neighbours' margin planes and rows, with 16-byte loads of
+    contiguous spans; folds them in shared memory in the plain version's
+    order (x, then y, then z), so the result is bit for bit the plain
+    version's, with no atomics; and writes the run's rows of rho with
+    16-byte stores.  M >= T takes a kernel of one thread per node
+    (grids of fewer than 2^31 nodes either way)."""
     if _is_cpu(tiles, "fold_global"):
         return fold_global_plain(tiles, ts)
     _check_grid(ts)

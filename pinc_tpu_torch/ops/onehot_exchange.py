@@ -429,8 +429,10 @@ def merge_all_rows(alive: torch.Tensor, inc: torch.Tensor, planes, blocks):
     Kernel onehot_merge_rows, replaces pallas_exchange.merge_all_rows.
     Bound on the card: bytes — alive read up to the last free slot a row
     fills, the flag plane, 28 B read and written per placed arrival.
-    Design: one block per tile, one warp per row, block counts in shared
-    memory."""
+    Design: one block per tile, one warp per row: the flags counted per
+    block and alive walked in 16-byte lane groups, each chunk's free slots
+    placed as they are ranked, lane l taking slot 32 s + l of each 32-slot
+    word (a store covers one 128-byte line)."""
     return _merge("onehot_merge_rows", alive, inc, planes, blocks, 8)
 
 
@@ -447,9 +449,13 @@ def merge_fused(alive: torch.Tensor, inc: torch.Tensor, planes, K: int):
     merge_all_rows.
 
     Kernel onehot_merge_tile, replaces pallas_exchange.merge_fused.  Bound
-    on the card: bytes — the alive plane (a first pass counts each warp's
-    free slots), the flag plane, 28 B read and written per placed
-    arrival."""
+    on the card: bytes — alive up to the last free slot the tile fills,
+    the flag plane, 28 B read and written per placed arrival.  Design:
+    merge_all_rows' walk with ranks
+    over the tile: every warp counts a share of the flags, then the 8
+    warps walk the tile in rounds of 8 chunks of 128 slots, one a warp,
+    each placing its chunk once a barrier has made the round's free
+    counts known; the rounds stop at the tile's last arrival."""
     return _merge("onehot_merge_tile", alive, inc, planes,
                   ((0, K), (K, K)), 1)
 

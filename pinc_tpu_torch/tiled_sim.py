@@ -32,6 +32,14 @@ decks with margin >= 2 and ``fresh=True`` the steps run at the per-step
 margin schedule (``tiles:marginSchedule``, true).  ``tiles:mega = false``
 scans the kernel-pair step of ``run()``.
 
+``tiles:backend`` is read as pinc_tpu reads it.  ``pallas`` (the port's
+default on every device) is the route above.  Any other value is pinc_tpu's
+XLA route: the window scans ``run()``'s step (no mega body, no margin
+schedule) and the weights are f32 whatever ``tiles:mxuDtype`` says, as
+pinc_tpu's XLA deposit and gather are; the kernels that compute it are the
+same.  ``tiles:gather`` (pinc_tpu's choice between two XLA gathers of the
+same field) is accepted and ignored.
+
 Decks with bounded walls, objects, checkpoints or output are refused.
 """
 
@@ -176,9 +184,19 @@ class TiledSimulation(Simulation):
             self.rebucket_every_s = [
                 R if R == Re else max(Re, R // Re * Re) for R in R_s]
             self.rebucket_every = min(self.rebucket_every_s)
-        self._mxu_dtype = (torch.bfloat16 if cfg.get_str(
-            "tiles:mxudtype", "f32").lower() in ("bf16", "bfloat16")
-            else torch.float32)
+        # tiles:backend as pinc_tpu reads it: "pallas" is its fused-kernel
+        # route (bf16 weights where tiles:mxuDtype asks, the mega scan
+        # body, the margin schedule); any other value its XLA route, whose
+        # steps are run()'s in-step kick order with f32 weights.  The
+        # default is "pallas" on every device (pinc_tpu's is "xla" on its
+        # CPU): the CPU runs the pallas route's plain versions.
+        # tiles:gather only picks one of two XLA gathers of the same field
+        # in pinc_tpu; it is read and ignored.
+        self._backend = cfg.get_str("tiles:backend", "pallas").lower()
+        self._gather_mode = cfg.get_str("tiles:gather", "mxu").lower()
+        self._mxu_dtype = (torch.bfloat16 if self._backend == "pallas"
+                           and cfg.get_str("tiles:mxudtype", "f32").lower()
+                           in ("bf16", "bfloat16") else torch.float32)
         self._capacity = cap_all
         self._charge = [float(c) for c in charge]
         self._mass = [float(m) for m in mass]
@@ -526,10 +544,11 @@ class TiledSimulation(Simulation):
     @property
     def _use_mega(self) -> bool:
         """The mega-fused scan body (K5 pic_step: every species' kick,
-        drift and deposit in one kernel a step).  Scan path only: the kick
-        uses the previous step's field, so run() keeps the reference's
-        in-step kick ordering."""
-        return self.cfg.get_bool("tiles:mega", True)
+        drift and deposit in one kernel a step), on the pallas backend.
+        Scan path only: the kick uses the previous step's field, so run()
+        keeps the reference's in-step kick ordering."""
+        return (self._backend == "pallas"
+                and self.cfg.get_bool("tiles:mega", True))
 
     def _rebucket_schedule(self, n: int):
         """step -> species due, from the per-species cadences."""
@@ -711,7 +730,7 @@ class TiledSimulation(Simulation):
         ts = self.ts
         mass = torch.tensor(self._mass, dtype=torch.float32,
                             device=self.device)
-        use_sched = (fresh and ts.M >= 2
+        use_sched = (fresh and self._backend == "pallas" and ts.M >= 2
                      and n % min(self.rebucket_every_s) == 0
                      and self.cfg.get_bool("tiles:marginschedule", True))
         plan = self._plan_sched(n) if use_sched else self._plan_generic(n)

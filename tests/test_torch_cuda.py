@@ -300,6 +300,31 @@ def test_field_kernels_match_plain(cuda, T, M, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T, M, shape", [(8, 1, (16, 8, 40)),
+                                         (8, 2, (8, 8, 8)),
+                                         (8, 1, (16, 8, 16)),
+                                         (6, 2, (12, 6, 18)),
+                                         (3, 2, (6, 6, 9)),
+                                         (2, 2, (8, 8, 8)),
+                                         (8, 1, (128, 128, 128)),
+                                         (8, 2, (128, 128, 128))])
+def test_fold_kernel_matches_plain(cuda, T, M, shape):
+    """K7 bit for bit (float32 bit patterns): fold_kernel's runs of tiles
+    along z with ntz = 5, 1, 2 (the run's z-neighbours wrapping into it or
+    onto its one tile), T = 6 (rows of rho off a 16-byte boundary), T =
+    3 <= 2M+1, the scan's 128^3 shapes; M >= T takes fold_generic_kernel.
+    The CPU emulation of the same runs is
+    tests/test_torch_field_kernels.py's fold_runs."""
+    ts = TileSpec(grid=shape, T=T, M=M, B=128)
+    tiles = torch.from_numpy(np.random.default_rng(T * 10 + M).normal(
+        size=(ts.NT, ts.P, ts.P ** 2)).astype(np.float32)).to(cuda)
+    before = fk.LAUNCHES["fold_global"]
+    got = fk.fold_global(tiles, ts)
+    assert _bits_equal(got, fk.fold_global_plain(tiles, ts))
+    assert fk.LAUNCHES["fold_global"] == before + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("T, M, shape", [(8, 2, (16, 16, 80)),
                                          (8, 1, (8, 8, 56)),
@@ -615,6 +640,97 @@ def test_onehot_kernels_match_plain(cuda):
     assert {k: ox.LAUNCHES[k] - before[k] for k in before} == {
         "onehot_extract_rows": 5, "onehot_extract_tile": 4,
         "onehot_cleanup": 2, "onehot_merge_rows": 2, "onehot_merge_tile": 1}
+
+
+# K11's merge_kernel<R> cases, shared with the CPU emulation of
+# tests/test_torch_onehot_merge_vec.py: (alive (NT, B), inc (NT, 7, R, KT),
+# 6 planes (NT, B)) made from a seed.  The flags of a block are set at
+# random columns, not as a prefix of the block (no caller of the kernel
+# guarantees a prefix), with payloads in every column, flagged or not; some
+# payloads are -0.0, which the merge stores as +0.0.
+
+# block tables: (offset, width) runs of a row of the buffer
+MERGE_TABLES = {
+    # merge_rows / merge_fused: minus [0, K), plus [K, 2K); K % 4 != 0
+    "two": ((0, 13), (13, 13)),
+    "one": ((0, 37),),
+    # runs with a gap and out of column order
+    "gaps": ((20, 9), (0, 6), (33, 11)),
+    # merge_all_rows' eight runs (Wx, 2(Ks+Ke), Ks, Ke, Ke, Ks, Ke, Ke) at
+    # Ks = 13, Ke = 5
+    "eight": tuple(zip((0, 26, 62, 75, 80, 85, 98, 103),
+                       (26, 36, 13, 5, 5, 13, 5, 5))),
+}
+
+# (fraction of free slots, fraction of flagged columns) per tile
+MERGE_CASES = {
+    "roomy": [(0.4, 0.3), (0.2, 0.5)],
+    "overflow": [(0.02, 0.8), (0.0, 0.5), (0.05, 1.0)],   # arrivals drop
+    "no arrivals": [(0.3, 0.0)],
+    "all free": [(1.0, 0.6)],
+}
+
+
+def merge_inputs(B, R, table, case, seed):
+    """alive, inc, planes, blocks of a named case: tile t has a fraction
+    MERGE_CASES[case][t][0] of its slots free (in tile 0 of "roomy" rows 2
+    and 5 full, row 6 all free) and a fraction [t][1] of each block's
+    columns flagged."""
+    blocks = MERGE_TABLES[table] if isinstance(table, str) else table
+    rng = np.random.default_rng(seed)
+    spec = MERGE_CASES[case]
+    NT = len(spec)
+    KT = max(o + w for o, w in blocks)
+    alive = np.ones((NT, B), np.float32)
+    inc = np.zeros((NT, 7, R, KT), np.float32)
+    for t, (free, arr) in enumerate(spec):
+        alive[t, rng.uniform(size=B) < free] = 0.0
+        for o, w in blocks:
+            inc[t, 6, :, o:o + w] = rng.uniform(size=(R, w)) < arr
+    if case == "roomy":
+        rows = alive[0].reshape(8, B // 8)
+        rows[2] = rows[5] = 1.0
+        rows[6] = 0.0
+    inc[:, :6] = rng.normal(size=(NT, 6, R, KT))
+    inc[:, 4, :, ::7] = -0.0
+    inc[:, 0, :, 1::5] = -0.0
+    planes = [rng.uniform(-1.0, 5.0, (NT, B)).astype(np.float32)
+              for _ in range(6)]
+    planes[3][:, ::5] = -0.0
+    return alive, inc, planes, blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["roomy", "overflow", "all free"])
+@pytest.mark.parametrize("table", list(MERGE_TABLES))
+@pytest.mark.parametrize("R, L", [(8, 81), (8, 960), (1, 81), (1, 816),
+                                  (1, 323)])
+def test_onehot_merge_kernel_matches_plain(cuda, R, L, table, case):
+    """K11's merge_kernel<R> against its plain version, planes and alive
+    bit pattern for bit pattern, on merge_inputs' cases
+    (those the CPU emulation, tests/test_torch_onehot_merge_vec.py, holds
+    against pinc_tpu): rows off a 16-byte boundary (L = 81, 323), the v5
+    and v3 decks' rows (L = 960, 816), runs of 1, 2, 3 and 8 with KT % 4 !=
+    0, flags not a prefix of their run, -0.0 payloads, more arrivals than
+    free slots (drops) and every slot free."""
+    alive, inc, planes, blocks = merge_inputs(8 * L, R, table, case,
+                                              seed=L + R)
+    a0 = torch.from_numpy(alive).to(cuda)
+    inc = torch.from_numpy(inc).to(cuda)
+    p0 = tuple(torch.from_numpy(p).to(cuda) for p in planes)
+    name = "onehot_merge_rows" if R == 8 else "onehot_merge_tile"
+    before = ox.LAUNCHES[name]
+    a_k, p_k = _clone(a0, p0)
+    a_p, p_p = _clone(a0, p0)
+    ox._merge(name, a_k, inc, p_k, blocks, R)
+    ox._merge_plain(a_p, inc, p_p, blocks)
+    torch.cuda.synchronize()
+    assert _bits_equal(a_k, a_p) and all(map(_bits_equal, p_k, p_p))
+    assert ox.LAUNCHES[name] == before + 1
+    placed = float(a_k.sum() - a0.sum())
+    arrivals = float((inc[:, 6] > 0.5).sum())
+    if case == "overflow":
+        assert 0 < placed < arrivals
 
 
 @pytest.mark.cuda

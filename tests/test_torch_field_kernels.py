@@ -19,8 +19,21 @@ stepped as the kernel steps them; each chunk's staging shifted to the
 span's 16-byte alignment, its whole 16-byte groups and its scalar ends)
 is held bit for bit against the plain version at every run length, and
 the plain version against pinc_tpu where ntz % 8 != 0 and where the z-wrap
-falls inside a run's window."""
+falls inside a run's window.
 
+K7's kernel (M < T) takes runs of tiles along z too.  A numpy emulation of
+it (fold_runs: the staged blocks assembled from the (x, y) neighbours'
+spans, each a scalar head and 16-byte groups; the shared layout that puts
+planes and core rows on 16-byte boundaries; the x, y and z passes in
+place, with the plain version's additions of zero padding; the rows of rho
+as a scalar head and 16-byte groups) is held bit for bit against the plain
+version and pinc_tpu's fold_to_global at run lengths 1-8, ntz = 1, 2, 3
+and 5, T = 8, 6, 4 and 3, and within the tolerance above against the TPU
+kernel's fold_global_t, which sums in another order."""
+
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -248,6 +261,155 @@ def test_fold_global_plain_matches_xla_fold_where_tiles_overlap(T, M):
         jnp.asarray(tiles).reshape((ts.NT,) + (ts.P,) * 3), jts))
     got = fk.fold_global(torch.from_numpy(tiles), ts).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def fold_runs(tiles, T, M, g, grid):
+    """fold_kernel (M < T) with runs of g tiles on numpy (NT, P, P*P)
+    float32 tiles: rho (X, Y, Z).  Per block (a run of up to g tiles along
+    z at (tx, ty)): the staged blocks of the run's tiles and their two
+    z-neighbours, each plane ax of a staged block from tile tx + 1 (ax <
+    M), tx (core) or tx - 1 (ax >= T + M) and within it the rows ay the
+    same way along y, one contiguous span of n P floats a (plane,
+    y-region) loaded as a scalar head up to its first 16-byte boundary and
+    4-float groups (the last one short); then the x, y and z passes in
+    shared memory, in place, and the run's rows of rho as a scalar head
+    and 16-byte groups.  Asserts that every staged entry is loaded once,
+    that every 16-byte load and store starts on a 16-byte boundary, that a
+    pass reads only entries no pass writes (or the one it writes), and
+    that every node of rho is written once."""
+    X, Y, Z = grid
+    P = T + 1 + 2 * M
+    assert M < T
+    ntx, nty, ntz = X // T, Y // T, Z // T
+    g = min(g, ntz)
+    flat = np.ascontiguousarray(tiles).reshape(-1)
+    rho = np.full(X * Y * Z, np.nan, np.float32)
+    writes = np.zeros(rho.size, np.int64)
+    zero = np.float32(0.0)
+    core = range(M, T + M)
+    for blk in range(ntx * nty * -(-ntz // g)):
+        runs = -(-ntz // g)
+        rz, pencil = blk % runs, blk // runs
+        ty, tx = pencil % nty, pencil // nty
+        tz0 = rz * g
+        ng = min(g, ntz - tz0)
+        nk = ng + 2
+        # the shared layout: planes S floats apart (S % 4 == 0), pad before
+        # each so that its core rows start on a 16-byte boundary: the x
+        # pass's float4s, and the y pass's where T P % 4 == 0 (rows T P
+        # floats apart)
+        pad = (-M * P) % 4
+        S = -(-(pad + P * P) // 4) * 4
+        assert S % 4 == 0 and (pad + M * P) % 4 == 0 and S >= pad + P * P
+        st = np.full((nk, P, P, P), np.nan, np.float32)
+        loaded = np.zeros(st.shape, np.int64)
+        # (1) staging: span (k, ax, r)
+        for k in range(nk):
+            sz = (tz0 - 1 + k) % ntz
+            for ax in range(P):
+                sx = (tx + (1 if ax < M else (0 if ax < T + M else -1))) % ntx
+                for r, (ay0, n) in enumerate(((0, M), (M, T), (T + M, M + 1))):
+                    sy = (ty + 1 - r) % nty
+                    src = ((((sx * nty + sy) * ntz + sz) * P + ax) * P
+                           + ay0) * P
+                    n *= P
+                    h = min(n, (-src) % 4)
+                    offs = np.concatenate([[0], np.arange(h, n, 4)])
+                    cnts = np.concatenate([[h], np.minimum(4, n - offs[1:])])
+                    assert ((src + offs[cnts == 4]) % 4 == 0).all()
+                    for off, cnt in zip(offs, cnts):     # the span's items
+                        sl = slice(ay0 * P + off, ay0 * P + off + cnt)
+                        st[k, ax].reshape(-1)[sl] = flat[src + off:
+                                                         src + off + cnt]
+                        loaded[k, ax].reshape(-1)[sl] += 1
+        assert (loaded == 1).all()
+        # (2) x pass, (3) y pass: core entry m + M takes m + M - T (m >= T
+        # - M, a piece only where M > 0) and m + M + T (m <= M), zeros
+        # elsewhere; the entries read are margins (never written) or the
+        # one written
+        for mx in range(T):
+            lo_i, hi_i = mx + M - T, mx + M + T
+            assert lo_i not in core and hi_i not in core
+            x = st[:, mx + M].copy()
+            if M > 0:
+                x = x + (st[:, lo_i] if mx >= T - M else zero)
+            st[:, mx + M] = x + (st[:, hi_i] if mx <= M else zero)
+        for my in range(T):
+            y = st[:, M:T + M, my + M].copy()
+            if M > 0:
+                y = y + (st[:, M:T + M, my + M - T] if my >= T - M else zero)
+            st[:, M:T + M, my + M] = y + (st[:, M:T + M, my + M + T]
+                                          if my <= M else zero)
+        # (4) z pass as rho is written: run tile k (block k + 1), node mz
+        nz = ng * T
+        col = np.empty((T, T, nz), np.float32)
+        for e in range(nz):
+            k, mz = divmod(e, T)
+            z = st[k + 1, M:T + M, M:T + M, mz + M]
+            if M > 0:
+                z = z + (st[k + 2, M:T + M, M:T + M, mz + M - T]
+                         if mz >= T - M else zero)
+            col[:, :, e] = z + (st[k, M:T + M, M:T + M, mz + M + T]
+                                if mz <= M else zero)
+        for mx in range(T):
+            for my in range(T):
+                row = ((tx * T + mx) * Y + ty * T + my) * Z + tz0 * T
+                h = min(nz, (-row) % 4)
+                for off, cnt in [(0, h)] + [(off, min(4, nz - off))
+                                            for off in range(h, nz, 4)]:
+                    if cnt == 4:
+                        assert (row + off) % 4 == 0       # a 16-byte store
+                    rho[row + off:row + off + cnt] = col[mx, my,
+                                                         off:off + cnt]
+                    writes[row + off:row + off + cnt] += 1
+    assert (writes == 1).all()
+    return rho.reshape(grid)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("T, M, shape", [(8, 1, (16, 8, 40)),
+                                         (8, 2, (8, 16, 24)),
+                                         (8, 2, (8, 8, 8)),
+                                         (8, 1, (16, 8, 16)),
+                                         (6, 2, (12, 6, 18)),
+                                         (4, 2, (8, 8, 12)),
+                                         (3, 2, (6, 6, 9))])
+def test_fold_run_emulation_matches_plain(T, M, shape, g):
+    """Runs of 1-8 tiles, ntz = 1, 2, 3 and 5 (the z-neighbours of a run
+    the same tile, or wrapping into the run), ntz % g != 0, T = 6 (rows of
+    rho off a 16-byte boundary), T <= 2M+1 (a node takes from both
+    neighbours of an axis).  Bit for bit against the port's plain version
+    and pinc_tpu's fold_to_global (the same three per-axis passes); the
+    TPU kernel's fold (pallas_field.fold_global_t) sums in another order
+    and takes T > 2M+1: within its tolerance at T = 8."""
+    tiles, plain, xla, tpu = _fold_refs(T, M, shape)
+    got = fold_runs(tiles, T, M, g, shape)
+    _eq_bits(got, plain)
+    _eq_bits(got, xla)
+    if tpu is not None:
+        np.testing.assert_allclose(got, tpu, rtol=1e-6,
+                                   atol=1e-6 * np.abs(tpu).max())
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_refs(T, M, shape):
+    """The tiles of a fold case and their folds: the port's plain version,
+    pinc_tpu's fold_to_global, and its TPU kernel's (T > 2M+1 only, in
+    interpret mode, transposed back), computed once for every run length."""
+    jts, ts = _specs(T, M, shape)
+    tiles = _tiles(ts, 70 + T + M + len(shape))
+    plain = fk.fold_global_plain(torch.from_numpy(tiles), ts).numpy()
+    xla = np.asarray(jax.jit(lambda t: jtl.fold_to_global(t, jts))(
+        jnp.asarray(tiles).reshape((ts.NT,) + (ts.P,) * 3)))
+    tpu = (np.asarray(pf.fold_global_t(jnp.asarray(tiles), jts,
+                                       interpret=True)).transpose(1, 0, 2)
+           if T > 2 * M + 1 else None)
+    return tiles, plain, xla, tpu
+
+
+def _eq_bits(a, b):
+    np.testing.assert_array_equal(np.ascontiguousarray(a).view(np.uint32),
+                                  np.ascontiguousarray(b).view(np.uint32))
 
 
 def test_fold_global_plain_conserves_charge():
