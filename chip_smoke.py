@@ -10,7 +10,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    instantiation, and that every instantiation of the exchange's
    extract_kernel and cleanup_kernel, of efield_kernel and of fold_kernel
    holds 16-byte global loads and stores (LDG/STG .128), and the merges
-   (merge_rows_kernel, both merge_kernel instantiations) 16-byte loads.
+   (merge_rows_kernel, both merge_kernel instantiations) 16-byte loads;
+   that both instantiations of the kernel benchmark's given_kron_kernel
+   hold tensor-core instructions (HGMMA), and that weight_sums_kernel's
+   shared atomics are all ATOMS.ADD.
 2. Holds each kernel against its plain PyTorch version on the card and
    times both by CUDA events: deposit, deposit_move, gather, gather_kick at
    the test fixture's size and at the bench deck's production shape (128^3
@@ -80,9 +83,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    window, then a timed one, each checked as phase 3's runs (launches,
    state on the card, drops, alive count, energy); then a CUDA-event split
    of one mega step and each species' exchange.
-6. The kernel benchmark (K12 and K13's probes): each mode of the two
+6. The kernel benchmark (K12 and K13's probes): each mode of the
    variant kernels of csrc/kbench.cu against its plain version at the
-   test fixture (M = 1 and 2, B = 256 and 1040), and each of the four
+   test fixture (M = 1 and 2, B = 256 and 1040), given_kron and
+   weight_sums also at 4096 x 9216 at M = 2, weight_sums launched twice
+   (the same bits), and each of the four
    exchange-primitive kernels of csrc/kbench_prims.cu (take, roll,
    plane_add, lane_prefix) at the probes' own shapes (kbench.check_prims,
    bit pattern for bit pattern); then pinc_tpu_torch.kbench.run in process
@@ -93,7 +98,8 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    its plain version (int8 and the primitives bit for bit), with its time,
    bound, share of the bound and error against K1/K3 bf16 or, for the
    primitives, the time of the one PyTorch call that computes the same
-   function; and the ceilings' times against K1's and K3's.
+   function; the ceilings' times against K1's and K3's; and given_kron's
+   product as one torch.matmul of bf16 operands beside its kernel.
 
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
@@ -145,6 +151,9 @@ ONEHOT_SLACK = {"onehot_rows": None, "onehot_tile": 1.0625}
 ONEHOT_B = {"onehot_rows": 7680, "onehot_tile": 6528}
 # the kernel benchmark's production row of each exchange primitive whose
 # numbers go into the kernels line
+#: the kbench deposit modes redesigned for Hopper's tensor cores and
+#: integer atomics, also held at the production shape at M = 2
+TC_MODES = ("given_kron", "weight_sums")
 PRIM_ROWS = {"kbench_take": "prims take extract",
              "kbench_roll": "prims roll rows p=1",
              "kbench_plane_add": "prims plane_add G=1",
@@ -1652,14 +1661,19 @@ def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
                  errs: dict, libs: dict) -> None:
     """Phase 6: the kernel benchmark's kernels (K12, K13's probes).  Each
     variant mode against its plain version at the test fixture (16^3, T =
-    8, B = 256, M = 1 and 2; and B = 1040, whose 130 columns a row
-    given_kron takes in three plane chunks), each exchange primitive at the
-    probes' shapes (bit pattern for bit pattern), then
-    pinc_tpu_torch.kbench.run at the production shapes, with the launch
-    counts set to 0 just before and read just after; every row must agree
-    with its plain version (int8 and the primitives bit for bit) and each
-    primitive with its library call.  Fills the kbench kernels' entries of
-    launches, times, bounds and errs, and libs for the primitives."""
+    8, B = 256 and 1040, M = 1 and 2: B = 1040's 130 columns a row take
+    given_kron's element-copy instantiation in three plane stages), the
+    TC_MODES also at 4096 x 9216 at M = 2 (P = 13: given_kron's two
+    column blocks), weight_sums launched twice (its integer R sums give
+    the same bits), each exchange primitive at the probes' shapes (bit
+    pattern for bit pattern), then pinc_tpu_torch.kbench.run at the
+    production shapes, with the launch counts set to 0 just before and
+    read just after; every row must agree with its plain version (int8
+    and the primitives bit for bit) and each primitive with its library
+    call; then given_kron's product timed as one torch.matmul beside its
+    kernel (kbench.given_kron_matmul_ms, context, not a library call).
+    Fills the kbench kernels' entries of launches, times, bounds and errs,
+    and libs for the primitives."""
     import torch
     from pinc_tpu_torch import kbench
     from pinc_tpu_torch.ops import kbench_kernels as kb
@@ -1669,37 +1683,51 @@ def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
-    for M, B in ((1, 256), (2, 256), (1, 1040)):
-        ts = TileSpec(grid=(16, 16, 16), T=8, M=M, B=B)
+    for grid, M, B in (((16, 16, 16), 1, 256), ((16, 16, 16), 2, 256),
+                       ((16, 16, 16), 1, 1040), ((16, 16, 16), 2, 1040),
+                       ((128, 128, 128), 2, 9216)):
+        ts = TileSpec(grid=grid, T=8, M=M, B=B)
+        modes = kb.DEPOSIT_MODES if grid[0] == 16 else TC_MODES
         xyz = torch.rand((3, ts.NT, ts.B), generator=gen, device=dev) * (
             ts.T + 2 * M) - M
         val = (torch.rand((ts.NT, ts.B), generator=gen, device=dev)
                < 0.9).float()
-        field = torch.randn((ts.NT, ts.P, ts.P, ts.P, 3), generator=gen,
-                            device=dev)
         kron = torch.rand((ts.P ** 2, ts.B // 8), generator=gen,
                           device=dev).bfloat16()
-        Eq, scale = kb.quantize_field(field)
-        for mode in kb.DEPOSIT_MODES:
+        for mode in modes:
             got = kb.deposit_variant(xyz, val, ts, mode, kron=kron)
             want = kb.deposit_variant_plain(xyz, val, ts, mode, kron=kron)
             check(torch.equal(got, want) if mode == "int8" else
                   (got - want).abs().max().item()
                   <= kbench.DEPOSIT_RTOL * want.abs().max().item(),
-                  f"kbench deposit {mode}, fixture M={M} B={B}: differs "
-                  f"from its plain version")
-        for mode in kb.GATHER_MODES:
-            f, kw = (Eq, dict(scale=scale)) if mode == "int8" else (field, {})
-            got = kb.gather_variant(f, xyz, ts, mode, **kw)
-            want = kb.gather_variant_plain(f, xyz, ts, mode, **kw)
-            check(torch.equal(got, want) if mode == "int8" else
-                  (got - want).abs().max().item()
-                  <= kbench.GATHER_RTOL * want.abs().max().item(),
-                  f"kbench gather {mode}, fixture M={M} B={B}: differs "
-                  f"from its plain version")
+                  f"kbench deposit {mode}, {ts.NT} tiles M={M} B={B}: "
+                  f"differs from its plain version")
+            if mode == "weight_sums":     # integer R sums: the same bits
+                check(kbench.same_bits(
+                    got, kb.deposit_variant(xyz, val, ts, mode)),
+                      f"kbench deposit weight_sums, {ts.NT} tiles M={M} "
+                      f"B={B}: two launches differ")
+        if grid[0] == 16:
+            field = torch.randn((ts.NT, ts.P, ts.P, ts.P, 3), generator=gen,
+                                device=dev)
+            Eq, scale = kb.quantize_field(field)
+            for mode in kb.GATHER_MODES:
+                f, kw = ((Eq, dict(scale=scale)) if mode == "int8"
+                         else (field, {}))
+                got = kb.gather_variant(f, xyz, ts, mode, **kw)
+                want = kb.gather_variant_plain(f, xyz, ts, mode, **kw)
+                check(torch.equal(got, want) if mode == "int8" else
+                      (got - want).abs().max().item()
+                      <= kbench.GATHER_RTOL * want.abs().max().item(),
+                      f"kbench gather {mode}, fixture M={M} B={B}: differs "
+                      f"from its plain version")
+        del xyz, val, kron, got, want
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     print("phase 6 kernel bench: every variant mode against its plain "
-          "version at the fixture (M = 1, 2; B = 256, 1040): ok", flush=True)
+          "version at the fixture (M = 1, 2; B = 256, 1040), given_kron "
+          "and weight_sums also at 4096 x 9216, M = 2; weight_sums launched "
+          "twice, the same bits: ok", flush=True)
     checks = kbench.check_prims(dev, log=lambda s: print(f"  {s}",
                                                           flush=True))
     torch.cuda.synchronize()
@@ -1730,6 +1758,8 @@ def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
               f"{'K3' if mode == 'no_xreduce' else 'K1'} bf16 {base:.4f} ms "
               f"at 4096x9216; {kbench.CEILING_NOTES[mode]} ({card})",
               flush=True)
+    print(f"  {kbench.format_matmul(kbench.given_kron_matmul_ms(dev))} "
+          f"({card})", flush=True)
     by = {r["name"]: r for r in rows}
     for key in kp.LAUNCHES:
         r = by[PRIM_ROWS[key]]
@@ -1797,6 +1827,22 @@ def main() -> int:
           f"instantiation {sorted({tuple(o.items()) for o in k5.values()})}"
           f"; deposit and deposit_move's "
           f"{sorted({tuple(o.items()) for o in k12.values()})}", flush=True)
+    # the kernel benchmark's given_kron runs on the tensor cores (wgmma:
+    # HGMMA) in both instantiations (16-byte copies or not), and
+    # weight_sums' R sums are native integer shared atomics
+    gk = sass_ops(lib, "given_kron_kernel", r"\b(H[G]?MMA\S*)")
+    check(len(gk) == 2 and all(gk.values()),
+          f"given_kron_kernel's 2 instantiations do not all hold tensor-core "
+          f"instructions (HGMMA/HMMA): {gk}")
+    ws = shared_atomics(lib, "weight_sums_kernel")
+    check(len(ws) == 1 and all(ops and set(ops) == {"ATOMS.ADD"}
+                               for ops in ws.values()),
+          f"weight_sums_kernel's shared atomics are not all ATOMS.ADD: {ws}")
+    print(f"phase 1 SASS (cuobjdump): given_kron_kernel's tensor-core "
+          f"instructions per instantiation "
+          f"{sorted({tuple(o.items()) for o in gk.values()})}; weight_sums'"
+          f" shared atomics {sorted({tuple(o.items()) for o in ws.values()})}",
+          flush=True)
     # the exchange's extract and cleanup walk rows in 16-byte lane groups:
     # every instantiation must load and store 16 bytes at a time (extract:
     # 3 kinds x (K8's R = 8, K11's R = 8 and 1); cleanup: 3 axes tuples x

@@ -4,7 +4,8 @@
 // and K3 (the variants that are K1's or K3's own function run K1's or K3's
 // kernel of csrc/tiled.cu).
 //
-// deposit_variant_kernel<MODE> — one block per tile, 256 threads:
+// The deposits, each (NT, P, P^2) tiles from the slots of each tile:
+//   deposit_variant_kernel<MODE> — one block per tile, 256 threads:
 //   INT8         kbench.py _deposit_kernel_q (deposit_q) and kbench5.py
 //                _dep_row_kernel_q: wx = rint(127 w(x) v), wyz =
 //                rint(127 w(y) w(z)), their products summed exactly in an
@@ -12,17 +13,20 @@
 //   BF16_NATIVE  kbench4.py _deposit_kernel_bf: the weights in bf16
 //                arithmetic, rounded after every operation (d = bf16(x-n),
 //                1-|d|, max(0, .), the products), summed in float32.
-//   WEIGHT_SUMS  kbench3.py _deposit_kernel_vpuonly: out[a][k] = X[a] +
-//                R[k], X the tile's sum of wx = w(x) v, R of wyz = w(y)
-//                w(z): K1's weight arithmetic with the scatter replaced by
-//                per-thread private bins (no shared atomics); the bins'
-//                shared memory leaves 8 warps an SM, which bounds its time.
-//   GIVEN_KRON   kbench2.py _deposit_kernel_constk: out[a][k] = sum over
-//                the 8 rows r and columns l of wx_r[a][l] kron[k][l], the
-//                (P^2, L) plane given: one dense (P, L) by (L, P^2)
-//                product a row on the CUDA cores, as the reference does,
-//                the plane streamed through shared memory in chunks of
-//                kChunk columns beside the rows' wx of those columns.
+//   weight_sums_kernel (WEIGHT_SUMS) — kbench3.py _deposit_kernel_vpuonly:
+//                out[a][k] = X[a] + R[k], X the tile's sum of wx = w(x) v,
+//                R of wyz = w(y) w(z): K1's weight arithmetic without the
+//                product; one block per tile, X in per-thread float bins,
+//                R in one int32-pair fixed-point block (native
+//                ATOMS.ADD).
+//   given_kron_kernel<VEC> (GIVEN_KRON) — kbench2.py
+//                _deposit_kernel_constk: out[a][k] = sum over the 8 rows r
+//                and columns l of wx_r[a][l] kron[k][l], the (P^2, L)
+//                plane given: the reference's dense (P, L) by (L, P^2)
+//                product a row, as one bf16 GEMM on the tensor cores
+//                (wgmma), W built in registers, the plane staged in
+//                shared memory and shared by the rows and tiles of a
+//                block.
 //   WEIGHT_SUMS and GIVEN_KRON round wx (and WEIGHT_SUMS wyz) to bf16, as
 //   the probes' bf16 mxu_dtype does.
 //
@@ -47,13 +51,14 @@
 // nodes floor(x) and floor(x)+1, as csrc/tiled.cu does.  Products and sums
 // that a plain version repeats are rounded on their own (__fmul_rn,
 // __fadd_rn), so only the order of the atomics' and of GIVEN_KRON's and
-// WEIGHT_SUMS' sums differ from the plain versions.
+// WEIGHT_SUMS' float sums differ from the plain versions.
 //
 // What bounds them on the card: the slot planes read once (4 bytes a slot
 // of value and 12 of x, y, z a live slot for the deposits, 12 for the
-// gathers plus 12 written), except GIVEN_KRON, whose 2 P^3 flops a slot
-// on the CUDA cores outweigh its bytes, and INT8 and BF16_NATIVE, which
-// are K1's shared atomics (int32 for INT8).
+// gathers plus 12 written), except GIVEN_KRON, whose 2 P^3 flops a slot at
+// the bf16 tensor-core rate outweigh its bytes (4 of x and 4 of value a
+// slot), and INT8 and BF16_NATIVE, which are K1's shared atomics (int32
+// for INT8).
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns the cudaGetLastError() code of its launch (-1 for an argument the
@@ -62,13 +67,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
+
+#include "fixed_point.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxP = 16;
-constexpr int kChunk = 64;           // GIVEN_KRON plane columns a stage
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block
 
 enum DepositMode { kDepInt8 = 0, kDepBf16Native = 1, kDepWeightSums = 2,
@@ -124,12 +131,14 @@ __device__ __forceinline__ int quant(float a, float b) {
 
 // INT8 and BF16_NATIVE: K1's scatter into a shared (P, P*P) accumulator.
 template <int MODE>
-__device__ void scatter_tile(const float* __restrict__ xyz,
-                             const float* __restrict__ value, float inv,
-                             float* __restrict__ tiles, int B,
-                             long long plane, int P, int M, void* smem) {
+__global__ void __launch_bounds__(kThreads)
+deposit_variant_kernel(const float* __restrict__ xyz,
+                       const float* __restrict__ value, float inv,
+                       float* __restrict__ tiles, int B, long long plane,
+                       int P, int M) {
   using Acc = std::conditional_t<MODE == kDepInt8, int, float>;
-  Acc* acc = static_cast<Acc*>(smem);
+  extern __shared__ float smem[];
+  Acc* acc = reinterpret_cast<Acc*>(smem);
   const int T = P - 1 - 2 * M;
   const int P2 = P * P, P3 = P2 * P;
   for (int i = threadIdx.x; i < P3; i += blockDim.x) acc[i] = 0;
@@ -190,32 +199,38 @@ __device__ void scatter_tile(const float* __restrict__ xyz,
   }
 }
 
-// WEIGHT_SUMS: per-thread private bins, bin b of thread t at
-// b * blockDim + t (bank t: no conflicts while the slots add in; the
-// totals are summed with a skew, thread b reading column (u + b) mod
-// blockDim at step u, so no conflicts there either).  The bins take
-// (P + P^2) * 4 bytes a thread, 135 KB a block at P = 11: one block, 8
-// warps, an SM, so this occupancy, not the weight arithmetic, sets its
-// time.
-__device__ void weight_sums_tile(const float* __restrict__ xyz,
-                                 const float* __restrict__ value,
-                                 float* __restrict__ tiles, int B,
-                                 long long plane, int P, int M,
-                                 float* bins) {
+// WEIGHT_SUMS: one block per tile.  X[a] in per-thread float bins, P a
+// thread (bin a of thread t at a * kThreads + t: bank t, no conflicts, no
+// atomics), summed at the end by one warp a bin in a fixed order; R[k] in
+// one (P^2) int32 pair a block (acc_add at the launch's grid fp: wyz <= 1,
+// so the host's deposit_scale((1,), B) holds any tile), 4 hi and 4 lo
+// ATOMS.ADD a slot.  12 KB of shared memory a block at P = 11 (per-thread
+// R bins as well would take 135 KB, one block of 8 warps an SM), so
+// registers, not shared memory, bound the blocks an SM holds.  No sum
+// depends on the order of the atomics: the tiles are the same bits from
+// launch to launch.
+__global__ void __launch_bounds__(kThreads)
+weight_sums_kernel(const float* __restrict__ xyz,
+                   const float* __restrict__ value,
+                   float* __restrict__ tiles, int B, long long plane, int P,
+                   int M, FixedPoint fp) {
+  extern __shared__ float xbins[];                 // (P, kThreads)
+  int* r_hi = reinterpret_cast<int*>(xbins + P * kThreads);   // (P^2)
+  int* r_lo = r_hi + P * P;
+  float* xsum = reinterpret_cast<float*>(r_lo + P * P);        // (P)
   const int T = P - 1 - 2 * M;
-  const int P2 = P * P, P3 = P2 * P, nb = P + P2;
-  constexpr int stride = kThreads;   // the block size
+  const int P2 = P * P, P3 = P2 * P;
   const int t = threadIdx.x;
-  for (int b = 0; b < nb; ++b) bins[b * stride + t] = 0.0f;
+  for (int a = 0; a < P; ++a) xbins[a * kThreads + t] = 0.0f;
+  for (int i = t; i < 2 * P2; i += kThreads) r_hi[i] = 0;
+  __syncthreads();
   const long long base = (long long)blockIdx.x * B;
-  // kU slots a thread in flight: the bins leave room for one block of 8
-  // warps an SM, too few to hide the loads' latency one slot at a time
-  constexpr int kU = 4;
-  for (int j0 = t; j0 < B; j0 += kU * blockDim.x) {
+  constexpr int kU = 2;           // slots a thread in flight
+  for (int j0 = t; j0 < B; j0 += kU * kThreads) {
     float xs[kU], ys[kU], zs[kU], vs[kU];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      const int j = j0 + u * blockDim.x;
+      const int j = j0 + u * kThreads;
       const long long k = base + (j < B ? j : 0);
       xs[u] = xyz[k];
       ys[u] = xyz[plane + k];
@@ -224,7 +239,7 @@ __device__ void weight_sums_tile(const float* __restrict__ xyz,
     }
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      if (j0 + u * (int)blockDim.x >= B) break;
+      if (j0 + u * kThreads >= B) break;
       int ix[2], iy[2], iz[2];
       float wx[2], wy[2], wz[2];
       nodes(xs[u], M, T, ix, wx);
@@ -233,160 +248,293 @@ __device__ void weight_sums_tile(const float* __restrict__ xyz,
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
         const float wa = to_bf16(mul(wx[a], vs[u]));
-        float* bin = bins + ix[a] * stride + t;
-        *bin = add(*bin, wa);
+        float* bin = xbins + ix[a] * kThreads + t;
+        if (wa != 0.0f) *bin = add(*bin, wa);
       }
 #pragma unroll
       for (int b = 0; b < 2; ++b)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const float wyz = to_bf16(mul(wy[b], wz[c]));
-          float* bin = bins + (P + iy[b] * P + iz[c]) * stride + t;
-          *bin = add(*bin, wyz);
+          if (wyz != 0.0f) acc_add(r_hi, r_lo, iy[b] * P + iz[c], wyz, fp);
         }
     }
   }
   __syncthreads();
-  // bin b's total (four interleaved partial sums), then all totals packed
-  // at the front of the bins: X = bins[0, P), R = bins[P, P + P^2)
-  float total = 0.0f;
-  if (t < nb) {
-    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int u = 0; u < stride; u += 4) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        part[q] = add(part[q], bins[t * stride + (u + q + t) % stride]);
-    }
-    total = add(add(part[0], part[1]), add(part[2], part[3]));
-  }
-  __syncthreads();
-  if (t < nb) bins[t] = total;
-  __syncthreads();
-  float* out = tiles + (long long)blockIdx.x * P3;
-  for (int i = t; i < P3; i += blockDim.x)
-    out[i] = add(bins[i / P2], bins[P + i % P2]);
-}
-
-// GIVEN_KRON's row stride of W: P rounded up to a multiple of 4 (float4
-// reads) whose quarter is odd (4-way, not 16-way, conflicts where W is
-// filled).
-__host__ __device__ constexpr int kron_pitch(int P) {
-  return ((P + 3) / 4) % 2 ? (P + 3) / 4 * 4 : (P + 3) / 4 * 4 + 4;
-}
-
-// GIVEN_KRON: one (P, L) by (L, P^2) product a row, as the reference does.
-// The plane is streamed through shared memory kChunk columns at a time,
-// with the 8 rows' wx of those columns, W (8, kChunk, Pp), each (row,
-// column) filled by one thread (no atomics); thread (k, g) then adds plane
-// row k times every row's wx over g's interleaved share of the columns, W
-// read 4 nodes at a time; the groups' partial sums are added in order at
-// the end.
-__device__ void given_kron_tile(const float* __restrict__ xyz,
-                                const float* __restrict__ value,
-                                const __nv_bfloat16* __restrict__ kron,
-                                float* __restrict__ tiles, int B, int P,
-                                int M, float* smem) {
-  const int T = P - 1 - 2 * M;
-  const int P2 = P * P, P3 = P2 * P, L = B / 8, Pp = kron_pitch(P);
-  float* W = smem;                     // (8, kChunk, Pp)
-  float* Kc = smem + 8 * kChunk * Pp;  // (kChunk, P2), then the partials
-  const long long base = (long long)blockIdx.x * B;
-  const int groups = blockDim.x / P2;
-  const int k = threadIdx.x % P2, g = threadIdx.x / P2;
-  const bool active = g < groups;
-  float acc[kMaxP];
-#pragma unroll
-  for (int a = 0; a < kMaxP; ++a) acc[a] = 0.0f;
-  for (int l0 = 0; l0 < L; l0 += kChunk) {
-    __syncthreads();
-    const int n = min(kChunk, L - l0);
-    for (int e = threadIdx.x; e < 8 * kChunk; e += blockDim.x) {
-      const int r = e / kChunk, lc = e % kChunk;
-      float* w = W + e * Pp;
-      for (int a = 0; a < Pp; ++a) w[a] = 0.0f;
-      if (lc < n) {
-        const long long at = base + r * L + l0 + lc;
-        int ix[2];
-        float wx[2];
-        nodes(xyz[at], M, T, ix, wx);
-        const float v = value[at];
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          const float wa = to_bf16(mul(wx[a], v));
-          if (wa != 0.0f) w[ix[a]] = add(w[ix[a]], wa);
-        }
-      }
-    }
-    // the chunk of the plane, kStage loads a thread in flight
-    constexpr int kStage = 8;
-    for (int e0 = threadIdx.x; e0 < P2 * kChunk;
-         e0 += kStage * blockDim.x) {
-      float kv[kStage];
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-        const int e = e0 + u * blockDim.x;
-        const int kk = e / kChunk, lc = e % kChunk;
-        kv[u] = e < P2 * kChunk && lc < n
-                    ? __bfloat162float(kron[(long long)kk * L + l0 + lc])
-                    : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-        const int e = e0 + u * blockDim.x;
-        if (e < P2 * kChunk) Kc[(e % kChunk) * P2 + e / kChunk] = kv[u];
-      }
-    }
-    __syncthreads();
-    if (active) {
-      for (int lc = g; lc < n; lc += groups) {
-        const float kv = Kc[lc * P2 + k];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const float4* s =
-              reinterpret_cast<const float4*>(W + (r * kChunk + lc) * Pp);
-#pragma unroll
-          for (int q = 0; q < kMaxP / 4; ++q) {
-            if (4 * q >= P) break;
-            const float4 sv = s[q];
-            acc[4 * q] += sv.x * kv;
-            acc[4 * q + 1] += sv.y * kv;
-            acc[4 * q + 2] += sv.z * kv;
-            acc[4 * q + 3] += sv.w * kv;
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if (active) {
-#pragma unroll
-    for (int a = 0; a < kMaxP; ++a)
-      if (a < P) Kc[(g * P + a) * P2 + k] = acc[a];
-  }
-  __syncthreads();
-  float* out = tiles + (long long)blockIdx.x * P3;
-  for (int i = threadIdx.x; i < P3; i += blockDim.x) {
-    const int a = i / P2, kk = i % P2;
+  // X[a]: warp w sums bins w, w + 8, ..., each lane 8 threads' bins in
+  // order, then the lanes by a fixed butterfly
+  const int warp = t >> 5, lane = t & 31;
+  for (int a = warp; a < P; a += kThreads / 32) {
     float s = 0.0f;
-    for (int u = 0; u < groups; ++u) s = add(s, Kc[(u * P + a) * P2 + kk]);
-    out[i] = s;
+#pragma unroll
+    for (int u = 0; u < kThreads / 32; ++u)
+      s = add(s, xbins[a * kThreads + u * 32 + lane]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s = add(s, __shfl_xor_sync(0xffffffffu, s, o));
+    if (lane == 0) xsum[a] = s;
+  }
+  __syncthreads();
+  float* out = tiles + (long long)blockIdx.x * P3;
+  for (int i = t; i < P3; i += kThreads)
+    out[i] = add(xsum[i / P2], acc_value(r_hi, r_lo, i % P2, fp));
+}
+
+// GIVEN_KRON on the tensor cores: the tiles' products as one bf16 GEMM,
+// out (P, P^2) += W_r (P, L) . kron^T (L, P^2) summed over the 8 rows r of
+// a tile, by wgmma (m64n128k16, A from registers, B from shared memory,
+// float32 sums).  A block is one warpgroup and holds 4 tiles, warp w tile
+// t0 + w as the 16 rows (P nodes padded) of A that wgmma takes from warp
+// w, and kGkN columns of the result (gridDim.y blocks of columns cover
+// P^2: one at P <= 11, two at P = 13).  A (W) is built in registers by
+// the lanes: a lane's fragment is nodes gid and gid + 8 of 4 slots, its
+// element bf16(hat(x_l, a - M) v_l), the reference's bf16 weight (the hat
+// is 0 at every node but floor(x) and floor(x) + 1; a node past P gets one
+// no slot reaches).  B (the plane) is staged kGkChunk columns at a time
+// with the block's rows of x and value, double buffered by cp.async
+// (16-byte copies where L % 8 == 0, VEC; element copies otherwise), the
+// plane in wgmma's K-major core matrices (8 rows x 16 bytes); one stage
+// of the plane serves the 8 rows of all 4 tiles.  A k16 step issues 8
+// wgmmas (the 8 rows) as one group on two sets of A registers, so one
+// group's A is built while the other's products run.  The tensor cores'
+// float32 sums are not rounded to nearest over a long K, so the sum is
+// taken in two levels: a fresh accumulator a stage (32 wgmmas), added into
+// the total with __fadd_rn.  What holds it on an H100 is the lanes' work
+// (staging, building A), not the tensor cores: at ~246 registers a thread
+// an SM holds 2 warpgroups, which hide one's lane work under the other's
+// wgmmas only in part.
+constexpr int kGkTiles = 4;              // tiles a block, a warp each
+constexpr int kGkN = 128;                // result columns a block
+constexpr int kGkChunk = 64;             // plane columns a stage
+constexpr int kGkPlane = kGkN * kGkChunk * 2;        // bytes of plane
+constexpr int kGkSlots = kGkTiles * 8 * kGkChunk;    // x (and value) floats
+constexpr int kGkStage = kGkPlane + 2 * kGkSlots * 4;  // bytes a stage
+
+// byte offset of plane element (n, k) in a stage: core matrix (n / 8, k /
+// 8), 128 bytes, its row n % 8 16 bytes
+__device__ __forceinline__ int gk_plane_at(int n, int k) {
+  return (n >> 3) * (kGkChunk * 16) + (k >> 3) * 128 + (n & 7) * 16 +
+         (k & 7) * 2;
+}
+
+// wgmma's descriptor of a K-major (kGkN, 16) B without swizzle: core
+// matrices 128 bytes apart along K (LBO) and kGkChunk * 16 along N (SBO)
+__device__ __forceinline__ uint64_t gk_desc(const void* plane) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(plane);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)((kGkChunk * 16) >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Stages plane columns [l0, l0 + kGkChunk) of plane rows [n0, n0 + kGkN)
+// and of the block's tiles' 8 rows of x and value; zeros past L, P^2 and
+// NT.
+template <bool VEC>
+__device__ void gk_stage(const float* __restrict__ xyz,
+                         const float* __restrict__ value,
+                         const __nv_bfloat16* __restrict__ kron,
+                         unsigned char* buf, int t0, int n0, int NT, int B,
+                         int L, int P2, int l0) {
+  float* Xs = reinterpret_cast<float*>(buf + kGkPlane);
+  float* Vs = Xs + kGkSlots;
+  if constexpr (VEC) {
+    constexpr int kp = kGkChunk / 8, xp = kGkChunk / 4;   // 16-byte pieces
+    for (int e = threadIdx.x; e < kGkN * kp; e += blockDim.x) {
+      const int n = e / kp, p = e % kp, l = l0 + 8 * p;
+      const bool ok = n0 + n < P2 && l < L;
+      cp_async16(buf + gk_plane_at(n, 8 * p),
+                 ok ? kron + (long long)(n0 + n) * L + l : kron, ok);
+    }
+    for (int e = threadIdx.x; e < kGkTiles * 8 * xp; e += blockDim.x) {
+      const int row = e / xp, p = e % xp, l = l0 + 4 * p;
+      const int t = t0 + row / 8;
+      const bool ok = t < NT && l < L;
+      const long long at = (long long)t * B + (long long)(row % 8) * L + l;
+      cp_async16(Xs + row * kGkChunk + 4 * p, ok ? xyz + at : xyz, ok);
+      cp_async16(Vs + row * kGkChunk + 4 * p, ok ? value + at : value, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kGkN * kGkChunk; e += blockDim.x) {
+      const int n = e / kGkChunk, k = e % kGkChunk, l = l0 + k;
+      *reinterpret_cast<__nv_bfloat16*>(buf + gk_plane_at(n, k)) =
+          n0 + n < P2 && l < L ? kron[(long long)(n0 + n) * L + l]
+                               : __float2bfloat16_rn(0.0f);
+    }
+    for (int e = threadIdx.x; e < kGkSlots; e += blockDim.x) {
+      const int row = e / kGkChunk, k = e % kGkChunk, l = l0 + k;
+      const int t = t0 + row / 8;
+      const bool ok = t < NT && l < L;
+      const long long at = (long long)t * B + (long long)(row % 8) * L + l;
+      Xs[e] = ok ? xyz[at] : 0.0f;
+      Vs[e] = ok ? value[at] : 0.0f;
+    }
   }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-deposit_variant_kernel(const float* __restrict__ xyz,
-                       const float* __restrict__ value,
-                       const __nv_bfloat16* __restrict__ kron, float inv,
-                       float* __restrict__ tiles, int B, long long plane,
-                       int P, int M) {
-  extern __shared__ float smem[];
-  if constexpr (MODE == kDepInt8 || MODE == kDepBf16Native)
-    scatter_tile<MODE>(xyz, value, inv, tiles, B, plane, P, M, smem);
-  else if constexpr (MODE == kDepWeightSums)
-    weight_sums_tile(xyz, value, tiles, B, plane, P, M, smem);
-  else
-    given_kron_tile(xyz, value, kron, tiles, B, P, M, smem);
+// bf16(hat(x, n) v), the reference's (_weights_t * val).astype(bf16)
+__device__ __forceinline__ float hat_v(float x, float n, float v) {
+  return mul(fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(x, n)))), v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// d (64, 128) = A (64, 16) . B (16, 128) + (scale_d ? d : 0), A in the
+// warpgroup's registers, B at the descriptor
+__device__ __forceinline__ void wgmma_128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// the compiler may not move accesses of these registers across the
+// wgmma synchronisations (nor reuse them while a wgmma reads them)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(a[r][q])::"memory");
+}
+
+// A's fragments of k16 step s of a stage for the 8 rows of the warp's
+// tile: nodes nA = gid - M and nB = gid + 8 - M of slots 2 tig, 2 tig + 1
+// (a[0], a[1]) and 2 tig + 8, 2 tig + 9 (a[2], a[3]) of the step
+__device__ __forceinline__ void gk_build(uint32_t (&A)[8][4],
+                                         const float* Xs, const float* Vs,
+                                         int s, int tig, float nA, float nB) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float* xr = Xs + r * kGkChunk + 16 * s + 2 * tig;
+    const float* vr = Vs + r * kGkChunk + 16 * s + 2 * tig;
+    const float2 x0 = *reinterpret_cast<const float2*>(xr);
+    const float2 x8 = *reinterpret_cast<const float2*>(xr + 8);
+    const float2 v0 = *reinterpret_cast<const float2*>(vr);
+    const float2 v8 = *reinterpret_cast<const float2*>(vr + 8);
+    A[r][0] = pack_bf16(hat_v(x0.x, nA, v0.x), hat_v(x0.y, nA, v0.y));
+    A[r][1] = pack_bf16(hat_v(x0.x, nB, v0.x), hat_v(x0.y, nB, v0.y));
+    A[r][2] = pack_bf16(hat_v(x8.x, nA, v8.x), hat_v(x8.y, nA, v8.y));
+    A[r][3] = pack_bf16(hat_v(x8.x, nB, v8.x), hat_v(x8.y, nB, v8.y));
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kGkTiles * 32, 2)
+given_kron_kernel(const float* __restrict__ xyz,
+                  const float* __restrict__ value,
+                  const __nv_bfloat16* __restrict__ kron,
+                  float* __restrict__ tiles, int NT, int B, int P, int M) {
+  extern __shared__ __align__(128) unsigned char gk_smem[];
+  const int L = B / 8, P2 = P * P;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int t0 = blockIdx.x * kGkTiles, t = t0 + warp;
+  const int n0 = blockIdx.y * kGkN;
+  // the lane's two nodes, as offsets; a node past P gets one that no slot
+  // reaches (hat 0)
+  const float nA = gid < P ? (float)(gid - M) : 1e30f;
+  const float nB = gid + 8 < P ? (float)(gid + 8 - M) : 1e30f;
+  float acc[64], tot[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.0f;
+  uint32_t A[2][8][4];
+  const int chunks = (L + kGkChunk - 1) / kGkChunk;
+  gk_stage<VEC>(xyz, value, kron, gk_smem, t0, n0, NT, B, L, P2, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks)
+      gk_stage<VEC>(xyz, value, kron, gk_smem + ((c + 1) & 1) * kGkStage,
+                    t0, n0, NT, B, L, P2, (c + 1) * kGkChunk);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    // this thread's stores of the stage, visible to wgmma's proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const unsigned char* buf = gk_smem + (c & 1) * kGkStage;
+    const float* Xs = reinterpret_cast<const float*>(buf + kGkPlane) +
+                      warp * 8 * kGkChunk;
+    const uint64_t desc = gk_desc(buf);
+    const int steps = (min(kGkChunk, L - c * kGkChunk) + 15) / 16;
+#pragma unroll
+    for (int s = 0; s < kGkChunk / 16; ++s) {
+      if (s >= steps) break;
+      if (s >= 2) {                   // group s - 2 read A[s & 1]
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_regs(A[s & 1]);
+      }
+      gk_build(A[s & 1], Xs, Xs + kGkSlots, s, tig, nA, nB);
+      fence_regs(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        wgmma_128(acc, A[s & 1][r], desc + (uint64_t)(16 * s),
+                  (s | r) != 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    }
+    // the stage's sum, folded into the total; the buffer is free
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(acc);
+    fence_regs(A[0]);
+    fence_regs(A[1]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) tot[i] = add(tot[i], acc[i]);
+    __syncthreads();   // buffer c & 1 is restaged for chunk c + 2
+  }
+  if (t >= NT) return;
+  float* out = tiles + (long long)t * P * P2;
+#pragma unroll
+  for (int j = 0; j < kGkN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * tig;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int a = gid + 8 * h;
+      if (a >= P) continue;
+      if (n < P2) out[a * P2 + n] = tot[4 * j + 2 * h];
+      if (n + 1 < P2) out[a * P2 + n + 1] = tot[4 * j + 2 * h + 1];
+    }
+  }
 }
 
 template <int MODE>
@@ -496,24 +644,38 @@ int prepare(Kernel* kernel, size_t smem) {
   return 0;
 }
 
-size_t deposit_smem(int mode, int P) {
-  const size_t P2 = (size_t)P * P;
-  if (mode == kDepInt8 || mode == kDepBf16Native) return P2 * P * 4;
-  if (mode == kDepWeightSums) return (P + P2) * kThreads * 4;
-  const size_t stage = P2 * kChunk;
-  const size_t groups = kThreads / P2;
-  return ((size_t)8 * kChunk * kron_pitch(P) +
-          (stage > groups * P * P2 ? stage : groups * P * P2)) * 4;
-}
-
 template <int MODE>
-int launch_deposit(const float* xyz, const float* value,
-                   const __nv_bfloat16* kron, float inv, float* tiles, int NT,
-                   int B, int P, int M, cudaStream_t stream) {
-  const size_t smem = deposit_smem(MODE, P);
+int launch_deposit(const float* xyz, const float* value, float inv,
+                   float* tiles, int NT, int B, int P, int M,
+                   cudaStream_t stream) {
+  const size_t smem = (size_t)P * P * P * 4;
   if (int err = prepare(deposit_variant_kernel<MODE>, smem)) return err;
   deposit_variant_kernel<MODE><<<NT, kThreads, smem, stream>>>(
-      xyz, value, kron, inv, tiles, B, (long long)NT * B, P, M);
+      xyz, value, inv, tiles, B, (long long)NT * B, P, M);
+  return (int)cudaGetLastError();
+}
+
+int launch_weight_sums(const float* xyz, const float* value, float* tiles,
+                       int NT, int B, int P, int M, int k, int j,
+                       cudaStream_t stream) {
+  FixedPoint fp;
+  if (!fixed_point(k, j, &fp)) return -1;
+  const size_t smem = ((size_t)P * kThreads + 2 * P * P + P) * 4;
+  if (int err = prepare(weight_sums_kernel, smem)) return err;
+  weight_sums_kernel<<<NT, kThreads, smem, stream>>>(
+      xyz, value, tiles, B, (long long)NT * B, P, M, fp);
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int launch_given_kron(const float* xyz, const float* value,
+                      const __nv_bfloat16* kron, float* tiles, int NT, int B,
+                      int P, int M, cudaStream_t stream) {
+  const size_t smem = 2 * (size_t)kGkStage;
+  if (int err = prepare(given_kron_kernel<VEC>, smem)) return err;
+  const dim3 grid((NT + kGkTiles - 1) / kGkTiles, (P * P + kGkN - 1) / kGkN);
+  given_kron_kernel<VEC><<<grid, kGkTiles * 32, smem, stream>>>(
+      xyz, value, kron, tiles, NT, B, P, M);
   return (int)cudaGetLastError();
 }
 
@@ -535,25 +697,28 @@ extern "C" {
 
 int pinc_kb_deposit(const float* xyz, const float* value, const void* kron,
                     float* tiles, int NT, int B, int P, int M, int mode,
-                    float inv, void* stream) {
+                    float inv, void* stream, int k, int j) {
   cudaStream_t s = (cudaStream_t)stream;
   const auto* kb = static_cast<const __nv_bfloat16*>(kron);
   if (P < 2 || P > kMaxP || B % 8 != 0 || 2 * M + 1 > P) return -1;
   switch (mode) {
     case kDepInt8:
-      return launch_deposit<kDepInt8>(xyz, value, kb, inv, tiles, NT, B, P,
-                                      M, s);
+      return launch_deposit<kDepInt8>(xyz, value, inv, tiles, NT, B, P, M, s);
     case kDepBf16Native:
-      return launch_deposit<kDepBf16Native>(xyz, value, kb, inv, tiles, NT, B,
-                                            P, M, s);
+      return launch_deposit<kDepBf16Native>(xyz, value, inv, tiles, NT, B, P,
+                                            M, s);
     case kDepWeightSums:
-      if (P + P * P > kThreads) return -1;   // one reducing thread a bin
-      return launch_deposit<kDepWeightSums>(xyz, value, kb, inv, tiles, NT, B,
-                                            P, M, s);
-    case kDepGivenKron:
-      if (kThreads / (P * P) < 1) return -1;
-      return launch_deposit<kDepGivenKron>(xyz, value, kb, inv, tiles, NT, B,
-                                           P, M, s);
+      return launch_weight_sums(xyz, value, tiles, NT, B, P, M, k, j, s);
+    case kDepGivenKron: {
+      // 16-byte copies need 16-byte rows: L % 8 == 0 and aligned planes
+      const bool vec = (B / 8) % 8 == 0 &&
+                       ((uintptr_t)xyz | (uintptr_t)value |
+                        (uintptr_t)kron) % 16 == 0;
+      return vec ? launch_given_kron<true>(xyz, value, kb, tiles, NT, B, P,
+                                           M, s)
+                 : launch_given_kron<false>(xyz, value, kb, tiles, NT, B, P,
+                                            M, s);
+    }
   }
   return -1;
 }

@@ -61,10 +61,13 @@ host sync in the timed launches).
 ``weight_sums``, ``given_kron`` and ``no_xreduce`` are the probes'
 ceilings (a part of the work taken out), so their error against the
 production mode is not given; ``ceiling_split`` sets their times against
-K1's and K3's.  ``weight_sums``' private bins leave 8 warps an SM, so its
-time is bounded by that occupancy and does not measure K1's weight
-arithmetic alone; ``given_kron`` does the reference's dense products, one
-a row, on the CUDA cores.
+K1's and K3's.  ``weight_sums`` is K1's weight arithmetic with its sums
+but without K1's 8-node products; ``given_kron`` does the reference's
+dense products, one a row, on the tensor cores (bf16 wgmma), the answer
+to the probe's "matmul path only" question on this card.
+``given_kron_matmul_ms`` times the same product as one ``torch.matmul``
+of bf16 operands with W built beforehand: context for the row, not its
+library call (no single PyTorch call builds W from x).
 
 Bytes of a row's bound: each input read once and the output written once,
 as this run's data needs them; a deposit reads value for every slot and
@@ -132,10 +135,10 @@ LIBRARY_RTOL = 1e-5
 CEILINGS = ("weight_sums", "given_kron", "no_xreduce")
 #: what each ceiling's time measures
 CEILING_NOTES = {
-    "weight_sums": "bounded by its bins' occupancy (8 warps an SM), not by "
-                   "K1's weight arithmetic",
-    "given_kron": "the reference's dense products, one a row, on the CUDA "
-                  "cores",
+    "weight_sums": "K1's weights and their sums without the 8-node "
+                   "products (X in per-thread bins, R in an int32 pair)",
+    "given_kron": "the reference's dense products, one a row, on the "
+                  "tensor cores (bf16 wgmma, W built in registers)",
     "no_xreduce": "K3 without its x weights and second x node"}
 
 
@@ -714,6 +717,13 @@ def format_row(r: dict) -> str:
             f"vs production {vs}, {'ok' if r['ok'] else 'MISMATCH'}")
 
 
+def format_matmul(m: dict) -> str:
+    return (f"given_kron's product alone, torch.matmul of bf16 ({m['M']}, "
+            f"{m['K']}) by ({m['K']}, {m['N']}), W built beforehand: "
+            f"{m['matmul_ms']:.4f} ms; given_kron's kernel, W built from x: "
+            f"{m['kernel_ms']:.4f} ms")
+
+
 def _format_prim_row(r: dict) -> str:
     check = ("bit-equal" if r["bit_equal"] else
              f"max err {r['max_abs_err']:.3e}")
@@ -745,6 +755,47 @@ def ceiling_split(rows: list) -> dict:
         r = by[f"K13 {kind} {mode}"]
         out[mode] = (r["ms"], base["ms"], r["ms"] / base["ms"])
     return out
+
+
+def given_kron_matmul_ms(device=None, reps: int = 10) -> dict:
+    """given_kron's product alone as one torch.matmul at the K13 shape:
+    W (NT P, 8 L) bf16, the rows' bf16 weights, built outside the timed
+    launches, by the plane repeated for the 8 rows, (8 L, P^2) bf16 (M =
+    45,056, N = 121, K = 9216 at the production shape), timed by CUDA
+    events beside given_kron's kernel on the same inputs.  Context for
+    the given_kron row (the library does no weight arithmetic and rounds
+    its output to bf16), not its library call.  Runs on the card only."""
+    if device is None:
+        from .simulation import default_device
+        device = default_device()
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("given_kron_matmul_ms times on the CUDA card only")
+    ts = TileSpec(grid=K13["grid"], T=K13["T"], M=K13["M"], B=K13["B"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    xyz, val, _, kron = _k13_inputs(ts, K13["live"], gen, dev)
+    W, Kt = given_kron_operands(xyz, val, kron, ts)
+    ms = cuda_ms(lambda: torch.matmul(W, Kt), reps)
+    kernel = cuda_ms(lambda: kb.deposit_variant(xyz, val, ts, "given_kron",
+                                                kron=kron), reps)
+    return dict(M=W.shape[0], N=Kt.shape[1], K=W.shape[1], matmul_ms=ms,
+                kernel_ms=kernel)
+
+
+def given_kron_operands(xyz, val, kron, ts: TileSpec):
+    """given_kron as one GEMM: W (NT P, B) bf16, W[t P + a][j] =
+    bf16(w_a(x_tj) v_tj) (slot j = r L + l of row r), and the plane
+    repeated for the 8 rows, (B, P^2) bf16; (W @ Kt).reshape(NT, P, P^2)
+    is given_kron's function."""
+    NT, P = ts.NT, ts.P
+    nodes = torch.arange(P, device=xyz.device, dtype=torch.float32) - ts.M
+    W = torch.empty((NT, P, ts.B), dtype=torch.bfloat16, device=xyz.device)
+    for t0, t1 in tk._tile_chunks(NT, ts.B * P):
+        hat = torch.clamp(1 - (xyz[0, t0:t1, None, :] - nodes[:, None])
+                          .abs(), min=0)
+        W[t0:t1] = (hat * val[t0:t1, None, :]).bfloat16()
+    return W.reshape(NT * P, ts.B), kron.t().repeat(8, 1).contiguous()
 
 
 #: take_chunks' chunk sizes (bytes of source a CTA; 0: the source read
@@ -845,6 +896,8 @@ def main(argv=None) -> int:
               f"{'K3' if mode == 'no_xreduce' else 'K1'} bf16's {base:.4f} "
               f"ms at the same shape; {CEILING_NOTES[mode]} ({card})",
               flush=True)
+    print(format_matmul(given_kron_matmul_ms(dev, reps)) + f" ({card})",
+          flush=True)
     bad = [r["name"] for r in checks + rows if not r["ok"]]
     if bad:
         print(f"MISMATCH against the plain version (or, for a prims row, "

@@ -1,26 +1,32 @@
-"""Trial builds of the fold (K7) and the one-hot merges (K11), timed beside
-the package's own build: ``python -m pinc_tpu_torch.kernel_trials DIR
-[DIR ...]``.
+"""Trial builds of the fold (K7), the one-hot merges (K11) and the kernel
+benchmark's given_kron and weight_sums deposits (K13), timed beside the
+package's own build: ``python -m pinc_tpu_torch.kernel_trials DIR [DIR
+...]``.
 
-Each DIR holds edited copies of ``csrc`` sources (``field.cu`` and/or
-``onehot_exchange.cu``, with the headers they include).  Each is compiled
-with the package's nvcc flags into a library of its own (under the
-git-ignored ``_build/trials/``), and its ``pinc_field_fold`` and
-``pinc_ox_merge`` run in one process beside the package's build, on the
-same inputs:
+Each DIR holds edited copies of ``csrc`` sources (``field.cu``,
+``onehot_exchange.cu`` and/or ``kbench.cu``; a header it does not hold is
+taken from the package's ``csrc``).  Each is compiled with the package's
+nvcc flags into a library of its own (under the git-ignored
+``_build/trials/``), and its ``pinc_field_fold``, ``pinc_ox_merge`` and
+``pinc_kb_deposit`` run in one process beside the package's build, on the
+same inputs, for each source some DIR holds (all three without a DIR):
 
 * K7 at 128^3, T = 8, M = 1 and 2, on normal tiles;
 * the merge calls of one electron exchange of the one-hot decks (4096
   tiles, 6144 particles a tile, velocities N(0, 0.1) moved by one 4-step
   cadence): B = 7680 takes the fused row exchange (``merge_kernel<8>``),
-  B = 6528 the per-tile sweeps (``merge_kernel<1>``).
+  B = 6528 the per-tile sweeps (``merge_kernel<1>``);
+* given_kron and weight_sums at the kernel benchmark's K13 shape (4096
+  tiles, B = 9216, 90% live, M = 1, a random bf16 plane).
 
-Each result is compared with the plain version bit for bit (a trial that
-leaves work out is reported as differing, not refused) and timed in a
-CUDA graph (the merges write in place: ``kbench.graph_ms_inplace``), the
-fold also by CUDA events.  ptxas's registers and spills are printed for
-each trial's fold and merge kernels.  It raises without a card.
-``PERF.md`` names the edits of the trials it quotes.
+The fold and merges are compared with the plain version bit for bit, the
+deposits within ``kbench.DEPOSIT_RTOL`` of max|plain| (a trial that
+leaves work out is reported as differing, not refused); each is timed in
+a CUDA graph (the merges write in place: ``kbench.graph_ms_inplace``),
+the fold and the deposits also by CUDA events.  ptxas's registers and
+spills are printed for each trial's fold, merge and deposit kernels.  It
+raises without a card.  ``PERF.md`` names the edits of the trials it
+quotes.
 """
 
 from __future__ import annotations
@@ -34,15 +40,18 @@ import torch
 
 from . import kbench
 from .ops import _cuda_build, exchange as ex, field_kernels as fk
+from .ops import kbench_kernels as kb
 from .ops import onehot_exchange as ox, tiled_kernels as tk
 from .ops.tiled import TileSpec, bucket
 
-SOURCES = ("field.cu", "onehot_exchange.cu")
+SOURCES = ("field.cu", "onehot_exchange.cu", "kbench.cu")
+#: the kernels whose ptxas lines a trial prints
+KERNELS = ("fold_kernel", "merge_kernel", "given_kron", "weight_sums")
 ONEHOT_B = {"rows": 7680, "tile": 6528}
 
 
 def build(src_dir: Path, name: str):
-    """(library, ptxas lines of the fold and merge kernels) of a trial."""
+    """(library, ptxas lines of the KERNELS) of a trial."""
     out_dir = _cuda_build.BUILD_DIR / "trials"
     out_dir.mkdir(parents=True, exist_ok=True)
     out = out_dir / f"lib{name}.so"
@@ -51,7 +60,7 @@ def build(src_dir: Path, name: str):
         raise ValueError(f"{src_dir} holds none of {SOURCES}")
     cmd = [_cuda_build.nvcc_path(), "--ptxas-options=-v",
            *_cuda_build.NVCC_FLAGS, "-shared", "-I", str(src_dir),
-           "-o", str(out), *srcs]
+           "-I", str(_cuda_build.CSRC), "-o", str(out), *srcs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {src_dir}:\n{proc.stderr}")
@@ -59,7 +68,7 @@ def build(src_dir: Path, name: str):
     regs = [f"{lines[i].split('for ')[-1][:70]}: {lines[i + 2].strip()}"
             for i in range(len(lines) - 2)
             if "Function properties" in lines[i]
-            and ("fold_kernel" in lines[i] or "merge_kernel" in lines[i])]
+            and any(k in lines[i] for k in KERNELS)]
     lib = ctypes.CDLL(str(out))
     for fn, args in _cuda_build.SIGNATURES.items():
         if hasattr(lib, fn):
@@ -116,6 +125,36 @@ def _merge_calls(route: str, gen, dev) -> list:
     return calls
 
 
+def _deposit_trials(libs: dict, gen, dev) -> None:
+    """given_kron and weight_sums of each library at the K13 shape."""
+    ts = TileSpec(grid=kbench.K13["grid"], T=kbench.K13["T"],
+                  M=kbench.K13["M"], B=kbench.K13["B"])
+    xyz, val, _, kron = kbench._k13_inputs(ts, kbench.K13["live"], gen, dev)
+    k, j = kb.weight_sums_scale(ts.B)
+    for mode in ("given_kron", "weight_sums"):
+        want = kb.deposit_variant_plain(xyz, val, ts, mode, kron=kron)
+        tol = kbench.DEPOSIT_RTOL * want.abs().max().item()
+        for name, lib in libs.items():
+            if not hasattr(lib, "pinc_kb_deposit"):
+                continue
+            out = torch.empty_like(want)
+
+            def call(lib=lib, out=out, mode=mode):
+                if lib.pinc_kb_deposit(
+                        _ptr(xyz), _ptr(val), _ptr(kron), _ptr(out), ts.NT,
+                        ts.B, ts.P, ts.M, kb.DEPOSIT_MODES.index(mode),
+                        kb.INV_127SQ, _stream(), k, j):
+                    raise RuntimeError(f"{name}: {mode} launch failed")
+            call()
+            err = (out - want).abs().max().item()
+            print(f"{mode} {name}: graph {kbench.graph_ms(call, 20):.4f} "
+                  f"ms, events {kbench.cuda_ms(call, 20):.4f} ms, max err "
+                  f"{err:.3e} (tol {tol:.3e}, "
+                  f"{'ok' if err <= tol else 'DIFFERS'})", flush=True)
+        del want
+    torch.cuda.empty_cache()
+
+
 def _same_bits(a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -131,9 +170,14 @@ def main(argv=None) -> int:
         libs[d.name], regs = build(d, d.name)
         for r in regs:
             print(f"  {d.name} {r}", flush=True)
+    held = {f for d in dirs for f in SOURCES if (d / f).exists()}
+    if not dirs:
+        held = set(SOURCES)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    for M in (1, 2):
+    if "kbench.cu" in held:
+        _deposit_trials(libs, gen, dev)
+    for M in (1, 2) if "field.cu" in held else ():
         ts = TileSpec(grid=(128, 128, 128), T=8, M=M, B=17408)
         tiles = torch.randn((ts.NT, ts.P, ts.P * ts.P), generator=gen,
                             device=dev)
@@ -153,7 +197,7 @@ def main(argv=None) -> int:
                   f" ms, events {kbench.cuda_ms(call, 20):.4f} ms, "
                   f"bit-equal {ok}", flush=True)
         del tiles, want
-    for route in ("rows", "tile"):
+    for route in ("rows", "tile") if "onehot_exchange.cu" in held else ():
         calls = _merge_calls(route, gen, dev)
         for name, lib in libs.items():
             if not hasattr(lib, "pinc_ox_merge"):

@@ -81,8 +81,9 @@ SIGNATURES = {
     # stream
     "pinc_ox_merge_ranked": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     # -- csrc/kbench.cu
-    # xyz, value, kron, tiles, NT, B, P, M, mode, inv, stream
-    "pinc_kb_deposit": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # xyz, value, kron, tiles, NT, B, P, M, mode, inv, stream, k, j
+    # (weight_sums' fixed point)
+    "pinc_kb_deposit": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I],
     # field, scale, inv, xyz, out, NT, B, P, M, mode, stream
     "pinc_kb_gather": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
     # -- csrc/kbench_prims.cu

@@ -127,6 +127,14 @@ SOURCE = "pinc_tpu_torch/csrc/kbench.cu"
 INV_127SQ = 1.0 / (127.0 * 127.0)
 
 
+def weight_sums_scale(B: int):
+    """(k, j) of weight_sums' fixed-point R sums (tk.ACCUMULATOR) for B
+    slots a tile: wyz = bf16(w(y) w(z)) <= 1 and does not depend on the
+    value, so tk.deposit_scale's worst case of a tile at magnitude 1 (all
+    B slots on one (y, z) node) holds every input."""
+    return tk.deposit_scale((1.0,), B)
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -331,13 +339,17 @@ def deposit_variant(xyz: torch.Tensor, value: torch.Tensor, ts: TileSpec,
 
     Replaces the probes of FUNCTIONS (REPLACES names one a mode).  Bound on
     the card: 4 bytes a slot of value and 12 of x, y, z a live slot (4 of
-    x for given_kron, whose 2 P^3 flops a slot outweigh them), and K1's
-    shared atomics for int8 and bf16_native.  Design: one block per tile;
-    int8 and bf16_native add into a shared (P, P*P) block (int32 for int8,
-    so the sum is exact); weight_sums bins into per-thread shared columns
-    (no atomics; the bins leave 8 warps an SM); given_kron multiplies each
-    row's wx by the plane, both streamed through shared memory by column
-    chunks."""
+    x for given_kron, whose 2 P^3 flops a slot at the bf16 tensor-core
+    rate outweigh them), and K1's shared atomics for int8 and
+    bf16_native.  Design: int8 and bf16_native one block per tile adding
+    into a shared (P, P*P) block (int32 for int8, so the sum is exact);
+    weight_sums one block per tile, X in per-thread float bins (P a
+    thread) and R in one int32-pair fixed-point block (weight_sums_scale,
+    native ATOMS.ADD: the same bits from launch to launch); given_kron
+    one bf16 tensor-core GEMM (mma.sync m16n8k16, float32 sums taken in
+    two levels), a warp a tile's (16, P*P) result, W built in registers
+    from x and value, the plane staged by column chunks and shared by the
+    8 rows and the block's tiles."""
     if _is_cpu(xyz, "deposit_variant"):
         return deposit_variant_plain(xyz, value, ts, mode, kron=kron)
     code = _mode(mode, DEPOSIT_MODES)
@@ -350,14 +362,15 @@ def deposit_variant(xyz: torch.Tensor, value: torch.Tensor, ts: TileSpec,
         if kron is None:
             raise ValueError("given_kron needs the kron plane")
         _check(kron, "kron", (P * P, B // 8), dev, dtypes=(torch.bfloat16,))
+    k, j = weight_sums_scale(B) if mode == "weight_sums" else (0, 0)
     out = torch.empty((NT, P, P * P), dtype=torch.float32, device=dev)
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
         _launch(f"kbench_deposit_{mode}", lib.pinc_kb_deposit, _ptr(xyz),
                 _ptr(value), ctypes.c_void_p(
                     kron.data_ptr() if mode == "given_kron" else None),
-                _ptr(out), NT, B, P, ts.M, code, INV_127SQ, _stream(dev),
-                counts=LAUNCHES)
+                _ptr(out), NT, B, P, ts.M, code, INV_127SQ, _stream(dev), k,
+                j, counts=LAUNCHES)
     return out
 
 
