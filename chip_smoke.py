@@ -10,10 +10,12 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    instantiation, and that every instantiation of the exchange's
    extract_kernel and cleanup_kernel, of efield_kernel and of fold_kernel
    holds 16-byte global loads and stores (LDG/STG .128), and the merges
-   (merge_rows_kernel, both merge_kernel instantiations) 16-byte loads;
+   (merge_rows_kernel, both merge_kernel instantiations) 16-byte loads,
+   merge_ranked_kernel both;
    that both instantiations of the kernel benchmark's given_kron_kernel
-   hold tensor-core instructions (HGMMA), and that weight_sums_kernel's
-   shared atomics are all ATOMS.ADD.
+   hold tensor-core instructions (HGMMA), and that the shared atomics of
+   weight_sums_kernel and of both deposit_variant_kernel instantiations
+   (int8, and bf16_native on the int32 pair) are all ATOMS.ADD.
 2. Holds each kernel against its plain PyTorch version on the card and
    times both by CUDA events: deposit, deposit_move, gather, gather_kick at
    the test fixture's size and at the bench deck's production shape (128^3
@@ -48,7 +50,8 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    boundary (B = 648, cleanup rows of 18, merge runs of 13 columns with
    their flags not a prefix), where the kernels take a scalar head.  The
    ranked modes (pinc_tpu's extract and merge, for B % 8 != 0) are timed
-   at 4096 x 6524.  Last, the extract
+   at 4096 x 6524, the merge also in a CUDA graph and against its bound in
+   32-byte sectors.  Last, the extract
    and cleanup calls at the headline scan window's face cap (K = 512, M =
    2, B = 17,408; the gather exchange, the one-hot rows and the per-tile
    sweeps on one state), each against its plain version and timed with
@@ -85,9 +88,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    of one mega step and each species' exchange.
 6. The kernel benchmark (K12 and K13's probes): each mode of the
    variant kernels of csrc/kbench.cu against its plain version at the
-   test fixture (M = 1 and 2, B = 256 and 1040), given_kron and
-   weight_sums also at 4096 x 9216 at M = 2, weight_sums launched twice
-   (the same bits), and each of the four
+   test fixture (M = 1 and 2, B = 256 and 1040), bf16_native, given_kron
+   and weight_sums also at 4096 x 9216 at M = 2, bf16_native and
+   weight_sums launched twice (the same bits), and each of the four
    exchange-primitive kernels of csrc/kbench_prims.cu (take, roll,
    plane_add, lane_prefix) at the probes' own shapes (kbench.check_prims,
    bit pattern for bit pattern); then pinc_tpu_torch.kbench.run in process
@@ -153,7 +156,9 @@ ONEHOT_B = {"onehot_rows": 7680, "onehot_tile": 6528}
 # numbers go into the kernels line
 #: the kbench deposit modes redesigned for Hopper's tensor cores and
 #: integer atomics, also held at the production shape at M = 2
-TC_MODES = ("given_kron", "weight_sums")
+REDESIGNED_MODES = ("bf16_native", "given_kron", "weight_sums")
+# the kbench deposits whose sums are integers: two launches, the same bits
+SAME_BITS_MODES = ("bf16_native", "weight_sums")
 PRIM_ROWS = {"kbench_take": "prims take extract",
              "kbench_roll": "prims roll rows p=1",
              "kbench_plane_add": "prims plane_add G=1",
@@ -1173,32 +1178,61 @@ def merge_overflow(recorded, rows: bool, where: str, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def sectors(mask) -> int:
+    """The 32-byte sectors (8 words) of a flat array of 4-byte words that
+    hold a word where mask (any shape, row-major over the array) is set."""
+    import torch
+    m = mask.reshape(-1)
+    m = torch.cat([m, m.new_zeros((-m.numel()) % 8)])
+    return int(m.view(-1, 8).any(1).sum())
+
+
+def ranked_merge_sectors(frank, act, buf, alive2, alive_out) -> float:
+    """Bytes of the distinct 32-byte sectors the ranked merge must touch
+    at these inputs: the placed slots' stores in the 6 planes and alive
+    (each plane on the layout of alive), frank of the walked slots (the
+    active chunks'), active, the flag row of every tile and the used
+    columns of the six payload rows (rows start on 32-byte boundaries:
+    K2 % 8 == 0)."""
+    import torch
+    from pinc_tpu_torch.ops import onehot_exchange as ox
+    NT, B = frank.shape
+    K2 = buf.shape[-1]
+    K = K2 // 2
+    placed = (alive_out > 0.5) & (alive2 <= 0.5)
+    walked = act.bool().repeat_interleave(ox._chunk(B), 1)
+    n_m = (buf[:, 6, 0, :K] > 0.5).sum(-1, keepdim=True)
+    f = frank.long()
+    col = torch.where(f < n_m, f, K + f - n_m)
+    used = torch.zeros((NT, K2), dtype=torch.bool, device=frank.device)
+    t = torch.arange(NT, device=frank.device)[:, None].expand(NT, B)
+    used[t[placed], col[placed]] = True
+    n = (7 * sectors(placed) + sectors(walked) + -(-act.numel() // 8)
+         + NT * K2 // 8 + 6 * sectors(used))
+    return n * 32.0
+
+
 def check_ranked_bench(ox, gen, dev, card: str) -> None:
     """Phase 2: K11's ranked modes (pinc_tpu's extract and merge, kept for
     B % 8 != 0; no deck reaches them) at a shape near the v3 deck's, 4096
     tiles x 6524 slots (6144 particles a tile, velocities N(0, 0.1) moved
     by one 4-step cadence), the z sweep with K = 256: ranks as pinc_tpu's
     exchange_dim computes them, the free ranks and the active flags of
-    the extract's output.  Each against its plain version, bit for bit,
-    and timed with its bound.  Printed only."""
+    the extract's output (kernel_trials.ranked_case).  Each against its
+    plain version, bit for bit, and timed with its bound in bytes; the
+    merge also in a CUDA graph (restore + merge minus the restore alone)
+    and against its bound in 32-byte sectors (ranked_merge_sectors).
+    Printed only."""
     import torch
+    from pinc_tpu_torch import kbench
+    from pinc_tpu_torch.kernel_trials import ranked_case
     from pinc_tpu_torch.ops.tiled import TileSpec
     ts = TileSpec(grid=(128, 128, 128), T=8, M=2, B=6524)
     alive, planes = bench_species(ts, gen, dev, 0.1, 4, -1.0 / ONEHOT_PC,
                                   per_tile=ONEHOT_PC * 8 ** 3)
     K = 256
-    al = alive > 0.5
-    lm, lp = al & (planes[2] < 0), al & (planes[2] >= ts.T)
-    rm = torch.cumsum(lm, 1, dtype=torch.int32) - 1
-    rp = torch.cumsum(lp, 1, dtype=torch.int32) - 1
-    none = torch.full_like(rm, -1)
-    rank = torch.where(lm & (rm < K), rm,
-                       torch.where(lp & (rp < K), K + rp, none))
-    rank = torch.where((lm & (rm >= K)) | (lp & (rp >= K)),
-                       torch.full_like(rm, 2 * K), rank)
-    del al, lm, lp, rm, rp, none
+    rank, buf, alive2, frank, act = ranked_case(alive, planes, ts.T, K)
     args = (rank, alive, planes, 2 * K)
-    buf, alive2 = ox.extract(*args)
     pbuf, palive2 = ox.extract_plain(*args)
     check(same_bits(buf, pbuf) and same_bits(alive2, palive2),
           f"one-hot extract (ranked) at {ts.NT}x{ts.B}: differs from its "
@@ -1207,16 +1241,7 @@ def check_ranked_bench(ox, gen, dev, card: str) -> None:
     x_bytes = alive.numel() * 12.0 + copied * 24.0 + buf.numel() * 4.0
     x_ms = cuda_ms(lambda: ox.extract(*args), reps=10, warmup=2)
     x_plain = cuda_ms(lambda: ox.extract_plain(*args), reps=2, warmup=1)
-    # the merge into the extract's output: the arrivals are the leavers
-    # themselves, placed into the slots they left and the others free
-    free = alive2 <= 0.5
-    fr_incl = torch.cumsum(free, 1, dtype=torch.int32)
-    frank = torch.where(free, fr_incl - 1, torch.full_like(fr_incl, -1))
-    CB = ox._chunk(ts.B)
-    ends = fr_incl[:, CB - 1::CB]
-    base = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
-    act = ((base < buf[:, 6].sum((-2, -1))[:, None]) & (ends > base)).to(
-        torch.int32)
+    # the merge into the extract's output
     margs = (frank, alive2, buf, planes)
     got = leaves(ox.merge(*fresh_copy(margs), active=act))
     want = leaves(ox.merge_plain(*fresh_copy(margs), active=act))
@@ -1224,10 +1249,15 @@ def check_ranked_bench(ox, gen, dev, card: str) -> None:
           f"one-hot merge (ranked) at {ts.NT}x{ts.B}: differs from its "
           f"plain version")
     placed = float(got[-1].sum() - alive2.sum())
+    CB = ox._chunk(ts.B)
     active_slots = float(act.sum()) * CB
-    m_bytes = active_slots * 4.0 + buf[:, 6].numel() * 4.0 + placed * 52.0
+    m_bytes = (active_slots * 4.0 + act.numel() * 4.0
+               + buf[:, 6].numel() * 4.0 + placed * 52.0)
+    m_sectors = ranked_merge_sectors(frank, act, buf, alive2, got[-1])
     m_ms = cuda_ms_fresh(lambda: fresh_copy(margs),
                          lambda *a: ox.merge(*a, active=act), reps=10)
+    m_graph = kbench.graph_ms_inplace(
+        lambda *a: ox.merge(*a, active=act), margs)
     m_plain = cuda_ms_fresh(lambda: fresh_copy(margs),
                             lambda *a: ox.merge_plain(*a, active=act),
                             reps=2)
@@ -1239,6 +1269,13 @@ def check_ranked_bench(ox, gen, dev, card: str) -> None:
               f"{copied:.0f} copied, {placed:.0f} placed, bit-equal): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} "
               f"ms, {b / ms:.1%} of it ({card})", flush=True)
+    sb = bound_ms(m_sectors)
+    print(f"  merge_ranked_kernel: {float(act.sum()):.0f} of {act.numel()} "
+          f"chunks active ({CB} slots a chunk); in a CUDA graph "
+          f"{m_graph:.4f} ms; bound in 32-byte sectors {sb:.4f} ms "
+          f"({m_sectors / 32:.0f} sectors), {sb / m_graph:.1%} of it in the "
+          f"graph; byte bound {bound_ms(m_bytes):.4f} ms, "
+          f"{bound_ms(m_bytes) / m_graph:.1%} ({card})", flush=True)
     del alive, planes, rank, args, buf, alive2, margs, got, want, frank
     torch.cuda.empty_cache()
 
@@ -1663,9 +1700,10 @@ def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
     variant mode against its plain version at the test fixture (16^3, T =
     8, B = 256 and 1040, M = 1 and 2: B = 1040's 130 columns a row take
     given_kron's element-copy instantiation in three plane stages), the
-    TC_MODES also at 4096 x 9216 at M = 2 (P = 13: given_kron's two
-    column blocks), weight_sums launched twice (its integer R sums give
-    the same bits), each exchange primitive at the probes' shapes (bit
+    REDESIGNED_MODES also at 4096 x 9216 at M = 2 (P = 13: given_kron's two
+    column blocks), bf16_native and weight_sums launched twice (their
+    integer sums give the same bits), each exchange primitive at the
+    probes' shapes (bit
     pattern for bit pattern), then pinc_tpu_torch.kbench.run at the
     production shapes, with the launch counts set to 0 just before and
     read just after; every row must agree with its plain version (int8
@@ -1687,7 +1725,7 @@ def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
                        ((16, 16, 16), 1, 1040), ((16, 16, 16), 2, 1040),
                        ((128, 128, 128), 2, 9216)):
         ts = TileSpec(grid=grid, T=8, M=M, B=B)
-        modes = kb.DEPOSIT_MODES if grid[0] == 16 else TC_MODES
+        modes = kb.DEPOSIT_MODES if grid[0] == 16 else REDESIGNED_MODES
         xyz = torch.rand((3, ts.NT, ts.B), generator=gen, device=dev) * (
             ts.T + 2 * M) - M
         val = (torch.rand((ts.NT, ts.B), generator=gen, device=dev)
@@ -1702,10 +1740,10 @@ def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
                   <= kbench.DEPOSIT_RTOL * want.abs().max().item(),
                   f"kbench deposit {mode}, {ts.NT} tiles M={M} B={B}: "
                   f"differs from its plain version")
-            if mode == "weight_sums":     # integer R sums: the same bits
+            if mode in SAME_BITS_MODES:   # integer sums: the same bits
                 check(kbench.same_bits(
                     got, kb.deposit_variant(xyz, val, ts, mode)),
-                      f"kbench deposit weight_sums, {ts.NT} tiles M={M} "
+                      f"kbench deposit {mode}, {ts.NT} tiles M={M} "
                       f"B={B}: two launches differ")
         if grid[0] == 16:
             field = torch.randn((ts.NT, ts.P, ts.P, ts.P, 3), generator=gen,
@@ -1725,9 +1763,10 @@ def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print("phase 6 kernel bench: every variant mode against its plain "
-          "version at the fixture (M = 1, 2; B = 256, 1040), given_kron "
-          "and weight_sums also at 4096 x 9216, M = 2; weight_sums launched "
-          "twice, the same bits: ok", flush=True)
+          "version at the fixture (M = 1, 2; B = 256, 1040), bf16_native, "
+          "given_kron and weight_sums also at 4096 x 9216, M = 2; "
+          "bf16_native and weight_sums launched twice, the same bits: ok",
+          flush=True)
     checks = kbench.check_prims(dev, log=lambda s: print(f"  {s}",
                                                           flush=True))
     torch.cuda.synchronize()
@@ -1838,18 +1877,28 @@ def main() -> int:
     check(len(ws) == 1 and all(ops and set(ops) == {"ATOMS.ADD"}
                                for ops in ws.values()),
           f"weight_sums_kernel's shared atomics are not all ATOMS.ADD: {ws}")
+    # bf16_native sums on the int32 pair: deposit_variant_kernel<1>'s
+    # shared atomics (and int8's, <0>) are all native ATOMS.ADD
+    dv = shared_atomics(lib, "deposit_variant_kernel")
+    bf = {n: o for n, o in dv.items() if "ILi1E" in n}
+    check(len(dv) == 2 and len(bf) == 1 and all(
+        ops and set(ops) == {"ATOMS.ADD"} for ops in dv.values()),
+          f"deposit_variant_kernel<1>'s (bf16_native) and <0>'s shared "
+          f"atomics are not all ATOMS.ADD: {dv}")
     print(f"phase 1 SASS (cuobjdump): given_kron_kernel's tensor-core "
           f"instructions per instantiation "
           f"{sorted({tuple(o.items()) for o in gk.values()})}; weight_sums'"
-          f" shared atomics {sorted({tuple(o.items()) for o in ws.values()})}",
-          flush=True)
+          f" shared atomics {sorted({tuple(o.items()) for o in ws.values()})}"
+          f"; deposit_variant_kernel<1>'s (bf16_native) "
+          f"{sorted({tuple(o.items()) for o in bf.values()})}", flush=True)
     # the exchange's extract and cleanup walk rows in 16-byte lane groups:
     # every instantiation must load and store 16 bytes at a time (extract:
     # 3 kinds x (K8's R = 8, K11's R = 8 and 1); cleanup: 3 axes tuples x
     # bit copies or x + 0.0)
     # the merges (K9, K11's R = 8 and 1) count and walk their rows in
     # 16-byte groups (their stores to the scattered free slots stay
-    # scalar), efield stages phi and writes its tiles 16 bytes at a time
+    # scalar), the ranked merge reads frank and rewrites a placed slot's
+    # group 16 bytes at a time, efield stages phi and writes its tiles 16 bytes at a time
     # (f32 and bf16, each with P = 11, 13 compiled in and any P), and the
     # fold stages its tiles and writes rho 16 bytes at a time ((T, M) =
     # (8, 1), (8, 2) compiled in and any)
@@ -1858,6 +1907,7 @@ def main() -> int:
             ("cleanup_kernel", 6, ("LDG", "STG")),
             ("merge_rows_kernel", 1, ("LDG",)),
             ("merge_kernel", 2, ("LDG",)),
+            ("merge_ranked_kernel", 1, ("LDG", "STG")),
             ("efield_kernel", 6, ("LDG", "STG")),
             ("fold_kernel", 3, ("LDG", "STG"))):
         got = wide_accesses(lib, kernel)

@@ -12,7 +12,10 @@
 //                int32 shared accumulator, then x inv (1/127^2).
 //   BF16_NATIVE  kbench4.py _deposit_kernel_bf: the weights in bf16
 //                arithmetic, rounded after every operation (d = bf16(x-n),
-//                1-|d|, max(0, .), the products), summed in float32.
+//                1-|d|, max(0, .), the products), each product wa wyz
+//                (exact in float32) summed in the int32 pair of
+//                fixed_point.cuh (native ATOMS.ADD) on the host's grid
+//                deposit_scale((vmax,), B); the reference sums in float32.
 //   weight_sums_kernel (WEIGHT_SUMS) — kbench3.py _deposit_kernel_vpuonly:
 //                out[a][k] = X[a] + R[k], X the tile's sum of wx = w(x) v,
 //                R of wyz = w(y) w(z): K1's weight arithmetic without the
@@ -50,15 +53,17 @@
 // pallas_tiled._weights_t (CIC over the nodes -M..T+M) evaluated at the
 // nodes floor(x) and floor(x)+1, as csrc/tiled.cu does.  Products and sums
 // that a plain version repeats are rounded on their own (__fmul_rn,
-// __fadd_rn), so only the order of the atomics' and of GIVEN_KRON's and
-// WEIGHT_SUMS' float sums differ from the plain versions.
+// __fadd_rn), so only the sums differ from the plain versions: the
+// deposits' atomics (BF16_NATIVE's on the pair's grid) and GIVEN_KRON's
+// and WEIGHT_SUMS' sums, taken in another order.
 //
 // What bounds them on the card: the slot planes read once (4 bytes a slot
 // of value and 12 of x, y, z a live slot for the deposits, 12 for the
 // gathers plus 12 written), except GIVEN_KRON, whose 2 P^3 flops a slot at
 // the bf16 tensor-core rate outweigh its bytes (4 of x and 4 of value a
-// slot), and INT8 and BF16_NATIVE, which are K1's shared atomics (int32
-// for INT8).
+// slot).  INT8 and BF16_NATIVE are K1's scatter: up to 8 (INT8) or 16
+// (BF16_NATIVE: hi and lo) native int32 shared atomics a live slot, and
+// BF16_NATIVE keeps kBfAhead slots' loads in flight ahead of them.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns the cudaGetLastError() code of its launch (-1 for an argument the
@@ -68,7 +73,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "fixed_point.cuh"
 
@@ -129,51 +133,73 @@ __device__ __forceinline__ int quant(float a, float b) {
   return __float2int_rn(mul(mul(a, b), 127.0f));
 }
 
-// INT8 and BF16_NATIVE: K1's scatter into a shared (P, P*P) accumulator.
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-deposit_variant_kernel(const float* __restrict__ xyz,
-                       const float* __restrict__ value, float inv,
-                       float* __restrict__ tiles, int B, long long plane,
-                       int P, int M) {
-  using Acc = std::conditional_t<MODE == kDepInt8, int, float>;
-  extern __shared__ float smem[];
-  Acc* acc = reinterpret_cast<Acc*>(smem);
-  const int T = P - 1 - 2 * M;
-  const int P2 = P * P, P3 = P2 * P;
-  for (int i = threadIdx.x; i < P3; i += blockDim.x) acc[i] = 0;
-  __syncthreads();
-  const long long base = (long long)blockIdx.x * B;
-  for (int j = threadIdx.x; j < B; j += blockDim.x) {
+// INT8's slots, one a thread at a time: rint(127 wx v) rint(127 wy wz)
+// added into the shared int32 block acc (exact).
+__device__ __forceinline__ void int8_slots(const float* __restrict__ xyz,
+                                           const float* __restrict__ value,
+                                           int* acc, long long base, int B,
+                                           long long plane, int P, int M,
+                                           int T) {
+  const int P2 = P * P;
+  for (int j = threadIdx.x; j < B; j += kThreads) {
     const long long k = base + j;
     const float v = value[k];
     if (v == 0.0f) continue;
-    const float x = xyz[k], y = xyz[plane + k], z = xyz[2 * plane + k];
     int ix[2], iy[2], iz[2];
-    if constexpr (MODE == kDepInt8) {
-      float wx[2], wy[2], wz[2];
-      nodes(x, M, T, ix, wx);
-      nodes(y, M, T, iy, wy);
-      nodes(z, M, T, iz, wz);
+    float wx[2], wy[2], wz[2];
+    nodes(xyz[k], M, T, ix, wx);
+    nodes(xyz[plane + k], M, T, iy, wy);
+    nodes(xyz[2 * plane + k], M, T, iz, wz);
 #pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int qa = quant(wx[a], v);
-        if (qa == 0) continue;
+    for (int a = 0; a < 2; ++a) {
+      const int qa = quant(wx[a], v);
+      if (qa == 0) continue;
 #pragma unroll
-        for (int b = 0; b < 2; ++b)
+      for (int b = 0; b < 2; ++b)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int qyz = quant(wy[b], wz[c]);
-            if (qyz != 0)
-              atomicAdd(acc + ix[a] * P2 + iy[b] * P + iz[c], qa * qyz);
-          }
-      }
-    } else {
+        for (int c = 0; c < 2; ++c) {
+          const int qyz = quant(wy[b], wz[c]);
+          if (qyz != 0)
+            atomicAdd(acc + ix[a] * P2 + iy[b] * P + iz[c], qa * qyz);
+        }
+    }
+  }
+}
+
+// BF16_NATIVE's slots: kBfAhead slots a thread (j, j + kThreads, ...), all
+// their loads (x, y, z and value, whether the slot is live or not) issued
+// before the first of their adds; each product wa wyz of two bf16 numbers
+// (exact in float32) added into the int32 pair (hi, lo) at the launch's
+// grid fp, two native ATOMS.ADD.  The atomics set the pace: at 4096 x 9216
+// on an H100, trial builds without them took 0.30 ms of 0.43, without the
+// loads 0.41; 1 or 4 slots in flight 0.437 and 0.434 against 2's 0.427.
+constexpr int kBfAhead = 2;
+
+__device__ __forceinline__ void bf16_native_slots(
+    const float* __restrict__ xyz, const float* __restrict__ value, int* hi,
+    int* lo, const FixedPoint& fp, long long base, int B, long long plane,
+    int P, int M, int T) {
+  const int P2 = P * P;
+  for (int j0 = threadIdx.x; j0 < B; j0 += kBfAhead * kThreads) {
+    float xs[kBfAhead], ys[kBfAhead], zs[kBfAhead], vs[kBfAhead];
+#pragma unroll
+    for (int u = 0; u < kBfAhead; ++u) {
+      const int j = j0 + u * kThreads;
+      const long long k = base + (j < B ? j : j0);
+      xs[u] = xyz[k];
+      ys[u] = xyz[plane + k];
+      zs[u] = xyz[2 * plane + k];
+      vs[u] = j < B ? value[k] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBfAhead; ++u) {
+      if (vs[u] == 0.0f) continue;
+      int ix[2], iy[2], iz[2];
       __nv_bfloat16 wx[2], wy[2], wz[2];
-      nodes_bf16(x, M, T, ix, wx);
-      nodes_bf16(y, M, T, iy, wy);
-      nodes_bf16(z, M, T, iz, wz);
-      const __nv_bfloat16 vb = __float2bfloat16_rn(v);
+      nodes_bf16(xs[u], M, T, ix, wx);
+      nodes_bf16(ys[u], M, T, iy, wy);
+      nodes_bf16(zs[u], M, T, iz, wz);
+      const __nv_bfloat16 vb = __float2bfloat16_rn(vs[u]);
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
         const float wa = __bfloat162float(__hmul(wx[a], vb));
@@ -184,18 +210,52 @@ deposit_variant_kernel(const float* __restrict__ xyz,
           for (int c = 0; c < 2; ++c) {
             const float wyz = __bfloat162float(__hmul(wy[b], wz[c]));
             if (wyz != 0.0f)
-              atomicAdd(acc + ix[a] * P2 + iy[b] * P + iz[c], mul(wa, wyz));
+              acc_add(hi, lo, ix[a] * P2 + iy[b] * P + iz[c], mul(wa, wyz),
+                      fp);
           }
       }
     }
   }
+}
+
+// INT8 and BF16_NATIVE: K1's scatter into shared (P, P*P) sums, one block
+// per tile: INT8 in one int32 block (exact), BF16_NATIVE in the int32 pair
+// of fixed_point.cuh (2 P^3 ints).  No sum depends on the order of the
+// atomics: the tiles are the same bits from launch to launch.
+//
+// What the pair gives BF16_NATIVE: every addend wa wyz is a product of two
+// bf16 numbers, exact in float32, and is rounded once onto the pair's grid
+// 2^-(k+j).  With the kernel benchmark's 0/1 values (vmax = 1) every bf16
+// weight max(0, 1 - |d|) is a multiple of 2^-8, so every addend is a
+// multiple of 2^-24; at B = 9216 the host's deposit_scale((1,), B) is (k,
+// j) = (15, 18), a grid of 2^-33, which holds every addend and every sum
+// exactly: a node's value is its exact sum rounded once to float32, at
+// least as close as the plain version's float32 sums in slot order.
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+deposit_variant_kernel(const float* __restrict__ xyz,
+                       const float* __restrict__ value, float inv,
+                       FixedPoint fp, float* __restrict__ tiles, int B,
+                       long long plane, int P, int M) {
+  extern __shared__ int acc[];     // INT8: (P^3); BF16_NATIVE: hi, lo
+  const int T = P - 1 - 2 * M;
+  const int P3 = P * P * P;
+  constexpr int kBlocks = MODE == kDepInt8 ? 1 : 2;
+  for (int i = threadIdx.x; i < kBlocks * P3; i += kThreads) acc[i] = 0;
+  __syncthreads();
+  const long long base = (long long)blockIdx.x * B;
+  if constexpr (MODE == kDepInt8)
+    int8_slots(xyz, value, acc, base, B, plane, P, M, T);
+  else
+    bf16_native_slots(xyz, value, acc, acc + P3, fp, base, B, plane, P, M,
+                      T);
   __syncthreads();
   float* out = tiles + (long long)blockIdx.x * P3;
-  for (int i = threadIdx.x; i < P3; i += blockDim.x) {
+  for (int i = threadIdx.x; i < P3; i += kThreads) {
     if constexpr (MODE == kDepInt8)
       out[i] = mul(__int2float_rn(acc[i]), inv);
     else
-      out[i] = acc[i];
+      out[i] = acc_value(acc, acc + P3, i, fp);
   }
 }
 
@@ -646,12 +706,14 @@ int prepare(Kernel* kernel, size_t smem) {
 
 template <int MODE>
 int launch_deposit(const float* xyz, const float* value, float inv,
-                   float* tiles, int NT, int B, int P, int M,
+                   float* tiles, int NT, int B, int P, int M, int k, int j,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)P * P * P * 4;
+  FixedPoint fp = {};
+  if (MODE == kDepBf16Native && !fixed_point(k, j, &fp)) return -1;
+  const size_t smem = (size_t)(MODE == kDepInt8 ? 1 : 2) * P * P * P * 4;
   if (int err = prepare(deposit_variant_kernel<MODE>, smem)) return err;
   deposit_variant_kernel<MODE><<<NT, kThreads, smem, stream>>>(
-      xyz, value, inv, tiles, B, (long long)NT * B, P, M);
+      xyz, value, inv, fp, tiles, B, (long long)NT * B, P, M);
   return (int)cudaGetLastError();
 }
 
@@ -703,10 +765,11 @@ int pinc_kb_deposit(const float* xyz, const float* value, const void* kron,
   if (P < 2 || P > kMaxP || B % 8 != 0 || 2 * M + 1 > P) return -1;
   switch (mode) {
     case kDepInt8:
-      return launch_deposit<kDepInt8>(xyz, value, inv, tiles, NT, B, P, M, s);
+      return launch_deposit<kDepInt8>(xyz, value, inv, tiles, NT, B, P, M,
+                                      k, j, s);
     case kDepBf16Native:
       return launch_deposit<kDepBf16Native>(xyz, value, inv, tiles, NT, B, P,
-                                            M, s);
+                                            M, k, j, s);
     case kDepWeightSums:
       return launch_weight_sums(xyz, value, tiles, NT, B, P, M, k, j, s);
     case kDepGivenKron: {

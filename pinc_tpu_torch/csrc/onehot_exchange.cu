@@ -16,7 +16,11 @@
 //   merge_kernel<R>         merge_rows, merge_all_rows (R = 8), merge_fused
 //                           (R = 1): a block table of compacted runs,
 //                           rows walked in 16-byte lane groups
-//   merge_ranked_kernel     merge (free ranks given, any B)
+//   merge_ranked_kernel     merge (free ranks given, any B): the tile's
+//                           arrivals staged in shared memory, the active
+//                           chunks listed by ballots, frank read and the
+//                           placed slots' groups rewritten 16 bytes at a
+//                           time where aligned
 //
 // cleanup_rows runs K10's kernel (gather_exchange.cu, canon = 1).
 //
@@ -237,51 +241,301 @@ extract_ranked_kernel(const int* __restrict__ rank,
 
 // K11 merge with the free rank of every slot given (pinc_tpu's `merge`,
 // kept for B % 8 != 0): the buffer is one minus run [0, K) and one plus run
-// [K, 2K), each compacted; free rank f takes arrival f (minus first), if
-// its flag is set.  active (optional, (NT, NC) per chunk of CB slots): a
-// chunk whose flag is 0 is skipped, as in pinc_tpu.  In place, as
-// merge_kernel.  Bound: bytes: frank read, 28 B read and written per placed
-// arrival.
+// [K, 2K), each compacted; free rank f < n_m takes column f, n_m <= f <
+// n_m + n_p column K + f - n_m (n_m, n_p: the runs' set flags), placed if
+// that column's flag is set.  frank is any int32 plane: ranks need not
+// rise in slot order, and two slots may hold one rank (both take it).
+// active (optional, (NT, NC) per chunk of CB slots): a chunk whose flag is
+// 0 places nothing, as in pinc_tpu.  In place, as merge_kernel.  Bound:
+// bytes: the flag row, active, frank of the walked slots (the active
+// chunks', or all), 24 B read and 28 B written per placed arrival; in
+// 32-byte sectors, the placed slots' scattered stores, a sector a plane
+// (chip_smoke.py's check_ranked_bench computes both).  Neither is its
+// floor: scattered writes of part of a sector run far below the HBM rate.
+//
+// Design, one block a tile.  (1) Every warp reads the tile's flag row
+// (16-byte loads where the buffer's rows are 16-byte aligned), keeps it in
+// shared memory and counts its set flags of each run (summed through
+// shared memory); in the same pass the warps list the active chunks: warp
+// v reads the flags of chunks [w0 + 256 v, w0 + 256 v + 256) of a window
+// of kActWindow, one ballot a 32, and writes the indices of the set ones,
+// in order, into its part of a shared list.  (2) After one barrier the
+// block stages the arrivals it can place, columns [0, n_m) and [K, K + n_p)
+// of the six payload rows (16-byte cp.async where the rows and K allow,
+// element copies otherwise), and walks its items with the copies in
+// flight: without active the tile's row, as a scalar head up to the first
+// 16-byte boundary of frank, 16-byte groups and a scalar tail; with active
+// the listed chunks, as 16-byte groups where CB % 4 == 0 and the row is
+// 16-byte aligned, else slot by slot.  A thread loads the ranks of
+// kRankAhead items before it uses any; the first batch's loads are in
+// flight across the barrier that publishes the staged block.  (3) Each
+// slot with a rank in [0, n_m + n_p) whose column's flag is set takes its
+// six payloads from shared memory (x + 0.0f) and alive = 1: a 16-byte
+// item with such a slot reads its group of the six planes and alive,
+// replaces its placed slots and writes the group back whole, one 16-byte
+// store a plane (the group is the tile's: no other block writes it).  A
+// window of active chunks past the first is listed and walked after a
+// barrier.  Dynamic shared memory: the staged block, 7 K2 floats (14 KB
+// at K = 256); the list takes 8 KB more.  The scattered stores set the
+// pace: at 4096 x 6524 on an H100 the kernel without them takes 0.04 ms
+// of 0.35, and trial builds that stored each placed slot's 4 bytes (0.46
+// ms), or
+// walked the whole row in slot order (0.41 ms; 0.43 with 32-byte groups)
+// were slower.  (The first design read active for every slot, every
+// thread walking slots i, i + 256, ... through chains of dependent loads:
+// active, frank, the flag, the payloads, each slot's 4-byte stores.)
+constexpr int kRankAhead = 4;      // items a thread loads before it places
+constexpr int kActSpan = 256;      // active chunks a warp lists in a window
+constexpr int kActWindow = kWarps * kActSpan;
+constexpr size_t kRankedStaticSmem = sizeof(int) * (kActWindow + 3 * kWarps);
+constexpr size_t kMaxSmem = 232448;  // 227 KB a block
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Warp `warp`'s part of the active list of the window from chunk w0: the
+// set flags of chunks [w0 + kActSpan warp, + kActSpan) in order, from
+// list + kActSpan warp; their count into nlist[warp].
+__device__ __forceinline__ void list_active(const int* __restrict__ act,
+                                            int w0, int NC, int* list,
+                                            int* nlist, int warp, int lane) {
+  constexpr int kR = kActSpan / 32;
+  const int c0 = w0 + warp * kActSpan;
+  int v[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int c = c0 + 32 * r + lane;
+    v[r] = c < NC ? act[c] : 0;
+  }
+  const unsigned lt = (1u << lane) - 1u;
+  int n = 0;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const unsigned b = __ballot_sync(kFull, v[r] != 0);
+    if (v[r] != 0)
+      list[warp * kActSpan + n + __popc(b & lt)] = c0 + 32 * r + lane;
+    n += __popc(b);
+  }
+  if (lane == 0) nlist[warp] = n;
+}
+
+// The walk's items over a tile's frank row fr: item q is `width` slots
+// from slot `at` (width 4: one 16-byte load; 1: one slot).  Without
+// active: the row's scalar head (h slots), ng 16-byte groups, the scalar
+// tail.  With active: item q is part q - o ipc of listed chunk o = q / ipc,
+// ipc parts of `width` slots a chunk; the list is the warps' parts, warp
+// v's from entry pre[v] of the window.
+struct RankedItems {
+  const int* list;
+  int pre[kWarps + 1];
+  int n, h, ng, ipc, CB, width;
+  bool listed;
+  __device__ __forceinline__ void item(int q, int* at, int* w) const {
+    if (!listed) {
+      if (q < h) {
+        *at = q, *w = 1;
+      } else if (q < h + ng) {
+        *at = h + kVec * (q - h), *w = kVec;
+      } else {
+        *at = q + (kVec - 1) * ng, *w = 1;
+      }
+      return;
+    }
+    const int o = q / ipc;
+    int from = 0;            // list entry of o: warp v's part, pre[v] <= o
+#pragma unroll
+    for (int v = 1; v < kWarps; ++v)
+      if (o >= pre[v]) from = v * kActSpan - pre[v];
+    const int chunk = list[from + o];
+    *at = chunk * CB + (q - o * ipc) * width;
+    *w = width;
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
 merge_ranked_kernel(const int* __restrict__ frank, float* __restrict__ alive,
                     const float* __restrict__ inc,
                     const int* __restrict__ active, MutPlanes pl, int B,
                     int K2, int CB, int NC) {
-  __shared__ int counts[2];
+  extern __shared__ float4 stage4[];            // (7, K2): the arrivals
+  __shared__ int nflag[2][kWarps];              // set flags: minus, plus
+  __shared__ int nlist[kWarps];
+  __shared__ int list[kActWindow];
+  float* stage = reinterpret_cast<float*>(stage4);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int K = K2 / 2;
   const float* tin = inc + (long long)blockIdx.x * kNPay * K2;
-  if (warp < 2) {
-    int cnt = 0;
-    for (int c0 = 0; c0 < K; c0 += 32) {
-      const int j = c0 + lane;
-      cnt += __popc(__ballot_sync(
-          kFull, j < K && tin[6 * K2 + warp * K + j] > 0.5f));
+  const long long base = (long long)blockIdx.x * B;
+  const int* fr = frank + base;
+  const int* act = active == nullptr ? nullptr
+                                     : active + (long long)blockIdx.x * NC;
+  // (1) the flag row: counted by run, kept in the staged block
+  const bool vec_in = K2 % kVec == 0 && misalign16(tin) == 0;
+  int cm = 0, cp = 0;
+  if (vec_in) {
+    for (int g = threadIdx.x; g < K2 / kVec; g += kThreads) {
+      const float4 f = reinterpret_cast<const float4*>(tin + 6 * K2)[g];
+      reinterpret_cast<float4*>(stage + 6 * K2)[g] = f;
+      const float v[kVec] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int set = v[e] > 0.5f;
+        if (kVec * g + e < K) cm += set; else cp += set;
+      }
     }
-    if (lane == 0) counts[warp] = cnt;
+  } else {
+    for (int c = threadIdx.x; c < K2; c += kThreads) {
+      const float f = tin[6 * K2 + c];
+      stage[6 * K2 + c] = f;
+      const int set = f > 0.5f;
+      if (c < K) cm += set; else cp += set;
+    }
   }
+  cm = __reduce_add_sync(kFull, cm);
+  cp = __reduce_add_sync(kFull, cp);
+  if (lane == 0) nflag[0][warp] = cm, nflag[1][warp] = cp;
+  if (act != nullptr) list_active(act, 0, NC, list, nlist, warp, lane);
   __syncthreads();
-  const int n_m = counts[0], n_p = counts[1];
-  for (int i = threadIdx.x; i < B; i += kThreads) {
-    if (active != nullptr && active[(long long)blockIdx.x * NC + i / CB] == 0)
-      continue;
-    const long long k = (long long)blockIdx.x * B + i;
-    const int f = frank[k];
+  int n_m = 0, n_p = 0;
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) n_m += nflag[0][v], n_p += nflag[1][v];
+  // (2) stage columns [0, n_m) and [K, K + n_p) of the six payload rows
+  if (vec_in && K % kVec == 0) {
+    const int gm = (n_m + kVec - 1) / kVec, gp = (n_p + kVec - 1) / kVec;
+    for (int i = threadIdx.x; i < 6 * (gm + gp); i += kThreads) {
+      const int q = i / (gm + gp), g = i - q * (gm + gp);
+      const int c = q * K2 + (g < gm ? kVec * g : K + kVec * (g - gm));
+      cp_async16(stage + c, tin + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < 6 * (n_m + n_p); i += kThreads) {
+      const int q = i / (n_m + n_p), g = i - q * (n_m + n_p);
+      const int c = q * K2 + (g < n_m ? g : K + g - n_m);
+      stage[c] = tin[c];
+    }
+  }
+  RankedItems it;
+  it.list = list;
+  it.CB = CB;
+  it.listed = act != nullptr;
+  const bool vec_fr = misalign16(fr) == 0;
+  if (!it.listed) {
+    it.h = min(B, (int)(((16u - misalign16(fr)) & 15u) >> 2));
+    it.ng = (B - it.h) / kVec;
+    it.n = B - (kVec - 1) * it.ng;
+  }
+  it.width = CB % kVec == 0 && vec_fr ? kVec : 1;
+  it.ipc = CB / it.width;
+  // (3) place: a rank's column, if that column's flag is set, else -1
+  auto column = [&](int f) -> int {
     int col;
     if (f < 0)
-      continue;
+      return -1;
     else if (f < n_m)
       col = f;
     else if (f - n_m < n_p)
       col = K + (f - n_m);
     else
-      continue;
-    const float* src = tin + col;
-    if (src[6 * K2] > 0.5f) {
+      return -1;
+    return stage[6 * K2 + col] > 0.5f ? col : -1;
+  };
+  // the planes' and alive's rows as frank's, off a 16-byte boundary alike
+  bool vec_pl = misalign16(alive + base) == misalign16(fr);
 #pragma unroll
-      for (int q = 0; q < 6; ++q) pl.p[q][k] = stored<true>(src[q * K2]);
-      alive[k] = 1.0f;
+  for (int q = 0; q < 6; ++q)
+    vec_pl &= misalign16(pl.p[q] + base) == misalign16(fr);
+  // an item's placed slots (f: its ranks, -1 past its width): a 16-byte
+  // group is read from the six planes and alive, its placed slots replaced
+  // and written back whole; a scalar item stores its slot
+  auto place = [&](int at, int w, const int (&f)[kVec]) {
+    int col[kVec];
+    bool any = false;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      col[e] = column(f[e]);
+      any |= col[e] >= 0;
     }
+    if (!any) return;
+    const long long k = base + at;
+    if (w == kVec && vec_pl) {
+      float4 d[kNPay];
+#pragma unroll
+      for (int q = 0; q < kNPay; ++q)
+        d[q] = *reinterpret_cast<const float4*>((q < 6 ? pl.p[q] : alive) +
+                                                 k);
+#pragma unroll
+      for (int q = 0; q < kNPay; ++q) {
+        float v[kVec] = {d[q].x, d[q].y, d[q].z, d[q].w};
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          if (col[e] >= 0)
+            v[e] = q < 6 ? stored<true>(stage[q * K2 + col[e]]) : 1.0f;
+        *reinterpret_cast<float4*>((q < 6 ? pl.p[q] : alive) + k) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      if (col[e] >= 0) {
+#pragma unroll
+        for (int q = 0; q < 6; ++q)
+          pl.p[q][k + e] = stored<true>(stage[q * K2 + col[e]]);
+        alive[k + e] = 1.0f;
+      }
+  };
+  bool staged = false;
+  auto walk = [&]() {
+    constexpr int kStep = kRankAhead * kThreads;
+    const int rounds = max(1, (it.n + kStep - 1) / kStep);
+    for (int r = 0; r < rounds; ++r) {
+      int f[kRankAhead][kVec], at[kRankAhead], wd[kRankAhead];
+#pragma unroll
+      for (int u = 0; u < kRankAhead; ++u) {
+        const int q = r * kStep + u * kThreads + threadIdx.x;
+        int w = 0;
+        at[u] = 0;
+        if (q < it.n) it.item(q, &at[u], &w);
+        wd[u] = w;
+        if (w == kVec) {
+          const int4 t = *reinterpret_cast<const int4*>(fr + at[u]);
+          f[u][0] = t.x, f[u][1] = t.y, f[u][2] = t.z, f[u][3] = t.w;
+        } else {
+          f[u][0] = w == 1 ? fr[at[u]] : -1;
+          f[u][1] = f[u][2] = f[u][3] = -1;
+        }
+      }
+      if (!staged) {         // block-uniform: the first round of the walk
+        cp_async_wait_all();
+        __syncthreads();
+        staged = true;
+      }
+#pragma unroll
+      for (int u = 0; u < kRankAhead; ++u) place(at[u], wd[u], f[u]);
+    }
+  };
+  for (int w0 = 0;; w0 += kActWindow) {
+    if (it.listed) {
+      if (w0 > 0) {          // the window's list, once the last is walked
+        __syncthreads();
+        list_active(act, w0, NC, list, nlist, warp, lane);
+        __syncthreads();
+      }
+      it.pre[0] = 0;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) it.pre[v + 1] = it.pre[v] + nlist[v];
+      it.n = it.pre[kWarps] * it.ipc;
+    }
+    walk();
+    if (!it.listed || w0 + kActWindow >= NC) break;
   }
 }
 
@@ -350,8 +604,16 @@ int pinc_ox_merge_ranked(const int* frank, float* alive, const float* inc,
   if (NT <= 0 || B <= 0 || K2 <= 0 || K2 % 2 != 0 || CB <= 0 ||
       (long long)CB * NC != B)
     return -1;
+  const size_t smem = sizeof(float) * kNPay * K2;
+  if (smem + kRankedStaticSmem > kMaxSmem) return -1;
+  if (smem + kRankedStaticSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_ranked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const MutPlanes pl = {{x, y, z, vx, vy, vz}};
-  merge_ranked_kernel<<<NT, kThreads, 0, (cudaStream_t)stream>>>(
+  merge_ranked_kernel<<<NT, kThreads, smem, (cudaStream_t)stream>>>(
       frank, alive, inc, active, pl, B, K2, CB, NC);
   return (int)cudaGetLastError();
 }

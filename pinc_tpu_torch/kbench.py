@@ -33,8 +33,8 @@ from a seed:
   the two variant kernels of ``ops/kbench_kernels.py``.  The int8 gather's
   per-tile quantization is made once, outside the timed launches.
 
-Both sweeps' deposit values are 0 or 1, so K1 runs at ``vmax=1.0`` (no
-host sync in the timed launches).
+Both sweeps' deposit values are 0 or 1, so K1 and ``bf16_native`` run at
+``vmax=1.0`` (no host sync in the timed launches).
 
 * ``prims`` — the exchange primitives of ``ops/kbench_prims.py`` at the
   exchange's shapes: the gathers along lanes of 4096 tiles of (8, 2176)
@@ -310,6 +310,8 @@ def _k13_cases(k13: dict, gen, dev):
         _refs("deposit", "K1 bf16")))
     for mode in kb.DEPOSIT_MODES:
         kw = dict(kron=kron) if mode == "given_kron" else {}
+        # bf16_native's fixed-point grid at vmax = 1: no host sync
+        kkw = dict(kw, vmax=1.0) if mode == "bf16_native" else kw
         nbytes = dbytes
         ops, kind = live * DEPOSIT_OPS, "bf16"
         if mode == "int8":
@@ -320,7 +322,7 @@ def _k13_cases(k13: dict, gen, dev):
             ops = 2.0 * P ** 3 * B * NT + slots * 12.0
         cases.append((
             f"K13 deposit {mode}", f"kbench_deposit_{mode}", mode, ts,
-            lambda m=mode, kw=kw: kb.deposit_variant(xyz, val, ts, m, **kw),
+            lambda m=mode, kw=kkw: kb.deposit_variant(xyz, val, ts, m, **kw),
             lambda m=mode, kw=kw: kb.deposit_variant_plain(xyz, val, ts, m,
                                                            **kw),
             None if mode in CEILINGS else k1, mode == "int8", nbytes, ops,

@@ -1,23 +1,27 @@
 """Trial builds of the fold (K7), the one-hot merges (K11) and the kernel
-benchmark's given_kron and weight_sums deposits (K13), timed beside the
-package's own build: ``python -m pinc_tpu_torch.kernel_trials DIR [DIR
-...]``.
+benchmark's bf16_native, given_kron and weight_sums deposits (K13), timed
+beside the package's own build: ``python -m pinc_tpu_torch.kernel_trials
+DIR [DIR ...]``.
 
 Each DIR holds edited copies of ``csrc`` sources (``field.cu``,
 ``onehot_exchange.cu`` and/or ``kbench.cu``; a header it does not hold is
 taken from the package's ``csrc``).  Each is compiled with the package's
 nvcc flags into a library of its own (under the git-ignored
 ``_build/trials/``), and its ``pinc_field_fold``, ``pinc_ox_merge`` and
-``pinc_kb_deposit`` run in one process beside the package's build, on the
-same inputs, for each source some DIR holds (all three without a DIR):
+``pinc_kb_deposit`` (and ``pinc_ox_merge_ranked``) run in one process
+beside the package's build, on the same inputs, for each source some DIR
+holds (all three without a DIR):
 
 * K7 at 128^3, T = 8, M = 1 and 2, on normal tiles;
 * the merge calls of one electron exchange of the one-hot decks (4096
   tiles, 6144 particles a tile, velocities N(0, 0.1) moved by one 4-step
   cadence): B = 7680 takes the fused row exchange (``merge_kernel<8>``),
-  B = 6528 the per-tile sweeps (``merge_kernel<1>``);
-* given_kron and weight_sums at the kernel benchmark's K13 shape (4096
-  tiles, B = 9216, 90% live, M = 1, a random bf16 plane).
+  B = 6528 the per-tile sweeps (``merge_kernel<1>``); the ranked merge
+  (``merge_ranked_kernel``) on ``chip_smoke.py``'s ranked case at B =
+  6524 (``ranked_case``: K = 256, with ``active``);
+* bf16_native (at vmax = 1), given_kron and weight_sums at the kernel
+  benchmark's K13 shape (4096 tiles, B = 9216, 90% live, M = 1, a random
+  bf16 plane).
 
 The fold and merges are compared with the plain version bit for bit, the
 deposits within ``kbench.DEPOSIT_RTOL`` of max|plain| (a trial that
@@ -46,7 +50,8 @@ from .ops.tiled import TileSpec, bucket
 
 SOURCES = ("field.cu", "onehot_exchange.cu", "kbench.cu")
 #: the kernels whose ptxas lines a trial prints
-KERNELS = ("fold_kernel", "merge_kernel", "given_kron", "weight_sums")
+KERNELS = ("fold_kernel", "merge_kernel", "merge_ranked", "given_kron",
+           "weight_sums", "deposit_variant")
 ONEHOT_B = {"rows": 7680, "tile": 6528}
 
 
@@ -125,13 +130,74 @@ def _merge_calls(route: str, gen, dev) -> list:
     return calls
 
 
+def ranked_case(alive, planes, T: int, K: int):
+    """K11's ranked modes on one z sweep of (alive, planes): the extract's
+    ranks as pinc_tpu's exchange_dim computes them at face cap K (a
+    leaver past the cap ranked 2K: killed, not copied), its buffer and
+    alive (by ``ox.extract``), and the merge's free ranks and ``active``
+    flags on that output: the arrivals are the leavers themselves, placed
+    into the slots they left and the others free.  Returns (rank, buf,
+    alive2, frank, active)."""
+    al = alive > 0.5
+    lm, lp = al & (planes[2] < 0), al & (planes[2] >= T)
+    rm = torch.cumsum(lm, 1, dtype=torch.int32) - 1
+    rp = torch.cumsum(lp, 1, dtype=torch.int32) - 1
+    none = torch.full_like(rm, -1)
+    rank = torch.where(lm & (rm < K), rm,
+                       torch.where(lp & (rp < K), K + rp, none))
+    rank = torch.where((lm & (rm >= K)) | (lp & (rp >= K)),
+                       torch.full_like(rm, 2 * K), rank)
+    del al, lm, lp, rm, rp, none
+    buf, alive2 = ox.extract(rank, alive, planes, 2 * K)
+    free = alive2 <= 0.5
+    fr_incl = torch.cumsum(free, 1, dtype=torch.int32)
+    frank = torch.where(free, fr_incl - 1, torch.full_like(fr_incl, -1))
+    CB = ox._chunk(alive.shape[1])
+    ends = fr_incl[:, CB - 1::CB]
+    base = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
+    act = ((base < buf[:, 6].sum((-2, -1))[:, None]) & (ends > base)).to(
+        torch.int32)
+    return rank, buf, alive2, frank, act
+
+
+def _ranked_trials(libs: dict, gen, dev) -> None:
+    """The ranked merge of each library on check_ranked_bench's inputs
+    (chip_smoke.py: 4096 tiles x 6524 slots, K = 256, with active)."""
+    ts = TileSpec(grid=(128, 128, 128), T=8, M=2, B=6524)
+    alive, planes = _species(ts, gen, dev)
+    _, buf, alive2, frank, act = ranked_case(alive, planes, ts.T, 256)
+    del alive
+    wp, wa = ox.merge_plain(frank, alive2.clone(), buf,
+                            tuple(p.clone() for p in planes), active=act)
+    for name, lib in libs.items():
+        if not hasattr(lib, "pinc_ox_merge_ranked"):
+            continue
+
+        def call(a, *pl, lib=lib):
+            if lib.pinc_ox_merge_ranked(
+                    _ptr(frank), _ptr(a), _ptr(buf), _ptr(act),
+                    *[_ptr(p) for p in pl], ts.NT, ts.B, buf.shape[-1],
+                    ox._chunk(ts.B), act.shape[1], _stream()):
+                raise RuntimeError(f"{name}: ranked merge launch failed")
+        got = [alive2.clone()] + [p.clone() for p in planes]
+        call(*got)
+        ok = _same_bits(got[0], wa) and all(map(_same_bits, got[1:], wp))
+        print(f"merge ranked {name}: graph "
+              f"{kbench.graph_ms_inplace(call, (alive2, *planes)):.4f} ms, "
+              f"bit-equal {ok}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def _deposit_trials(libs: dict, gen, dev) -> None:
-    """given_kron and weight_sums of each library at the K13 shape."""
+    """bf16_native, given_kron and weight_sums of each library at the K13
+    shape."""
     ts = TileSpec(grid=kbench.K13["grid"], T=kbench.K13["T"],
                   M=kbench.K13["M"], B=kbench.K13["B"])
     xyz, val, _, kron = kbench._k13_inputs(ts, kbench.K13["live"], gen, dev)
-    k, j = kb.weight_sums_scale(ts.B)
-    for mode in ("given_kron", "weight_sums"):
+    for mode in ("bf16_native", "given_kron", "weight_sums"):
+        # bf16_native's grid at vmax = 1, as the kernel benchmark's
+        k, j = (tk.deposit_scale((1.0,), ts.B) if mode == "bf16_native"
+                else kb.weight_sums_scale(ts.B))
         want = kb.deposit_variant_plain(xyz, val, ts, mode, kron=kron)
         tol = kbench.DEPOSIT_RTOL * want.abs().max().item()
         for name, lib in libs.items():
@@ -197,6 +263,8 @@ def main(argv=None) -> int:
                   f" ms, events {kbench.cuda_ms(call, 20):.4f} ms, "
                   f"bit-equal {ok}", flush=True)
         del tiles, want
+    if "onehot_exchange.cu" in held:
+        _ranked_trials(libs, gen, dev)
     for route in ("rows", "tile") if "onehot_exchange.cu" in held else ():
         calls = _merge_calls(route, gen, dev)
         for name, lib in libs.items():

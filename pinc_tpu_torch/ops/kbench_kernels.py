@@ -331,25 +331,32 @@ def _shape(xyz: torch.Tensor, ts: TileSpec):
 
 
 def deposit_variant(xyz: torch.Tensor, value: torch.Tensor, ts: TileSpec,
-                    mode: str, kron: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    mode: str, kron: Optional[torch.Tensor] = None,
+                    vmax: Optional[float] = None) -> torch.Tensor:
     """The deposit variant ``mode`` (the module's table): xyz (3, NT, B)
     f32 planes, value (NT, B) f32 (in [-1, 1] for int8, the probes'
     alive mask), kron (P*P, B/8) bf16 for given_kron -> (NT, P, P*P) f32.
+    vmax (bf16_native only): a bound on |value| that sets the fixed-point
+    grid, tk.deposit_scale((vmax,), B), as K1's ``deposit`` does; a value
+    above it can overflow the integer sums.  With vmax=None the wrapper
+    reads float(value.abs().max()), one host sync.
 
     Replaces the probes of FUNCTIONS (REPLACES names one a mode).  Bound on
     the card: 4 bytes a slot of value and 12 of x, y, z a live slot (4 of
     x for given_kron, whose 2 P^3 flops a slot at the bf16 tensor-core
-    rate outweigh them), and K1's shared atomics for int8 and
-    bf16_native.  Design: int8 and bf16_native one block per tile adding
-    into a shared (P, P*P) block (int32 for int8, so the sum is exact);
-    weight_sums one block per tile, X in per-thread float bins (P a
-    thread) and R in one int32-pair fixed-point block (weight_sums_scale,
-    native ATOMS.ADD: the same bits from launch to launch); given_kron
-    one bf16 tensor-core GEMM (mma.sync m16n8k16, float32 sums taken in
-    two levels), a warp a tile's (16, P*P) result, W built in registers
-    from x and value, the plane staged by column chunks and shared by the
-    8 rows and the block's tiles."""
+    rate outweigh them).  Design: int8 and bf16_native one block per tile
+    adding into shared (P, P*P) sums with native int32 atomics: int8 in
+    one int32 block (exact), bf16_native in the int32 pair
+    (tk.ACCUMULATOR, two ATOMS.ADD a product, 2 slots' loads a thread in
+    flight ahead of them; with 0/1 values its grid holds every sum
+    exactly); weight_sums one block per tile, X in per-thread float bins
+    (P a thread) and R in one int32-pair block (weight_sums_scale);
+    int8, bf16_native and weight_sums give the same bits from launch to
+    launch.  given_kron one bf16 GEMM on the tensor cores (wgmma
+    m64n128k16, float32 sums taken in two levels): a warpgroup a block,
+    4 tiles a block as the 64 rows of A, built in registers from x and
+    value, 128 result columns a block, the plane staged in shared memory
+    64 columns a stage and shared by the 8 rows and the block's tiles."""
     if _is_cpu(xyz, "deposit_variant"):
         return deposit_variant_plain(xyz, value, ts, mode, kron=kron)
     code = _mode(mode, DEPOSIT_MODES)
@@ -362,7 +369,13 @@ def deposit_variant(xyz: torch.Tensor, value: torch.Tensor, ts: TileSpec,
         if kron is None:
             raise ValueError("given_kron needs the kron plane")
         _check(kron, "kron", (P * P, B // 8), dev, dtypes=(torch.bfloat16,))
-    k, j = weight_sums_scale(B) if mode == "weight_sums" else (0, 0)
+    k, j = 0, 0
+    if mode == "weight_sums":
+        k, j = weight_sums_scale(B)
+    elif mode == "bf16_native":
+        if vmax is None:
+            vmax = float(value.abs().max())
+        k, j = tk.deposit_scale((vmax,), B)
     out = torch.empty((NT, P, P * P), dtype=torch.float32, device=dev)
     lib = _cuda_build.load()
     with torch.cuda.device(dev):

@@ -118,6 +118,11 @@ def default_edge_cap(Ks: int) -> int:
     return max(8, Ks // 4)
 
 
+#: bytes of shared memory the ranked merge may stage its arrivals in: a
+#: block's 227 KB less its list of active chunks (csrc/onehot_exchange.cu)
+RANKED_STAGE_MAX = 232448 - 4 * (2048 + 24)
+
+
 def _chunk(B: int, target: int = 2048) -> int:
     """pinc_tpu's lane chunk of the ranked merge's ``active`` flags: the
     largest power-of-two divisor of B up to target (B itself if smaller)."""
@@ -468,14 +473,30 @@ def merge(frank: torch.Tensor, alive: torch.Tensor, inc: torch.Tensor,
     a chunk whose flag is 0 places nothing (pinc_tpu computes it so that
     it only skips work).  In place, as merge_all_rows.
 
+    frank may be any int32 plane: ranks need not rise in slot order, and
+    slots that share a rank each take its arrival.
+
     Kernel onehot_merge_tile (its ranked mode), replaces
-    pallas_exchange.merge.  Bound on the card: bytes — frank read, 28 B
-    read and written per placed arrival."""
+    pallas_exchange.merge.  Bound on the card: bytes — the flag row,
+    active, frank of the walked slots, 24 B read and 28 B written per
+    placed arrival; in 32-byte sectors its scattered stores (a sector a
+    plane and placed slot) dominate.  Design: one block a tile stages the
+    arrivals it can place (the minus run's first n_m columns, the plus
+    run's first n_p) in shared memory (7 K2 floats), lists the active
+    chunks with ballots and walks only their slots (all slots without
+    active), frank in 16-byte groups where the row allows, 4 groups a
+    thread loaded before any is placed; a group with a placed slot is
+    read from the six planes and alive and written back whole (16-byte
+    stores)."""
     NT, B = _check_planes(alive, planes, rows=False)
     _check(frank, "frank", (NT, B), alive.device, dtypes=(torch.int32,))
     K2 = _check_inc(inc, NT, 1, alive.device)
     if K2 % 2:
         raise ValueError(f"inc must hold two runs of K, got width {K2}")
+    if 4 * NPAY * K2 > RANKED_STAGE_MAX:
+        raise ValueError(f"the ranked merge stages 7 x {K2} floats: more "
+                         f"than a block's {RANKED_STAGE_MAX} bytes of shared "
+                         f"memory")
     CB = _chunk(B)
     if active is not None:
         _check(active, "active", (NT, B // CB), alive.device,

@@ -734,11 +734,15 @@ def test_onehot_merge_kernel_matches_plain(cuda, R, L, table, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("active", ["flags", "none", "skip"])
+@pytest.mark.parametrize("active", ["flags", "none", "skip", "permuted"])
 def test_onehot_ranked_kernels_match_plain(cuda, active):
     """pinc_tpu's B % 8 != 0 kernels, at B = 100 and at B = 2100 (chunks
-    of 4 slots for the active flags): ranks given, K = 16."""
-    for B in (100, 2100):
+    of 4 slots for the active flags) and 2101 (chunks of 1: the merge
+    lists its active chunks in two windows): ranks given, K = 16.
+    "permuted": the free ranks permuted within each tile (not monotone in
+    slot order), the first two free slots of a tile sharing a rank, and
+    the active flags of the chunks that hold a rank below the arrivals."""
+    for B in (100, 2100, 2101):
         alive, planes = _onehot_fixture(cuda, seed=1, B=B)
         al = alive > 0.5
         lm, lp = al & (planes[2] < 0), al & (planes[2] >= 4)
@@ -757,7 +761,19 @@ def test_onehot_ranked_kernels_match_plain(cuda, active):
         fr_incl = torch.cumsum(free, 1, dtype=torch.int32)
         frank = torch.where(free, fr_incl - 1, torch.full_like(fr_incl, -1))
         act = None
-        if active != "none":
+        if active == "permuted":
+            gen = torch.Generator(device=cuda)
+            gen.manual_seed(B)
+            for t in range(frank.shape[0]):
+                slots = torch.nonzero(free[t]).flatten()
+                frank[t, slots] = torch.randperm(
+                    len(slots), generator=gen, device=cuda).int()
+                frank[t, slots[1]] = frank[t, slots[0]]
+            CB = ox._chunk(B)
+            n_arr = b[:, 6].sum((-2, -1))[:, None, None]
+            fr = frank.reshape(frank.shape[0], B // CB, CB)
+            act = ((fr >= 0) & (fr < n_arr)).any(-1).to(torch.int32)
+        elif active != "none":
             CB = ox._chunk(B)
             ends = fr_incl[:, CB - 1::CB]
             base = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
