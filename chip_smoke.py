@@ -11,7 +11,7 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    extract_kernel and cleanup_kernel, of efield_kernel and of fold_kernel
    holds 16-byte global loads and stores (LDG/STG .128), and the merges
    (merge_rows_kernel, both merge_kernel instantiations) 16-byte loads,
-   merge_ranked_kernel both;
+   merge_ranked_kernel and extract_ranked_kernel both;
    that both instantiations of the kernel benchmark's given_kron_kernel
    hold tensor-core instructions (HGMMA), and that the shared atomics of
    weight_sums_kernel and of both deposit_variant_kernel instantiations
@@ -49,9 +49,12 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    one-hot extracts, cleanup and merges on rows that start off a 16-byte
    boundary (B = 648, cleanup rows of 18, merge runs of 13 columns with
    their flags not a prefix), where the kernels take a scalar head.  The
-   ranked modes (pinc_tpu's extract and merge, for B % 8 != 0) are timed
-   at 4096 x 6524, the merge also in a CUDA graph and against its bound in
-   32-byte sectors.  Last, the extract
+   ranked modes (pinc_tpu's extract and merge, for B % 8 != 0) are held at
+   the fixture (the extract also at B = 101 and 2101 with K2 = 30, 8198
+   and 9001: several blocks of 4096 columns, K2 % 4 != 0, alive off
+   rank's 16-byte offset) and timed at 4096 x 6524, both also in a CUDA
+   graph, the merge against its bound in 32-byte sectors.  Last, the
+   extract
    and cleanup calls at the headline scan window's face cap (K = 512, M =
    2, B = 17,408; the gather exchange, the one-hot rows and the per-tile
    sweeps on one state), each against its plain version and timed with
@@ -103,6 +106,21 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    primitives, the time of the one PyTorch call that computes the same
    function; the ceilings' times against K1's and K3's; and given_kron's
    product as one torch.matmul of bf16 operands beside its kernel.
+7. Output and checkpoints.  Where h5py is missing (the card's host has
+   none), the CLI raises pinc_tpu's "h5py is required" error on each
+   output deck (input/langmuirWarm.ini, langmuirCold1D.ini,
+   langmuir2D.ini); each deck runs at its size for 20 steps without its
+   files:output line; the 32^3 tiled langmuirWarm (tiles:margin = 3)
+   resumed at step 10 from the first run's state and tuning
+   (TiledSimulation.resume, what a tiled checkpoint file restores) is the
+   uninterrupted run bit for bit; the bench deck runs 20 steps with the
+   port's io_h5.OutputWriter on files:async = true (its fields every 10
+   steps to the native spooler, the energy history to a stand-in), and
+   the last written step is read back with read_spool bit for bit.  It
+   prints a written step's host time against the unwritten steps' median
+   and write_step's own time, counts each tiled run's kernel launches,
+   and says that the HDF5 and checkpoint files are checked by the CPU
+   tests only.
 
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
@@ -1065,6 +1083,25 @@ def check_onehot_fixture(ox, gx, ex, gen, dev) -> None:
             check(all(map(same_bits, *outs)),
                   f"one-hot merge B={B} active={label}, fixture: differs "
                   f"from its plain version")
+    # the ranked extract's column blocks: K2 = 30 (K2 % 4 != 0), 8198 and
+    # 9001 (two and three blocks of 4096 columns), ranks at distinct
+    # random columns of [0, max(1.1 K2, 2B)) (those >= K2 killed, not
+    # copied), the last column taken, tile 3 empty; B = 101 and 2101 (rows
+    # off a 16-byte boundary); alive also read from a view one word past
+    # rank's 16-byte offset (scalar alive accesses)
+    for B, K2 in ((101, 30), (101, 8198), (2101, 9001)):
+        alive_b, planes_b = onehot_fixture(gen, dev, B)
+        rank = spread_ranks(gen, dev, B, K2)
+        bk = both(f"extract B={B} K2={K2}", ox.extract, ox.extract_plain,
+                  rank, alive_b, planes_b, K2)[0]
+        check(float(bk[:, 6, 0, (K2 - 1) // 4096 * 4096:].sum()) > 0
+              and float(bk[3, 6].sum()) == 0,
+              f"one-hot extract B={B} K2={K2}, fixture: the last column "
+              f"block holds no copy, or the empty tile one")
+        view = torch.empty(8 * B + 1, device=dev)[1:].view(8, B)
+        view.copy_(alive_b)
+        both(f"extract B={B} K2={K2}, alive off rank's offset", ox.extract,
+             ox.extract_plain, rank, view, planes_b, K2)
     routes = {"v5": dict(K=64, rows=True), "v5 Ks=8": dict(K=16, rows=True),
               "v4": dict(K=64, rows=True, fused=False), "v3": dict(K=32),
               "v2": dict(K=16)}
@@ -1083,8 +1120,25 @@ def check_onehot_fixture(ox, gx, ex, gen, dev) -> None:
     torch.cuda.synchronize()
     print("  one-hot exchange fixture (8 tiles x 640, 648, 100 and 2100; "
           "caps, edge caps and rows overflowing; rows off a 16-byte "
-          "boundary; merge flags not a prefix of their runs): ok "
+          "boundary; merge flags not a prefix of their runs; the ranked "
+          "extract at B = 101 and 2101 with K2 = 30, 8198 and 9001): ok "
           "(bit-equal)", flush=True)
+
+
+def spread_ranks(gen, dev, B: int, K2: int):
+    """(8, B) int32 ranks: about half of each tile's slots at distinct
+    random columns of [0, max(1.1 K2, 2B)), -1 elsewhere; column K2 - 1
+    taken in tile 0, none in tile 3."""
+    import torch
+    n = max(int(1.1 * K2), 2 * B)
+    rank = torch.stack([torch.randperm(n, generator=gen, device=dev)[:B]
+                        for _ in range(8)]).int()
+    off = torch.rand((8, B), generator=gen, device=dev) < 0.5
+    rank = torch.where(off, torch.full_like(rank, -1), rank)
+    rank[0][rank[0] == K2 - 1] = -1
+    rank[0, 0] = K2 - 1
+    rank[3] = -1
+    return rank
 
 
 def check_onehot_bench(ox, ex, gen, dev, card: str, times: dict,
@@ -1221,8 +1275,8 @@ def check_ranked_bench(ox, gen, dev, card: str) -> None:
     the extract's output (kernel_trials.ranked_case).  Each against its
     plain version, bit for bit, and timed with its bound in bytes; the
     merge also in a CUDA graph (restore + merge minus the restore alone)
-    and against its bound in 32-byte sectors (ranked_merge_sectors).
-    Printed only."""
+    and against its bound in 32-byte sectors (ranked_merge_sectors), the
+    extract also in a CUDA graph.  Printed only."""
     import torch
     from pinc_tpu_torch import kbench
     from pinc_tpu_torch.kernel_trials import ranked_case
@@ -1240,6 +1294,7 @@ def check_ranked_bench(ox, gen, dev, card: str) -> None:
     copied = float((buf[:, 6] > 0.5).sum())
     x_bytes = alive.numel() * 12.0 + copied * 24.0 + buf.numel() * 4.0
     x_ms = cuda_ms(lambda: ox.extract(*args), reps=10, warmup=2)
+    x_graph = kbench.graph_ms(lambda: ox.extract(*args), 10)
     x_plain = cuda_ms(lambda: ox.extract_plain(*args), reps=2, warmup=1)
     # the merge into the extract's output
     margs = (frank, alive2, buf, planes)
@@ -1269,6 +1324,9 @@ def check_ranked_bench(ox, gen, dev, card: str) -> None:
               f"{copied:.0f} copied, {placed:.0f} placed, bit-equal): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} "
               f"ms, {b / ms:.1%} of it ({card})", flush=True)
+    xb = bound_ms(x_bytes)
+    print(f"  extract_ranked_kernel: in a CUDA graph {x_graph:.4f} ms, "
+          f"{xb / x_graph:.1%} of its bound ({card})", flush=True)
     sb = bound_ms(m_sectors)
     print(f"  merge_ranked_kernel: {float(act.sum()):.0f} of {act.numel()} "
           f"chunks active ({CB} slots a chunk); in a CUDA graph "
@@ -1818,6 +1876,263 @@ def kernel_bench(card: str, launches: dict, times: dict, bounds: dict,
     torch.cuda.empty_cache()
 
 
+# -- phase 7: output and checkpoints ------------------------------------------
+OUTPUT_DECKS = ("langmuirWarm.ini", "langmuirCold1D.ini", "langmuir2D.ini")
+OUTPUT_STEPS = 20      # each deck's nTimeSteps (100 and 150 in the decks)
+WRITE_EVERY = 10       # files:writeFrequency
+# langmuirWarm.ini on the tiled layout: its electrons' estimated 2.32 cells
+# a step exceed the default wander margin of 2, so tiles:margin = 3
+TILED_WARM = ("methods:layout=tiled", "tiles:margin=3")
+CKPT_STEP = 10
+H5_MISSING = "h5py is required for HDF5 output"
+
+
+def have_h5py() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def deck_path(name: str, tmp: str, output: bool = True) -> str:
+    """input/<name> beside this script, or (output=False) a copy in tmp
+    without its files:output line."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "input",
+                       name)
+    if output:
+        return src
+    dst = os.path.join(tmp, name)
+    with open(src) as f, open(dst, "w") as g:
+        g.writelines(line for line in f
+                     if not line.strip().lower().startswith("output"))
+    return dst
+
+
+def check_decks(cli_main, modules, card: str, tmp: str, h5: bool) -> None:
+    """Phase 7: each shipped deck's output raises pinc_tpu's error through
+    the CLI where h5py is missing; the decks run at full size without
+    their files:output line."""
+    import torch
+    for name in OUTPUT_DECKS:
+        if not h5:
+            try:
+                cli_main([deck_path(name, tmp),
+                          f"time:nTimeSteps={OUTPUT_STEPS}",
+                          f"files:output={tmp}/{name[:-4]}"], out={})
+            except RuntimeError as e:
+                check(H5_MISSING in str(e), f"phase 7 {name}: raised {e!r}")
+            else:
+                fail(f"phase 7 {name}: files:output ran without h5py")
+        for m in modules:
+            m.reset_launches()
+        out: dict = {}
+        check(cli_main([deck_path(name, tmp, output=False),
+                        f"time:nTimeSteps={OUTPUT_STEPS}"], out=out) == 0,
+              f"phase 7 {name}: the CLI failed")
+        launched = {k: v for m in modules for k, v in m.LAUNCHES.items() if v}
+        sim, ke, pe = out["sim"], out["kinetic"].sum(1), out["potential"]
+        check(ke.shape == pe.shape == (OUTPUT_STEPS + 1,) and all(
+            math.isfinite(v) for v in list(ke) + list(pe)),
+              f"phase 7 {name}: non-finite energies")
+        etot = ke + pe
+        print(f"phase 7 {name}: "
+              + ("" if h5 else f"files:output raises {H5_MISSING!r}; ")
+              + f"without it {type(sim).__name__} on "
+              f"{sim.particles.cell.device}, {sim.particles.capacity} slots "
+              f"x {sim.particles.n_species} species, {OUTPUT_STEPS} steps, "
+              f"total energy {etot[0]:.6g} -> {etot[-1]:.6g}; kernel "
+              f"launches {launched or 'none (flat path)'} ({card})",
+              flush=True)
+        del sim, out
+        torch.cuda.empty_cache()
+
+
+def check_tiled_launches(label: str, launches: dict, sim, steps: int,
+                         first: int) -> None:
+    """run()'s kernels on a tiled run of steps first+1 .. steps: K2/K4 per
+    species a step, K7 once a step (and the half kick's K1/K3/K7 from step
+    0), the exchange at every scheduled species event."""
+    S = sim.state.alive.shape[0]
+    n = steps - first
+    kick = 0 if first else 1
+    events = sum(steps // R - first // R for R in sim.rebucket_every_s)
+    ex_launched = sum(launches[k] for k in EXCHANGE_KERNELS)
+    check(launches["deposit_move"] == launches["gather_kick"] == S * n
+          and launches["fold_global"] == n + kick
+          and launches["deposit"] == launches["gather"] == S * kick
+          and (ex_launched > 0) == (events > 0),
+          f"{label}: launches {launches} ({S} species, {n} steps, "
+          f"{events} re-bucket events)")
+
+
+def check_tiled_resume(cli_main, modules, card: str, tmp: str) -> None:
+    """Phase 7: langmuirWarm.ini at 32^3 on the tiled layout, 20 steps
+    uninterrupted and 10 + 10 resumed through TiledSimulation.resume from
+    the first 10 steps' state and tuning (what a tiled checkpoint file
+    restores).  The final states are bit-identical."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.tiled_sim import TiledSimulation
+    deck = deck_path("langmuirWarm.ini", tmp, output=False)
+
+    def cli(steps):
+        for m in modules:
+            m.reset_launches()
+        out: dict = {}
+        check(cli_main([deck, *TILED_WARM, f"time:nTimeSteps={steps}"],
+                       out=out) == 0, "phase 7 tiled: the CLI failed")
+        return out, {k: v for m in modules for k, v in m.LAUNCHES.items()}
+
+    full, launches = cli(OUTPUT_STEPS)
+    sim_f = full["sim"]
+    check_tiled_launches("phase 7 tiled run", launches, sim_f, OUTPUT_STEPS,
+                         0)
+    part, _ = cli(CKPT_STEP)
+    st = part["sim"].state
+    sim_r = TiledSimulation(PincConfig.from_file(
+        deck, [*TILED_WARM, f"time:nTimeSteps={OUTPUT_STEPS}"]))
+    sim_r.resume(CKPT_STEP, type(st)(lpos=st.lpos.clone(),
+                                     vel=st.vel.clone(),
+                                     alive=st.alive.clone()),
+                 part["sim"].tuning())
+    del part, st
+    for m in modules:
+        m.reset_launches()
+    hist = sim_r.run(progress_every=0)
+    launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    check(sim_r._resumed and sim_r.start_step == CKPT_STEP,
+          "phase 7 tiled resume: not resumed at the checkpoint's step")
+    check_tiled_launches("phase 7 tiled resume", launches, sim_r,
+                         OUTPUT_STEPS, CKPT_STEP)
+    got = [getattr(sim_r.state, k) for k in ("lpos", "vel", "alive")]
+    want = [getattr(sim_f.state, k) for k in ("lpos", "vel", "alive")]
+    check(all(map(same_bits, got, want))
+          and (hist["kinetic"] == full["kinetic"][CKPT_STEP + 1:]).all(),
+          "phase 7 tiled resume: the resumed state or energies differ from "
+          "the uninterrupted run's")
+    print(f"phase 7 tiled langmuirWarm ({', '.join(TILED_WARM)}) on "
+          f"{sim_r.state.lpos.device}: "
+          f"{sim_f.ts.ntiles} tiles, B = {sim_f.ts.B}, cadences "
+          f"{sim_f.rebucket_every_s}, {sim_f._rebucket_mode} re-bucket; "
+          f"resumed at step {CKPT_STEP} through TiledSimulation.resume: "
+          f"step {OUTPUT_STEPS}'s state and steps {CKPT_STEP + 1}-"
+          f"{OUTPUT_STEPS}' energies bit-identical to the uninterrupted run "
+          f"({card})", flush=True)
+    del sim_f, sim_r, full
+    torch.cuda.empty_cache()
+
+
+class NoHistory:
+    """io_h5.XYFile's stand-in for the energy history, which is not
+    written (the card's host has no h5py)."""
+
+    def __init__(self, cfg, name: str):
+        pass
+
+    def create(self, name: str) -> None:
+        pass
+
+    def append(self, name: str, x: float, y: float) -> None:
+        pass
+
+
+def time_bench_output(modules, card: str, tmp: str) -> None:
+    """Phase 7: the bench deck (128^3, tiled) for 20 steps through run()
+    with the port's io_h5.OutputWriter on files:async = true,
+    files:writePop = false and its fields written every 10 steps: the
+    native spooler takes them (io_h5.XYFile replaced by NoHistory), and
+    the last written step is read back with read_spool, bit for bit.
+    Prints a written step's host time against the unwritten steps' median
+    and write_step's own time."""
+    import numpy as np
+    import torch
+    from pinc_tpu_torch import io_h5
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.spool import SpoolWriter, read_spool
+    from pinc_tpu_torch.tiled_sim import TiledSimulation
+    cfg = PincConfig.from_string(BENCH_DECK)
+    for key, value in (("methods:layout", "tiled"),
+                       ("time:nTimeSteps", MAIN_STEPS),
+                       ("files:output", f"{tmp}/bench"),
+                       ("files:async", "true"), ("files:writePop", "false"),
+                       ("files:writeFrequency", WRITE_EVERY)):
+        cfg.set_str(key, str(value))
+    sim = TiledSimulation(cfg)
+    xy = io_h5.XYFile
+    io_h5.XYFile = NoHistory
+    try:
+        w = io_h5.OutputWriter(cfg, sim)
+    finally:
+        io_h5.XYFile = xy
+    check(isinstance(w.spool, SpoolWriter) and not w.grids,
+          "phase 7 bench deck: files:async did not take the native spooler")
+    seconds, last = {}, {}
+    write_step = w.write_step
+
+    def timed(n, out):
+        t0 = time.monotonic()
+        write_step(n, out)
+        seconds[n] = time.monotonic() - t0
+        last.update(n=n, out=out)
+    w.write_step = timed
+    for m in modules:
+        m.reset_launches()
+    out = sim.run(writer=w, progress_every=0)
+    launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    check(w.spool.close() == 3 * (MAIN_STEPS // WRITE_EVERY + 1),
+          "phase 7 bench deck: the spooler lost records")
+    n = last["n"]
+    arrays = {k: io_h5.fetch_global(getattr(last["out"], k))
+              for k in ("rho", "phi", "E")}
+    back = {k: a for k, t, a in read_spool(w.spool_path) if t == n}
+    check(n == MAIN_STEPS and sorted(back) == sorted(arrays) and all(
+        back[k].dtype == arrays[k].dtype
+        and np.array_equal(back[k], arrays[k]) for k in arrays),
+          "phase 7 bench deck: read_spool did not give back the spooled "
+          "step")
+    check_tiled_launches("phase 7 bench deck", launches, sim, MAIN_STEPS, 0)
+    step_s = out["step_seconds"]
+    written = {k: step_s[k - 1] for k in range(WRITE_EVERY, MAIN_STEPS + 1,
+                                                WRITE_EVERY)}
+    rest = sorted(v for i, v in enumerate(step_s[1:], 2)
+                  if i not in written)
+    med = rest[len(rest) // 2]
+    print(f"phase 7 bench deck with fields every {WRITE_EVERY} steps through "
+          f"io_h5.OutputWriter on files:async (the native spooler; read "
+          f"back bit for bit with read_spool): written steps' host time "
+          + ", ".join(f"step {k} {v * 1e3:.3f} ms"
+                      for k, v in written.items())
+          + f" (re-bucket cadences {sim.rebucket_every_s}: steps "
+          f"{[k for k in written if any(k % R == 0 for R in sim.rebucket_every_s)]}"
+          f" of them also re-bucket) against the unwritten steps' median "
+          f"{med * 1e3:.3f} ms; write_step's own host time "
+          + ", ".join(f"step {k} {v * 1e3:.3f} ms"
+                      for k, v in sorted(seconds.items()))
+          + f" ({card})", flush=True)
+    del sim, out, last
+    torch.cuda.empty_cache()
+
+
+def check_output(cli_main, modules, card: str) -> None:
+    """Phase 7: output and checkpoints on the card: the CLI's h5py error
+    on each output deck where h5py is missing, the decks without output,
+    the tiled resume from the first run's state, the bench deck through
+    the port's writer and the native spooler.  The HDF5 files and
+    checkpoint files themselves are checked by the CPU tests."""
+    h5 = have_h5py()
+    print(f"phase 7 output and checkpoints: h5py "
+          f"{'installed' if h5 else 'not installed on this host'}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_decks(cli_main, modules, card, tmp, h5)
+        check_tiled_resume(cli_main, modules, card, tmp)
+        time_bench_output(modules, card, tmp)
+    print("phase 7: HDF5 files and checkpoint files are checked on the CPU "
+          "only (tests/test_torch_io.py, test_torch_checkpoint.py, "
+          "test_torch_decks.py)", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1898,7 +2213,9 @@ def main() -> int:
     # the merges (K9, K11's R = 8 and 1) count and walk their rows in
     # 16-byte groups (their stores to the scattered free slots stay
     # scalar), the ranked merge reads frank and rewrites a placed slot's
-    # group 16 bytes at a time, efield stages phi and writes its tiles 16 bytes at a time
+    # group 16 bytes at a time, the ranked extract reads rank and alive and
+    # writes alive' and its staged columns 16 bytes at a time, efield
+    # stages phi and writes its tiles 16 bytes at a time
     # (f32 and bf16, each with P = 11, 13 compiled in and any P), and the
     # fold stages its tiles and writes rho 16 bytes at a time ((T, M) =
     # (8, 1), (8, 2) compiled in and any)
@@ -1908,6 +2225,7 @@ def main() -> int:
             ("merge_rows_kernel", 1, ("LDG",)),
             ("merge_kernel", 2, ("LDG",)),
             ("merge_ranked_kernel", 1, ("LDG", "STG")),
+            ("extract_ranked_kernel", 1, ("LDG", "STG")),
             ("efield_kernel", 6, ("LDG", "STG")),
             ("fold_kernel", 3, ("LDG", "STG"))):
         got = wide_accesses(lib, kernel)
@@ -2140,6 +2458,9 @@ def main() -> int:
     kernel_bench(card, launches, times, bounds, errs, libs)
     bounds = {k: v if isinstance(v, tuple) else (v, "bytes")
               for k, v in bounds.items()}
+
+    # -- phase 7: output and checkpoints on the card ----------------------
+    check_output(cli_main, modules, card)
 
     rows = [{"name": name, "route": "cuda",
              "source": getattr(m, "SOURCES", {}).get(name, m.SOURCE),

@@ -96,7 +96,8 @@ class PincConfig:
 
     def read_file(self, path: str | Path) -> None:
         # the pure-Python parser only: pinc_tpu's native C++ parser has the
-        # same semantics and is not ported yet
+        # same semantics (tests/test_torch_native.py holds the two equal on
+        # every deck), and a few-line host file gains nothing from it
         text = Path(path).read_text()
         self._parse(text.splitlines())
 

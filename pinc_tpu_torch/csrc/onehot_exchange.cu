@@ -12,7 +12,10 @@
 //
 //   extract  extract_kernel<kind, R, true> of exchange_common.cuh:
 //            extract_rows, extract_all_rows (R = 8), extract_fused (R = 1)
-//   extract_ranked_kernel   extract (ranks given, any B)
+//   extract_ranked_kernel   extract (ranks given, any B, any K2): a block
+//                           maps up to 4096 columns of a tile's buffer to
+//                           their source slots in shared memory, then
+//                           writes the columns out whole
 //   merge_kernel<R>         merge_rows, merge_all_rows (R = 8), merge_fused
 //                           (R = 1): a block table of compacted runs,
 //                           rows walked in 16-byte lane groups
@@ -215,26 +218,133 @@ merge_kernel(float* __restrict__ alive, const float* __restrict__ inc,
 
 // K11 extract with the buffer column of every slot given (pinc_tpu's
 // `extract`, kept for B % 8 != 0): rank -1 stays, rank >= 0 is killed, and
-// 0 <= rank < K2 is copied to that column (ranks there are unique).  Bound:
-// bytes: rank and alive read, alive written, 24 B read and 28 B written per
-// copied slot, the buffer's other entries zeroed.  Design: the block zeroes
-// its tile's buffer, synchronises, then scatters.
+// 0 <= rank < K2 is copied to that column as x + 0.0f with flag 1 (ranks
+// there are unique); every other entry of the buffer is 0.  Bound: bytes:
+// rank and alive read, alive written, 24 B read per copied slot, the
+// buffer written once (chip_smoke.py's check_ranked_bench).  Its floor is
+// higher: a copied slot's six payloads are scattered 4-byte loads, a
+// sector each (see below).
+//
+// Design: a block handles columns [c0, c0 + Kc) of one tile's buffer, Kc
+// = min(K2 rounded up to 4, kRankedCols): ceil(K2 / Kc) blocks a tile.
+// (1) It sets each column's source slot to none, in shared memory.  (2)
+// Its 8 warps walk the tile's rank row in 16-byte lane groups (RowWalk: a
+// scalar head where the row starts off a 16-byte boundary, chunk c to warp
+// c % 8, the warp's next group loaded before it uses this one); a slot
+// whose rank falls in the block's columns becomes that column's source.
+// The first block of a tile also reads alive and writes alive', 16 bytes
+// at a time where alive's and alive''s rows lie on rank's 16-byte offset.
+// (3) After one barrier the block writes its columns out whole, a thread
+// a 4-column group: the sources' six payloads (x + 0.0f) and flags, one
+// 16-byte store a row where the buffer's rows start on a 16-byte boundary
+// (K2 % 4 == 0), scalar stores otherwise.  No payload goes to device
+// memory a scattered word at a time, and no entry is written twice.  At
+// 4096 x 6524, K2 = 512 on an H100 (trial builds, PERF.md): without the
+// payload loads the kernel takes 0.13 ms of 0.27; staging the payloads
+// themselves in shared memory (7 Kc floats) in the walk took 0.28, and
+// the first design (the buffer zeroed in device memory, then seven
+// scattered stores a copied slot, a slot a thread) 0.36.
+constexpr int kRankedCols = 4096;   // a block's columns: 16 KB of slots
+
 __global__ void __launch_bounds__(kThreads)
 extract_ranked_kernel(const int* __restrict__ rank,
                       const float* __restrict__ alive, Planes pl,
                       float* __restrict__ buf, float* __restrict__ alive_out,
-                      int B, int K2) {
-  float* out = buf + (long long)blockIdx.x * kNPay * K2;
-  for (int j = threadIdx.x; j < kNPay * K2; j += kThreads) out[j] = 0.0f;
+                      int B, int K2, int Kc, int nblk) {
+  extern __shared__ int4 src4[];                // (Kc): each column's slot
+  int* src = reinterpret_cast<int*>(src4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile = blockIdx.x / nblk;
+  const int c0 = (blockIdx.x - tile * nblk) * Kc;
+  const int nc = min(Kc, K2 - c0);
+  const bool first = c0 == 0;
+  // (1) no column has a source yet
+  for (int i = threadIdx.x; i < Kc / kVec; i += kThreads)
+    src4[i] = make_int4(-1, -1, -1, -1);
   __syncthreads();
-  for (int i = threadIdx.x; i < B; i += kThreads) {
-    const long long k = (long long)blockIdx.x * B + i;
-    const int r = rank[k];
-    alive_out[k] = r >= 0 ? 0.0f : alive[k];
-    if (r >= 0 && r < K2) {
+  // (2) walk the rank row: each slot ranked into the block's columns
+  // becomes its column's source; alive' from the first block
+  const long long base = (long long)tile * B;
+  const int* rk = rank + base;
+  const float* al = alive + base;
+  float* ao = alive_out + base;
+  const RowWalk rw(reinterpret_cast<const float*>(rk), B);
+  const bool vec_al = misalign16(al) == misalign16(rk) &&
+                      misalign16(ao) == misalign16(rk);
+  struct Group {
+    int off, n, r[kVec];
+    float a[kVec];
+  };
+  auto load = [&](Group& g, int c) {
+    rw.group(c, lane, &g.off, &g.n);
+    if (g.n == kVec) {
+      const int4 t = *reinterpret_cast<const int4*>(rk + g.off);
+      g.r[0] = t.x, g.r[1] = t.y, g.r[2] = t.z, g.r[3] = t.w;
+    } else {
 #pragma unroll
-      for (int q = 0; q < 6; ++q) out[q * K2 + r] = stored<true>(pl.p[q][k]);
-      out[6 * K2 + r] = 1.0f;
+      for (int e = 0; e < kVec; ++e) g.r[e] = e < g.n ? rk[g.off + e] : -1;
+    }
+    if (first) {
+      if (g.n == kVec && vec_al) {
+        load4(g.a, al + g.off, kVec);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) g.a[e] = e < g.n ? al[g.off + e] : 0.0f;
+      }
+    }
+  };
+  auto place = [&](const Group& g) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const int col = g.r[e] - c0;
+      if (e < g.n && col >= 0 && col < nc) src[col] = g.off + e;
+    }
+    if (!first) return;
+    float v[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) v[e] = g.r[e] >= 0 ? 0.0f : g.a[e];
+    if (g.n == kVec && vec_al) {
+      *reinterpret_cast<float4*>(ao + g.off) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        if (e < g.n) ao[g.off + e] = v[e];
+    }
+  };
+  int c = rw.first + warp;
+  Group cur{}, nxt{};
+  if (c < rw.end) load(cur, c);
+  for (; c < rw.end; c += kWarps) {
+    if (c + kWarps < rw.end) load(nxt, c + kWarps);
+    place(cur);
+    cur = nxt;
+  }
+  __syncthreads();
+  // (3) the block's columns of the 7 rows, each entry written once: a
+  // thread loads the payloads of a 4-column group's sources (up to 24
+  // independent loads in flight) and stores the group's 7 rows
+  float* out = buf + (long long)tile * kNPay * K2 + c0;
+  auto value = [&](int q, int s) -> float {
+    return s < 0 ? 0.0f : (q < 6 ? stored<true>(pl.p[q][base + s]) : 1.0f);
+  };
+  if (K2 % kVec == 0 && misalign16(buf) == 0) {
+    const int ng = nc / kVec;
+    for (int j = threadIdx.x; j < ng; j += kThreads) {
+      const int4 s = src4[j];
+      float4 v[kNPay];
+#pragma unroll
+      for (int q = 0; q < kNPay; ++q)
+        v[q] = make_float4(value(q, s.x), value(q, s.y), value(q, s.z),
+                           value(q, s.w));
+#pragma unroll
+      for (int q = 0; q < kNPay; ++q)
+        reinterpret_cast<float4*>(out + (long long)q * K2)[j] = v[q];
+    }
+  } else {
+    for (int i = threadIdx.x; i < kNPay * nc; i += kThreads) {
+      const int q = i / nc, j = i - q * nc;
+      out[(long long)q * K2 + j] = value(q, src[j]);
     }
   }
 }
@@ -571,9 +681,14 @@ int pinc_ox_extract_ranked(const int* rank, const float* alive, const float* x,
                            float* alive_out, int NT, int B, int K2,
                            void* stream) {
   if (NT <= 0 || B <= 0 || K2 <= 0) return -1;
+  const int K2r = (K2 + kVec - 1) / kVec * kVec;
+  const int Kc = K2r < kRankedCols ? K2r : kRankedCols;
+  const int nblk = (K2 + Kc - 1) / Kc;
+  if ((long long)NT * nblk > 0x7fffffffLL) return -1;
+  const size_t smem = sizeof(int) * Kc;        // <= 16 KB
   const Planes pl = {{x, y, z, vx, vy, vz}};
-  extract_ranked_kernel<<<NT, kThreads, 0, (cudaStream_t)stream>>>(
-      rank, alive, pl, buf, alive_out, B, K2);
+  extract_ranked_kernel<<<NT * nblk, kThreads, smem, (cudaStream_t)stream>>>(
+      rank, alive, pl, buf, alive_out, B, K2, Kc, nblk);
   return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,8 @@ Each DIR holds edited copies of ``csrc`` sources (``field.cu``,
 taken from the package's ``csrc``).  Each is compiled with the package's
 nvcc flags into a library of its own (under the git-ignored
 ``_build/trials/``), and its ``pinc_field_fold``, ``pinc_ox_merge`` and
-``pinc_kb_deposit`` (and ``pinc_ox_merge_ranked``) run in one process
+``pinc_kb_deposit`` (and ``pinc_ox_merge_ranked``,
+``pinc_ox_extract_ranked``) run in one process
 beside the package's build, on the same inputs, for each source some DIR
 holds (all three without a DIR):
 
@@ -16,14 +17,16 @@ holds (all three without a DIR):
 * the merge calls of one electron exchange of the one-hot decks (4096
   tiles, 6144 particles a tile, velocities N(0, 0.1) moved by one 4-step
   cadence): B = 7680 takes the fused row exchange (``merge_kernel<8>``),
-  B = 6528 the per-tile sweeps (``merge_kernel<1>``); the ranked merge
-  (``merge_ranked_kernel``) on ``chip_smoke.py``'s ranked case at B =
-  6524 (``ranked_case``: K = 256, with ``active``);
+  B = 6528 the per-tile sweeps (``merge_kernel<1>``); the ranked extract
+  and merge (``extract_ranked_kernel``, ``merge_ranked_kernel``) on
+  ``chip_smoke.py``'s ranked case at B = 6524 (``ranked_case``: K = 256,
+  the merge with ``active``);
 * bf16_native (at vmax = 1), given_kron and weight_sums at the kernel
   benchmark's K13 shape (4096 tiles, B = 9216, 90% live, M = 1, a random
   bf16 plane).
 
-The fold and merges are compared with the plain version bit for bit, the
+The fold, the merges and the ranked extract are compared with the
+plain version bit for bit, the
 deposits within ``kbench.DEPOSIT_RTOL`` of max|plain| (a trial that
 leaves work out is reported as differing, not refused); each is timed in
 a CUDA graph (the merges write in place: ``kbench.graph_ms_inplace``),
@@ -50,8 +53,8 @@ from .ops.tiled import TileSpec, bucket
 
 SOURCES = ("field.cu", "onehot_exchange.cu", "kbench.cu")
 #: the kernels whose ptxas lines a trial prints
-KERNELS = ("fold_kernel", "merge_kernel", "merge_ranked", "given_kron",
-           "weight_sums", "deposit_variant")
+KERNELS = ("fold_kernel", "merge_kernel", "merge_ranked", "extract_ranked",
+           "given_kron", "weight_sums", "deposit_variant")
 ONEHOT_B = {"rows": 7680, "tile": 6528}
 
 
@@ -161,12 +164,33 @@ def ranked_case(alive, planes, T: int, K: int):
 
 
 def _ranked_trials(libs: dict, gen, dev) -> None:
-    """The ranked merge of each library on check_ranked_bench's inputs
-    (chip_smoke.py: 4096 tiles x 6524 slots, K = 256, with active)."""
+    """The ranked extract and merge of each library on
+    check_ranked_bench's inputs (chip_smoke.py: 4096 tiles x 6524 slots,
+    K = 256, the merge with active)."""
     ts = TileSpec(grid=(128, 128, 128), T=8, M=2, B=6524)
     alive, planes = _species(ts, gen, dev)
-    _, buf, alive2, frank, act = ranked_case(alive, planes, ts.T, 256)
-    del alive
+    rank, buf, alive2, frank, act = ranked_case(alive, planes, ts.T, 256)
+    K2 = buf.shape[-1]
+    pbuf, palive2 = ox.extract_plain(rank, alive, planes, K2)
+    for name, lib in libs.items():
+        if not hasattr(lib, "pinc_ox_extract_ranked"):
+            continue
+        out = torch.empty_like(buf)
+        out2 = torch.empty_like(alive2)
+
+        def call(lib=lib, out=out, out2=out2):
+            if lib.pinc_ox_extract_ranked(
+                    _ptr(rank), _ptr(alive), *[_ptr(p) for p in planes],
+                    _ptr(out), _ptr(out2), ts.NT, ts.B, K2, _stream()):
+                raise RuntimeError(f"{name}: ranked extract launch failed")
+        call()
+        ok = _same_bits(out, pbuf) and _same_bits(out2, palive2)
+        print(f"extract ranked {name}: graph "
+              f"{kbench.graph_ms(call, 20):.4f} ms, events "
+              f"{kbench.cuda_ms(call, 20):.4f} ms, bit-equal {ok}",
+              flush=True)
+        del out, out2
+    del alive, rank, pbuf, palive2
     wp, wa = ox.merge_plain(frank, alive2.clone(), buf,
                             tuple(p.clone() for p in planes), active=act)
     for name, lib in libs.items():

@@ -367,8 +367,12 @@ def extract(rank: torch.Tensor, alive: torch.Tensor, planes, K2: int):
 
     Kernel onehot_extract_tile (its ranked mode), replaces
     pallas_exchange.extract.  Bound on the card: bytes — rank and alive
-    read, alive written, 24 B read and 28 B written per copied slot.
-    Design: one block per tile zeroes its buffer, then scatters."""
+    read, alive written, 24 B read per copied slot, the buffer written
+    once.  Design: a block takes up to 4096 columns of a tile's buffer
+    (ceil(K2 / 4096) blocks a tile), walks the rank row in 16-byte groups
+    noting each column's source slot in shared memory, then writes its
+    columns out whole, the sources' payloads loaded a 4-column group a
+    thread."""
     NT, B = _check_planes(alive, planes, rows=False)
     _check(rank, "rank", (NT, B), alive.device, dtypes=(torch.int32,))
     if _is_cpu(alive, "onehot_extract_tile"):

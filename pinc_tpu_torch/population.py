@@ -54,6 +54,10 @@ class Particles:
     def n_dims(self) -> int:
         return self.cell.shape[2]
 
+    def pos(self) -> torch.Tensor:
+        """Float positions (for IO/diagnostics only)."""
+        return self.cell.to(self.frac.dtype) + self.frac
+
     def counts(self) -> torch.Tensor:
         return self.alive.sum(dim=1)
 

@@ -25,7 +25,7 @@ from .grid import GridSpec, gradient, potential_energy
 from .population import Particles, initialize_auto
 from .registry import ACCELERATORS, DISTRIBUTORS, MIGRATORS, RUN_MODES, SOLVERS
 from .units import Units, alloc_and_normalize
-from .utils.logging import STATUS, TIMER, msg
+from .utils.logging import STATUS, TIMER, WARNING, msg
 from .ops import pusher as _pusher_ops
 from .solvers import spectral as _spectral      # noqa: F401 (registry)
 
@@ -57,11 +57,6 @@ def unported_features(cfg: PincConfig) -> List[str]:
            for b in cfg.get_str_arr("grid:boundaries", 2 * nd)]
     if any(b != "PERIODIC" for b in bnd):
         found.append("non-periodic grid:boundaries (bc.py, multigrid)")
-    if (cfg.get_int("files:checkpointevery", 0)
-            or cfg.get_bool("time:resume")
-            or cfg.get_double("time:starttime", 0.0) > 0.0):
-        found.append("checkpoint/resume (files:checkpointEvery, "
-                     "time:resume, time:startTime)")
     if cfg.get_bool("methods:debug"):
         found.append("the methods:debug invariant checks")
     return found
@@ -82,7 +77,7 @@ class Diagnostics:
 
 @dataclass
 class StepOutput:
-    particles: Particles
+    particles: Optional[Particles]   # None where no writer reads them
     rho: torch.Tensor
     phi: torch.Tensor
     E: torch.Tensor
@@ -96,6 +91,7 @@ class Simulation:
     default, the CPU only when the caller passes ``device="cpu"``."""
 
     _DEFER_PARTICLES = False
+    _TILED_CKPT = False        # TiledSimulation restores tiled checkpoints
 
     def __init__(self, cfg: PincConfig, seed: int = 1, device=None):
         check_supported(cfg)
@@ -127,6 +123,33 @@ class Simulation:
             self.particles, self.params = initialize_auto(
                 cfg, self.spec, seed=seed, device=self.device)
         self.n_time_steps = cfg.get_int("time:ntimesteps")
+
+        # checkpoint/resume (checkpoint.py): files:checkpointEvery writes,
+        # time:resume or time:startTime > 0 restores and continues the
+        # step numbering
+        self.checkpoint_every = cfg.get_int("files:checkpointevery", 0)
+        self.start_step = 0
+        self._resumed = False
+        self._pending_tiled_resume = False
+        if (cfg.get_bool("time:resume")
+                or cfg.get_double("time:starttime", 0.0) > 0.0):
+            from . import checkpoint as _ckpt
+            layout = _ckpt.peek_layout(cfg)
+            if layout is None:
+                msg(WARNING, "time:startTime/resume set but no checkpoint "
+                    "found; starting fresh")
+            elif layout == "tiled":
+                # restored verbatim into the tiled state, once the tiled
+                # subclass has its TileSpec
+                if not self._TILED_CKPT:
+                    raise ValueError(
+                        "checkpoint was written by methods:layout=tiled; "
+                        "resume with the same layout")
+                self._pending_tiled_resume = True
+            else:
+                self.start_step, self.particles = _ckpt.load(
+                    cfg, device=self.device)
+                self._resumed = True
 
     # ----------------------------------------------------------------- step
     def _fields_from_particles(self, particles: Particles):
@@ -162,21 +185,38 @@ class Simulation:
             torch.cuda.synchronize(self.device)
 
     # ----------------------------------------------------------------- run
-    def run(self, progress_every: int = 10) -> Dict[str, np.ndarray]:
-        """The regular() run mode: half-kick init, nTimeSteps steps,
-        per-step energy history."""
+    def run(self, writer=None,
+            progress_every: int = 10) -> Dict[str, np.ndarray]:
+        """The regular() run mode: half-kick init (skipped on a resumed
+        run, whose velocities are already staggered), the steps up to
+        nTimeSteps, per-step energy history, the writer's (io_h5
+        OutputWriter) callbacks and the checkpoints."""
         t_start = time.monotonic()
-        out = self._half_kick(self.particles)
-        ke_hist = [out.diag.kin_energy.cpu().numpy()]
-        pe_hist = [float(out.diag.pot_energy)]
-        particles = out.particles
-        for n in range(1, self.n_time_steps + 1):
+        ke_hist: List[np.ndarray] = []
+        pe_hist: List[float] = []
+        if self._resumed:
+            particles = self.particles
+        else:
+            out = self._half_kick(self.particles)
+            ke_hist.append(out.diag.kin_energy.cpu().numpy())
+            pe_hist.append(float(out.diag.pot_energy))
+            if writer is not None:
+                writer.write_step(0, out)
+                writer.write_energy(0, ke_hist[0], pe_hist[0])
+            particles = out.particles
+        for n in range(self.start_step + 1, self.n_time_steps + 1):
             out = self._step(particles)
             particles = out.particles
             ke = out.diag.kin_energy.cpu().numpy()
             pe = float(out.diag.pot_energy)
             ke_hist.append(ke)
             pe_hist.append(pe)
+            if writer is not None:
+                writer.write_step(n, out)
+                writer.write_energy(n, ke, pe)
+            if self.checkpoint_every and n % self.checkpoint_every == 0:
+                from . import checkpoint as _ckpt
+                _ckpt.save(self.cfg, n, particles)
             if progress_every and n % progress_every == 0:
                 msg(STATUS, "Computing time-step %i (KE=%g PE=%g)",
                     n, ke.sum(), pe)
@@ -184,8 +224,11 @@ class Simulation:
         wall = time.monotonic() - t_start
         msg(TIMER, "Time spent: %f s (%d steps)", wall, self.n_time_steps)
         self.particles = particles
-        return {"kinetic": np.stack(ke_hist), "potential": np.asarray(pe_hist),
-                "wall_time": wall}
+        if self.checkpoint_every:
+            from . import checkpoint as _ckpt
+            _ckpt.save(self.cfg, self.n_time_steps, particles)
+        return {"kinetic": _stack(ke_hist, self.params.charge.shape[0]),
+                "potential": np.asarray(pe_hist), "wall_time": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -203,16 +246,26 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def _stack(ke_hist: List[np.ndarray], n_species: int) -> np.ndarray:
+    """(steps, S) kinetic energies; (0, S) for a run with no step."""
+    return (np.stack(ke_hist) if ke_hist
+            else np.zeros((0, n_species), np.float32))
+
+
 @RUN_MODES.register("regular")
 def _regular_factory(cfg: PincConfig):
     def run(device=None):
-        if "files:output" in cfg:
-            raise NotImplementedError(
-                f"files:output (HDF5 output, io_h5/spool) is {_TODO}; "
-                f"drop the key to run without output")
         from .parallel.pic import make_simulation
         sim = make_simulation(cfg, device=device or default_device())
-        hist = sim.run()
+        writer = None
+        if "files:output" in cfg:
+            from .io_h5 import OutputWriter
+            writer = OutputWriter(cfg, sim)
+        try:
+            hist = sim.run(writer=writer)
+        finally:
+            if writer is not None:
+                writer.close()
         hist["sim"] = sim
         return hist
     return run

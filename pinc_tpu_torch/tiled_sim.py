@@ -40,7 +40,10 @@ pinc_tpu's XLA deposit and gather are; the kernels that compute it are the
 same.  ``tiles:gather`` (pinc_tpu's choice between two XLA gathers of the
 same field) is accepted and ignored.
 
-Decks with bounded walls, objects, checkpoints or output are refused.
+``run(writer)`` writes the deck's output (``io_h5.OutputWriter``) and
+checkpoints as pinc_tpu's does; a tiled checkpoint holds the tile planes
+verbatim and what ``retune`` set, so a resumed run is the uninterrupted
+one bit for bit.  Decks with bounded walls or objects are refused.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ from .ops import onehot_exchange as ox
 from .ops import tiled as tl
 from .ops import tiled_kernels as tk
 from .population import Particles
-from .simulation import _TODO, Diagnostics, Simulation
+from .simulation import _TODO, Diagnostics, Simulation, StepOutput, _stack
 from .utils.logging import STATUS, TIMER, WARNING, msg
 
 
@@ -78,6 +81,7 @@ class TiledState:
 class TiledSimulation(Simulation):
     _DEFER_PARTICLES = True    # bucket from per-species generation at
                                # giant populations (see Simulation)
+    _TILED_CKPT = True         # a tiled checkpoint restores verbatim
 
     def __init__(self, cfg: PincConfig, seed: int = 1, device=None):
         nd = cfg.get_int("grid:ndims")
@@ -202,7 +206,12 @@ class TiledSimulation(Simulation):
         self._mass = [float(m) for m in mass]
         self._qm = [float(q) for q in charge / mass]
 
-        if self.particles is None:
+        if self._pending_tiled_resume:
+            from . import checkpoint as _ckpt
+            self.resume(*_ckpt.load_tiled(
+                cfg, expect_shape=(ns, nd, self.ts.NT, B),
+                device=self.device))
+        elif self.particles is None:
             self.state = self._bucket_all_generate(seed)
         else:
             self.state = self._bucket_all(self.particles)
@@ -212,6 +221,34 @@ class TiledSimulation(Simulation):
             "margin=%d, %s re-bucket every %s steps, device %s",
             self.ts.ntiles, T, nd, B, M, self._rebucket_mode,
             self.rebucket_every_s, self.device)
+
+    def resume(self, step: int, state: TiledState,
+               tuning: Optional[dict] = None) -> None:
+        """Continue from ``state`` (the tile planes verbatim, slot
+        assignment included) at step ``step`` with the interrupted run's
+        ``tuning()``: run() skips the half kick and runs steps step + 1 ..
+        nTimeSteps, the uninterrupted trajectory bit for bit.  What a
+        tiled checkpoint restores.  Without ``tuning`` the deck's
+        cadences and face cap stand, which is the uninterrupted run only
+        where no retune fired before ``step``."""
+        self.state, self.start_step, self._resumed = state, step, True
+        self.particles = None
+        if tuning:
+            self.rebucket_every_s = [int(R)
+                                     for R in tuning["rebucket_every_s"]]
+            self.rebucket_every = min(self.rebucket_every_s)
+            self._exchange_cap = int(tuning["exchange_cap"])
+            self._cap_escalation = float(tuning["cap_escalation"])
+            self._exchange_rows = bool(tuning["exchange_rows"])
+
+    def tuning(self) -> dict:
+        """What retune() changes during a run and resume() restores: the
+        per-species re-bucket cadences, the exchange face cap, its
+        escalation after drops and the per-row gate."""
+        return {"rebucket_every_s": list(self.rebucket_every_s),
+                "exchange_cap": self._exchange_cap,
+                "cap_escalation": self._cap_escalation,
+                "exchange_rows": self._exchange_rows}
 
     # ------------------------------------------------------------- layout
     def retune(self, st: Optional[TiledState] = None, drops: int = 0) -> bool:
@@ -490,19 +527,38 @@ class TiledSimulation(Simulation):
             n_lost=n_out.to(torch.int32))
 
     # ---------------------------------------------------------------- run
-    def run(self, progress_every: int = 10):
-        """Half kick, then nTimeSteps fused steps with the per-species
-        re-bucket schedule (and an early re-bucket of every species when
-        particles reach the margin).  Returns the energy histories, the
-        wall time, the host time of each step, and the drop and margin
-        counts."""
+    def _write(self, writer, n: int, st: TiledState, fields, diag, ke, pe):
+        """Step n's output and energies to the writer; fields: (rho, phi,
+        E).  The StepOutput (and the flat particles, only where the
+        population is written) is built only on the steps the writer
+        writes."""
+        if writer.writes(n):
+            writer.write_step(n, StepOutput(
+                self.to_particles(st) if writer.write_pop else None,
+                *fields, diag))
+        writer.write_energy(n, ke, pe)
+
+    def run(self, writer=None, progress_every: int = 10):
+        """Half kick (skipped on a resumed run), then the fused steps up
+        to nTimeSteps with the per-species re-bucket schedule (and an
+        early re-bucket of every species when particles reach the margin),
+        the writer's (io_h5 OutputWriter) callbacks and the checkpoints.
+        Returns the energy histories, the wall time, the host time of each
+        step, and the drop and margin counts."""
         t_start = time.monotonic()
-        st, rho, phi, E, diag = self._tiled_half_kick(self.state)
-        ke_hist = [diag.kin_energy.cpu().numpy()]
-        pe_hist = [float(diag.pot_energy)]
+        ke_hist, pe_hist = [], []
+        if self._resumed:
+            st = self.state
+        else:
+            st, rho, phi, E, diag = self._tiled_half_kick(self.state)
+            ke_hist.append(diag.kin_energy.cpu().numpy())
+            pe_hist.append(float(diag.pot_energy))
+            if writer is not None:
+                self._write(writer, 0, st, (rho, phi, E), diag, ke_hist[0],
+                            pe_hist[0])
         step_seconds = []
         total_dropped = total_lost = 0
-        for n in range(1, self.n_time_steps + 1):
+        for n in range(self.start_step + 1, self.n_time_steps + 1):
             t0 = time.monotonic()
             st, rho, phi, E, diag = self._tiled_step_fused(st)
             due = [s for s, R in enumerate(self.rebucket_every_s)
@@ -524,9 +580,14 @@ class TiledSimulation(Simulation):
                     self.retune(st, drops=dropped)
             ke = diag.kin_energy.cpu().numpy()
             pe = float(diag.pot_energy)
-            step_seconds.append(time.monotonic() - t0)
             ke_hist.append(ke)
             pe_hist.append(pe)
+            if writer is not None:
+                self._write(writer, n, st, (rho, phi, E), diag, ke, pe)
+            if self.checkpoint_every and n % self.checkpoint_every == 0:
+                from . import checkpoint as _ckpt
+                _ckpt.save_tiled(self.cfg, n, st, self.tuning())
+            step_seconds.append(time.monotonic() - t0)
             if progress_every and n % progress_every == 0:
                 msg(STATUS, "Computing time-step %i (KE=%g PE=%g)",
                     n, ke.sum(), pe)
@@ -536,7 +597,11 @@ class TiledSimulation(Simulation):
         self.state = st
         if self._capacity * st.lpos.shape[0] <= 32_000_000:
             self.particles = self.to_particles(st)
-        return {"kinetic": np.stack(ke_hist), "potential": np.asarray(pe_hist),
+        if self.checkpoint_every:
+            from . import checkpoint as _ckpt
+            _ckpt.save_tiled(self.cfg, self.n_time_steps, st, self.tuning())
+        return {"kinetic": _stack(ke_hist, st.lpos.shape[0]),
+                "potential": np.asarray(pe_hist),
                 "wall_time": wall, "step_seconds": np.asarray(step_seconds),
                 "dropped": total_dropped, "n_lost": total_lost}
 

@@ -791,6 +791,43 @@ def test_onehot_ranked_kernels_match_plain(cuda, active):
         assert float(a_k[1::2].sum()) > float(room[1::2].sum())
 
 
+def _spread_ranks(B, K2, seed, empty):
+    """Ranks of ~half of each tile's slots at distinct random columns of
+    [0, max(1.1 K2, 2 B)) (ranks >= K2 killed, not copied), -1 elsewhere;
+    tile `empty` none."""
+    rng = np.random.default_rng(seed)
+    rank = np.full((8, B), -1, np.int32)
+    for t in range(8):
+        on = np.flatnonzero(rng.uniform(size=B) < 0.5)
+        rank[t, on] = rng.choice(max(int(1.1 * K2), 2 * B), len(on),
+                                 replace=False)
+    if not (rank[0] == K2 - 1).any():          # the last column is reached
+        rank[0, np.flatnonzero(rank[0] >= 0)[0]] = K2 - 1
+    rank[empty] = -1
+    return rank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, K2", [(101, 32), (101, 30), (2101, 9001),
+                                   (640, 8192), (100, 4097)])
+def test_onehot_ranked_extract_matches_plain(cuda, B, K2):
+    """The ranked extract's staged columns: B % 8 != 0 (rows off a 16-byte
+    boundary), K2 % 4 != 0, a K2 spanning two or three blocks of 4096
+    columns, ranks >= K2, an empty tile; alive and alive' also read and
+    written off rank's 16-byte offset (views one word into larger
+    tensors: scalar accesses)."""
+    alive, planes = _onehot_fixture(cuda, seed=B + K2, B=B)
+    rank = torch.from_numpy(_spread_ranks(B, K2, K2, empty=3)).to(cuda)
+    want = ox.extract_plain(rank, alive, planes, K2)
+    got = ox.extract(rank, alive, planes, K2)
+    assert all(map(_bits_equal, got, want))
+    assert float(got[0][:, 6, 0, (K2 - 1) // 4096 * 4096:].sum()) > 0
+    shifted = torch.empty(8 * B + 1, device=cuda)[1:].view(8, B)
+    shifted.copy_(alive)
+    got = ox.extract(rank, shifted, planes, K2)
+    assert all(map(_bits_equal, got, want))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["v5", "v5_overflow", "v4", "v3", "v2"])
 def test_onehot_drivers_match_cpu(cuda, route):

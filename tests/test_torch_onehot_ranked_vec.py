@@ -1,7 +1,9 @@
-"""The one-hot exchange's ranked merge (K11, pinc_tpu_torch
-csrc/onehot_exchange.cu merge_ranked_kernel), emulated in numpy and held
-bit for bit against pinc_tpu's Pallas ``merge`` in interpret mode and
-against the port's plain version (``ox.merge_plain``).
+"""The one-hot exchange's ranked merge and extract (K11, pinc_tpu_torch
+csrc/onehot_exchange.cu merge_ranked_kernel and extract_ranked_kernel),
+emulated in numpy and held bit for bit against pinc_tpu's Pallas ``merge``
+and ``extract`` in interpret mode and against the port's plain versions
+(``ox.merge_plain``, ``ox.extract_plain``).  The extract's emulation and
+its cases are described where they start, below the merge's.
 
 A CUDA kernel cannot run on the CPU, so this file keeps its walk testable.
 The emulation does what the kernel does, one block a tile:
@@ -300,3 +302,155 @@ def test_ranked_merge_refuses_a_stage_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         ox.merge(frank, torch.from_numpy(alive), inc,
                  tuple(torch.from_numpy(p) for p in planes))
+
+
+# ---------------------------------------------------------------------------
+# The ranked extract (extract_ranked_kernel): a block takes Kc = min(K2
+# rounded up to 4, COLS) columns of a tile's buffer, ceil(K2 / Kc) blocks a
+# tile.  It sets each column's source slot to none in shared memory, its 8
+# warps walk the tile's rank row in 16-byte lane groups (RowWalk: a scalar
+# head up to the row's first 16-byte boundary, chunks of 128 slots, chunk c
+# to warp c % 8), a slot whose rank falls in the block's columns becomes
+# that column's source, the first block of a tile writes alive' (0 where
+# rank >= 0, else alive; 16 bytes at a time where alive's and alive''s rows
+# lie on rank's 16-byte offset), and after one barrier the block writes its
+# columns out whole, a 4-column group at a time: each source's six payloads
+# (x + 0.0) and flag 1, zeros for a column without one (16-byte stores where
+# K2 % 4 == 0, else scalar stores).
+# ---------------------------------------------------------------------------
+
+COLS = 4096        # kRankedCols: the columns one block takes
+CHUNK = 32 * VEC   # slots of one warp-wide 16-byte access
+
+
+def _row_groups(B, off0):
+    """RowWalk's groups [(chunk, first slot, slot count)] of a row of B
+    slots whose first word lies off0 words past a 16-byte boundary."""
+    h = min(B, (VEC - off0 % VEC) % VEC)
+    end = -(-(B - h) // CHUNK)
+    out = [(-1, 0, h)] if h else []
+    for c in range(end):
+        for lane in range(32):
+            off = h + VEC * (32 * c + lane)
+            n = max(0, min(VEC, B - off))
+            if n:
+                out.append((c, off, n))
+    return out
+
+
+def extract_ranked_vec(rank, alive, planes, K2, rank0=0, alive0=0, out0=0):
+    """extract_ranked_kernel on numpy inputs; rank0, alive0, out0: the word
+    offsets of the rank, alive and alive' arrays from a 16-byte boundary.
+    Returns (buf (NT, 7, 1, K2), alive')."""
+    NT_, B = rank.shape
+    Kc = min(-(-K2 // VEC) * VEC, COLS)
+    nblk = -(-K2 // Kc)
+    buf = np.full((NT_, 7, 1, K2), np.nan, np.float32)
+    alive2 = np.full_like(alive, np.nan)
+    written = np.zeros((NT_, 7, K2), np.int64)
+    for t in range(NT_):
+        r_off = (rank0 + t * B) % VEC
+        vec_al = (alive0 + t * B) % VEC == r_off == (out0 + t * B) % VEC
+        groups = _row_groups(B, r_off)
+        visited = np.zeros(B, np.int64)
+        for blk in range(nblk):
+            c0 = blk * Kc
+            nc = min(Kc, K2 - c0)
+            src = np.full(Kc, -1)
+            for c, off, n in groups:
+                if n == VEC:
+                    assert (r_off + off) % VEC == 0        # one 16-byte load
+                r = rank[t, off:off + n]
+                for e in range(n):
+                    col = int(r[e]) - c0
+                    if 0 <= col < nc:
+                        assert src[col] == -1              # ranks unique
+                        src[col] = off + e
+                if blk == 0:
+                    visited[off:off + n] += 1
+                    if n == VEC and vec_al:
+                        assert (alive0 + t * B + off) % VEC == 0
+                    alive2[t, off:off + n] = np.where(
+                        r >= 0, np.float32(0.0), alive[t, off:off + n])
+            vec = K2 % VEC == 0
+            if vec:
+                assert c0 % VEC == 0 and nc % VEC == 0     # 16-byte stores
+            for j0 in range(0, nc, VEC if vec else 1):
+                for j in range(j0, min(j0 + (VEC if vec else 1), nc)):
+                    for q in range(7):
+                        buf[t, q, 0, c0 + j] = (
+                            np.float32(0.0) if src[j] < 0 else
+                            planes[q][t, src[j]] + np.float32(0.0) if q < 6
+                            else np.float32(1.0))
+                        written[t, q, c0 + j] += 1
+        assert (visited == 1).all()
+    assert (written == 1).all()                         # each entry once
+    return buf, alive2
+
+
+def _extract_case(B, K2, seed, spread=False, empty=None):
+    """Ranks of a z sweep at cap K2 // 2 (pinc_tpu's exchange_dim encoding;
+    a leaver past the cap ranked 2 (K2 // 2): killed, not copied); with
+    spread, each tile's leavers take distinct random columns of [0, 1.1
+    K2) instead (ranks >= K2 killed), so that every column chunk of a wide
+    buffer is reached; `empty`: a tile with no rank >= 0."""
+    alive, planes = _state(seed, b=B)
+    rank = _ranks(planes[2], alive, K2 // 2)
+    if spread:
+        rng = np.random.default_rng(seed)
+        for t in range(rank.shape[0]):
+            on = np.flatnonzero(rank[t] >= 0)
+            rank[t, on] = rng.choice(int(1.1 * K2), len(on), replace=False)
+    if empty is not None:
+        rank[empty] = -1
+    return rank, alive, planes
+
+
+# B % 8 != 0 and rows off a 16-byte boundary (B = 101, 2101), K2 % 4 != 0,
+# a K2 spanning three column chunks, ranks >= K2, an empty tile
+EXTRACT_CASES = {"b101_k32": (101, 32, False, None),
+                 "b101_k30_empty": (101, 30, False, 3),
+                 "b101_k9001_spread": (101, 9001, True, None),
+                 "b2101_k254": (2101, 254, False, 5),
+                 "b100_k8192_spread": (100, 8192, True, 0)}
+
+
+@pytest.mark.parametrize("case", list(EXTRACT_CASES))
+def test_ranked_extract_walk_matches_pinc_tpu(case):
+    B, K2, spread, empty = EXTRACT_CASES[case]
+    rank, alive, planes = _extract_case(B, K2, 90 + len(case), spread, empty)
+    assert (rank >= K2).any() and (rank == -1).any()
+    if empty is not None:
+        assert (rank[empty] < 0).all()
+    buf, al2 = extract_ranked_vec(rank, alive, planes, K2, rank0=1,
+                                  alive0=1, out0=1)
+    pbuf, pal = ox.extract_plain(torch.from_numpy(rank),
+                                 torch.from_numpy(alive),
+                                 tuple(torch.from_numpy(p) for p in planes),
+                                 K2)
+    _eq(buf, pbuf.numpy())
+    _eq(al2, pal.numpy())
+    if K2 > COLS:
+        cols = np.flatnonzero(buf[:, 6, 0].max(0) > 0.5)
+        assert cols.max() >= (K2 - 1) // COLS * COLS    # the last chunk
+    jbuf, jal = _jax(f"xv{B}_{K2}", pex.extract, K2=K2)(
+        jnp.asarray(rank), jnp.asarray(alive),
+        tuple(jnp.asarray(p) for p in planes))
+    _eq(_pinc_buf(torch.from_numpy(buf)), jbuf)
+    _eq(al2, jal)
+
+
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 3, 3),
+                                     (0, 2, 0), (2, 2, 1)])
+def test_ranked_extract_walk_rows_off_a_boundary(offsets):
+    """Every start of the rank row off a 16-byte boundary, and alive or
+    alive' on another offset than rank (scalar alive accesses): the same
+    buffer and alive' as the plain version."""
+    rank, alive, planes = _extract_case(2101, 30, 97, False, 2)
+    buf, al2 = extract_ranked_vec(rank, alive, planes, 30, *offsets)
+    pbuf, pal = ox.extract_plain(torch.from_numpy(rank),
+                                 torch.from_numpy(alive),
+                                 tuple(torch.from_numpy(p) for p in planes),
+                                 30)
+    _eq(buf, pbuf.numpy())
+    _eq(al2, pal.numpy())

@@ -327,8 +327,6 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("override, match", [
     ("methods:mode=puModeInterp", "puModeInterp"),
     ("objects:objects=sphere.h5", "objects"),
-    ("files:output=out/run", "files:output"),
-    ("files:checkpointEvery=2", "checkpoint"),
     ("grid:boundaries=DIRICHLET", "non-periodic"),
     ("methods:poisson=mgSolve", "multigrid"),
     ("methods:debug=true", "methods:debug"),
@@ -342,6 +340,23 @@ def test_unported_features_raise(tmp_path, override, match):
         main([str(deck), override], device="cpu")
 
 
+@pytest.mark.parametrize("override, written", [
+    ("files:output=out/run", "out/run_history.xy.h5"),
+    ("files:checkpointEvery=2", "checkpoint.chk.h5"),
+])
+def test_output_and_checkpoint_keys_run(tmp_path, monkeypatch, override,
+                                        written):
+    """files:output and files:checkpointEvery, which the port refused
+    before io_h5.py and checkpoint.py were ported, now run and write."""
+    pytest.importorskip("h5py")
+    deck = tmp_path / "deck.ini"
+    deck.write_text(_deck("f32"))
+    monkeypatch.chdir(tmp_path)
+    assert main([str(deck), override, "time:nTimeSteps=2"],
+                device="cpu") == 0
+    assert (tmp_path / written).exists()
+
+
 def test_no_jax_import():
     code = textwrap.dedent("""
         import sys
@@ -352,6 +367,8 @@ def test_no_jax_import():
         import pinc_tpu_torch.ops.onehot_exchange
         import pinc_tpu_torch.ops.field_kernels
         import pinc_tpu_torch.utils.timer
+        import pinc_tpu_torch.io_h5, pinc_tpu_torch.spool
+        import pinc_tpu_torch.checkpoint, pinc_tpu_torch.native
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pinc_tpu")]
         assert not bad, bad
