@@ -122,6 +122,32 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    and says that the HDF5 and checkpoint files are checked by the CPU
    tests only.
 
+8. Bounded walls, the multigrid solver, the run modes and the small
+   decks.  The multigrid solve (input/maxwellian.ini's [multigrid]: 4
+   levels, 15 cycles, 10/10/10 sweeps, tolerance 5e-6) of one seeded rho
+   on the card against the port's own CPU solve at 64^3, periodic,
+   Dirichlet and Neumann on x with periodic y/z (the same cycle count, phi
+   within 1e-4 of max|phi|), then timed at 128^3 by CUDA events: ms a
+   solve, ms a V-cycle and a V-cycle's device launches (torch.profiler).
+   Deck (a), bench.py's deck with methods:poisson = mgSolve and that
+   section, through the CLI for 20 steps with phase 3's checks, then
+   make_scan_steps(20, donate=True) with phase 5's (K5, K7, K6 a step, the
+   multigrid solve between them).  Decks (b) and (c), deck (a) inside
+   Dirichlet and Neumann walls (zero values), 20 steps of run(): K1, K3
+   and K7 every step, no K2, K4 or K5, the gather exchange at every species
+   event, every particle inside [0, L-1], no drop, alive conserved,
+   finite energies.  After each deck's run(), one step split by CUDA
+   events (the solve, the kernels, the glue).  Then mgMode at 128^3,
+   mgModeErrorScaling at 32^3 (order above 1.5), puModeParticle and
+   puModeInterp (their orders) through the CLI; input/maxwellian.ini on
+   one subdomain for 5 steps, periodic, in Dirichlet and in Neumann walls;
+   langmuirCold1D.ini and langmuir2D.ini on the tiled layout for 20
+   steps, re-bucketed every 5 (pinc_tpu's kernel-free route: no kernel
+   launches); the bench deck
+   under methods:debug = true and population:maxVel = 1 for 5 steps.
+   Prints each deck's ms a step beside phase 3's and phase 5's with the
+   FFT solve.
+
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
 JSON object with each kernel's numbers (launches on the path that runs
@@ -1412,7 +1438,7 @@ def run_main_path(cli_main, kernel_modules, extra, steps: int,
 
 
 def check_main_path(label, rc, out, launches, wall, steps, prod, card,
-                    route: str):
+                    route: str, phase: str = "3"):
     """The checks of phase 3 on one run; route: the re-bucket the deck
     must take (a key of ROUTE_CALLS)."""
     import torch
@@ -1420,7 +1446,8 @@ def check_main_path(label, rc, out, launches, wall, steps, prod, card,
     sim = out["sim"]
     mode = "sort" if route == "sort" else "exchange"
     S, per_species = sim.state.alive.shape[0], sim._capacity
-    print(f"phase 3 {label}: {type(sim).__name__}, {sim.ts.ntiles} tiles "
+    print(f"phase {phase} {label}: {type(sim).__name__}, {sim.ts.ntiles} "
+          f"tiles "
           f"of {sim.ts.T}^3, B={sim.ts.B}, M={sim.ts.M}, {mode} re-bucket, "
           f"cadences {sim.rebucket_every_s}, face cap {sim._exchange_cap}, "
           f"rows {sim._exchange_rows}, {steps} steps, {wall:.1f} s "
@@ -1606,12 +1633,14 @@ def scan_deck(vth: str, rebucket=None) -> str:
 
 
 def run_scan(label: str, deck: str, modules, card: str, expect: dict,
-             route: str = "gather"):
+             route: str = "gather", steps=None, fresh: bool = True,
+             phase: str = "5"):
     """Phase 5: the window bench.py:bench_pic times, through
-    TiledSimulation.make_scan_steps(steps, donate=True, fresh=True) on the
-    card: one untimed warm window, then a timed one, with the launch counts
-    set to 0 just before each and read just after.  Returns (sim, state,
-    result)."""
+    TiledSimulation.make_scan_steps(steps, donate=True, fresh=fresh) on
+    the card: one untimed warm window, then a timed one, with the launch
+    counts set to 0 just before each and read just after.  steps: the
+    window (default SCAN_STEPS, sized to the slow cadence).  Returns (sim,
+    state, result)."""
     import torch
     from pinc_tpu_torch.config import PincConfig
     from pinc_tpu_torch.ops import gather_exchange as gx
@@ -1625,14 +1654,16 @@ def run_scan(label: str, deck: str, modules, card: str, expect: dict,
     n_particles = int((carry.alive > 0.5).sum())
     Rs = sim.rebucket_every_s
     Ri, Re = max(Rs), min(Rs)
-    steps = SCAN_STEPS
-    if Ri % Re == 0 and Ri <= 400:
-        steps = Ri * max(1, round(steps / Ri))
-    run_n = sim.make_scan_steps(steps, donate=True, fresh=True)
+    if steps is None:
+        steps = SCAN_STEPS
+        if Ri % Re == 0 and Ri <= 400:
+            steps = Ri * max(1, round(steps / Ri))
+    run_n = sim.make_scan_steps(steps, donate=True, fresh=fresh)
     sched = any(m is not None for kind, m in run_n.plan if kind == "step")
     events = [a for kind, a in run_n.plan if kind == "rebucket"]
     n_events = sum(len(a) for a in events)
-    print(f"phase 5 {label}: M={sim.ts.M}, cadences {Rs}, window {steps} "
+    print(f"phase {phase} {label}: M={sim.ts.M}, cadences {Rs}, window "
+          f"{steps} "
           f"steps, margin schedule {'on' if sched else 'off'}, "
           f"{n_events} species re-bucket events a window, {sim.ts.ntiles} "
           f"tiles of {sim.ts.T}^3, B={sim.ts.B}, face cap "
@@ -2133,6 +2164,412 @@ def check_output(cli_main, modules, card: str) -> None:
           "test_torch_decks.py)", flush=True)
 
 
+# -- phase 8: bounded walls, multigrid, the run modes, small decks ------------
+# input/maxwellian.ini's [multigrid] section
+MG_SECTION = """[multigrid]
+cycle = mgVRecursive
+preSmooth = gaussSeidelRB
+postSmooth = gaussSeidelRB
+coarseSolver = gaussSeidelRB
+mgLevels = 4
+mgCycles = 15
+nPreSmooth = 10
+nPostSmooth = 10
+nCoarseSolve = 10
+"""
+MG_KW = dict(n_levels=4, n_pre=10, n_post=10, n_coarse=10,
+             cycle="mgVRecursive", smoother="gaussSeidelRB", max_cycles=15,
+             tol=5e-6)           # make_from_config's float32 default tol
+MG_CHECK_N = 64        # card against CPU at 64^3 (the CPU's solve is slow)
+MG_TIME_N = 128        # the card's solve timed at the bench deck's grid
+MG_RTOL = 1e-4         # max|phi_card - phi_cpu| <= 1e-4 * max|phi_cpu|
+                       # (float32 means and sums in another order, 15
+                       # cycles); final RMS residuals rtol 1e-3
+MG_STEPS = 20          # run() and the window on decks (a)-(c)
+DEBUG_STEPS = 5
+# deck (a): the bench deck solved by multigrid; (b) and (c) bounded by
+# Dirichlet and Neumann walls with zero values (the reference's default
+# Neumann value 2.0 is a normal field of 2 at every wall node, a kick of
+# 2 cells a step for the electrons, beyond the tiled layout's margin)
+MG_DECKS = {
+    "a": BENCH_DECK.replace("poisson = sSolve", "poisson = mgSolve")
+    .replace("[tiles]", MG_SECTION + "[tiles]"),
+}
+for _key, _bnd in (("b", "DIRICHLET"), ("c", "NEUMANN")):
+    MG_DECKS[_key] = MG_DECKS["a"].replace(
+        "boundaries = PERIODIC",
+        f"boundaries = {_bnd}\nbndValues = 0,0,0,0,0,0")
+SMALL_DECKS = ("langmuirCold1D.ini", "langmuir2D.ini")
+SMALL_REBUCKET = 5     # their default cadence (200) outlasts the 20 steps
+
+
+def mg_rho(n: int):
+    """A seeded charge density at n^3: a smooth mode plus noise."""
+    import numpy as np
+    x = np.arange(n) * 2 * np.pi / n
+    smooth = (np.sin(x)[:, None, None] * np.cos(2 * x)[None, :, None]
+              * np.sin(x + 0.3)[None, None, :])
+    noise = np.random.default_rng(8).standard_normal((n, n, n))
+    return (0.01 * (smooth + 0.1 * noise)).astype(np.float32)
+
+
+def check_multigrid(card: str) -> None:
+    """Phase 8.1: the multigrid solve on the card against the port's own
+    CPU solve of the same seeded rho at 64^3 (periodic, Dirichlet, Neumann
+    on x with periodic y/z), then its time at 128^3 by CUDA events, a
+    V-cycle's time and its device launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pinc_tpu_torch.bc import BCSpec
+    from pinc_tpu_torch.grid import BndType
+    from pinc_tpu_torch.solvers.multigrid import MultigridSolver
+    P, D, N = BndType.PERIODIC, BndType.DIRICHLET, BndType.NEUMANN
+    zero = (0.0,) * 3
+    cases = {"periodic": None,
+             "Dirichlet": BCSpec((D,) * 3, (D,) * 3, zero, zero),
+             "Neumann x, periodic y/z": BCSpec((N, P, P), (N, P, P), zero,
+                                               zero)}
+    rho = torch.from_numpy(mg_rho(MG_CHECK_N))
+    shape = (MG_CHECK_N,) * 3
+    for label, bc in cases.items():
+        t0 = time.monotonic()
+        phi_c, n_c, r_c = MultigridSolver(shape, bc=bc, **MG_KW) \
+            .solve_with_stats(rho)
+        cpu_s = time.monotonic() - t0
+        phi_g, n_g, r_g = MultigridSolver(shape, bc=bc, **MG_KW) \
+            .solve_with_stats(rho.cuda())
+        err = float((phi_g.cpu() - phi_c).abs().max())
+        scale = float(phi_c.abs().max())
+        r_c, r_g = float(r_c), float(r_g)
+        check(phi_g.is_cuda and n_g == n_c and err <= MG_RTOL * scale
+              and abs(r_g - r_c) <= 1e-3 * r_c,
+              f"phase 8 multigrid {label}: card {n_g} cycles, residual "
+              f"{r_g:.6e}; CPU {n_c} cycles, residual {r_c:.6e}; max|dphi| "
+              f"{err:.3e} of max|phi| {scale:.3e}")
+        print(f"phase 8 multigrid {label} at {MG_CHECK_N}^3 (4 levels, "
+              f"10/10/10 sweeps, tol 5e-6): card {n_g} cycles = CPU "
+              f"{n_c}, residual {r_g:.6e} vs {r_c:.6e}, max|dphi| "
+              f"{err:.3e} <= {MG_RTOL} * {scale:.3e} (CPU solve "
+              f"{cpu_s:.1f} s)", flush=True)
+    n = MG_TIME_N
+    solver = MultigridSolver((n,) * 3, **MG_KW)
+    rho = torch.from_numpy(mg_rho(n)).cuda()
+    _, n_cycles, resid = solver.solve_with_stats(rho)
+    ms_solve = cuda_ms(lambda: solver.solve_with_stats(rho), reps=3,
+                       warmup=0)
+    rho_n = rho - rho.mean()
+    phi0 = torch.zeros_like(rho)
+    ms_cycle = cuda_ms(lambda: solver._vcycle(0, phi0, rho_n), reps=5,
+                       warmup=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solver._vcycle(0, phi0, rho_n)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_time_total > 0)
+    print(f"phase 8 multigrid at {n}^3 on the card (seeded rho, 4 levels, "
+          f"10/10/10 sweeps, tol 5e-6): {n_cycles} cycles (residual "
+          f"{float(resid):.6e}), {ms_solve:.3f} ms a solve, {ms_cycle:.3f} "
+          f"ms a V-cycle (CUDA events), {launches} device launches a "
+          f"V-cycle (torch.profiler) ({card})", flush=True)
+
+
+def walls_ok(sim) -> tuple:
+    """(min, max) over every live particle's global coordinate, each dim."""
+    import torch
+    from pinc_tpu_torch.ops.tiled import tile_origins
+    st = sim.state
+    org = tile_origins(sim.ts, st.lpos.device)                 # (NT, 3)
+    live = st.alive > 0.5
+    out = []
+    for d in range(3):
+        g = (st.lpos[:, d] + org[None, :, d, None])[live]
+        out.append((float(g.min()), float(g.max())))
+    return out
+
+
+def mg_breakdown(sim, label: str, card: str) -> None:
+    """Device time of each part of one step of an mgSolve deck's run(), by
+    CUDA events, on the run's final state: the kernels of the step (K2/K4
+    on a periodic deck; the drift and reflection, K1 with K7, K3 and the
+    kick inside walls), the multigrid solve (its cycles on this rho) and
+    E with its padded tiles."""
+    import torch
+    from pinc_tpu_torch.ops import tiled_kernels as tk
+    from pinc_tpu_torch.tiled_sim import TiledState
+    st = sim.state
+    S = st.lpos.shape[0]
+    rho = sim._deposit_rho(st)
+    phi, n_cycles, resid = sim.solver.solve_with_stats(rho)
+    E = sim._efield(phi)
+    parts = {"whole step (no re-bucket)": lambda: sim._tiled_step(st)}
+    if sim._use_fused:
+        ep5 = sim._field_tiles(E)
+        parts[f"K2 deposit_move x {S}"] = lambda: [
+            tk.deposit_move(st.lpos[s], st.vel[s], st.alive[s],
+                            sim._charge[s], sim.ts, mxu_dtype=sim._mxu_dtype,
+                            order=sim._distr_order) for s in range(S)]
+        parts[f"K4 gather_kick x {S}"] = lambda: [
+            tk.gather_kick(ep5, st.lpos[s], st.vel[s], st.alive[s],
+                           sim._qm[s], sim.ts, mxu_dtype=sim._mxu_dtype,
+                           order=sim._acc_order, e_ext=sim._e_ext,
+                           boris=sim._boris(s)) for s in range(S)]
+    else:
+        parts["drift + reflection"] = lambda: sim._reflect_walls(TiledState(
+            lpos=st.lpos + st.vel, vel=st.vel, alive=st.alive))
+        parts[f"K1 deposit x {S} + K7 fold_global"] = (
+            lambda: sim._deposit_rho(st))
+        parts[f"K3 gather + kick x {S}"] = lambda: sim._kick(st, E, False)
+    parts[f"multigrid solve ({n_cycles} cycles, residual "
+          f"{float(resid):.3e})"] = lambda: sim.solver(rho)
+    parts["E = -grad(phi) and its padded tiles"] = (
+        lambda: sim._field_tiles(sim._efield(phi)))
+    print(f"phase 8 {label}, one step by CUDA events ({card}):", flush=True)
+    for name, fn in parts.items():
+        print(f"  {name}: {cuda_ms(fn, reps=2, warmup=1):.3f} ms",
+              flush=True)
+    del rho, phi, E
+    torch.cuda.empty_cache()
+
+
+def check_bounded_run(label: str, rc, out, launches, wall, steps: int,
+                      card: str) -> float:
+    """Phase 8.3's checks on one bounded run(): the unfused step (K1 and
+    K3 per species a step and in the half kick, K7 once a step and in the
+    half kick, no K2/K4/K5/K6), the gather exchange at every species event,
+    the state on the card, no drop, alive conserved, every particle in
+    [0, L-1], finite energies.  Returns the mean ms a step."""
+    check(rc == 0, f"{label}: the CLI returned {rc}")
+    sim = out["sim"]
+    S, per_species = sim.state.alive.shape[0], sim._capacity
+    check(not sim._use_fused and not sim._use_mega
+          and all(sim._bounded_dims),
+          f"{label}: the deck took the fused route")
+    want = {"deposit": S * (steps + 1), "gather": S * (steps + 1),
+            "fold_global": steps + 1}
+    scheduled = sum(steps // R for R in sim.rebucket_every_s)
+    events = launches["extract"]
+    check(events == scheduled or (events > scheduled and out["n_lost"] > 0),
+          f"{label}: {events} re-bucket events ({scheduled} scheduled, "
+          f"{out['n_lost']} margin hits)")
+    want.update({k: n * events for k, n in ROUTE_CALLS["gather"].items()})
+    got = {k: v for k, v in launches.items() if v}
+    check(got == want, f"{label}: launches {got}, expected {want}")
+    st = sim.state
+    check(all(t.is_cuda for t in (st.lpos, st.vel, st.alive)),
+          f"{label}: a state tensor left the card")
+    n_alive = int((st.alive > 0.5).sum())
+    check(n_alive == S * per_species and out["dropped"] == 0,
+          f"{label}: alive {n_alive} of {S * per_species}, "
+          f"{out['dropped']} dropped")
+    spans = walls_ok(sim)
+    check(all(lo >= 0.0 and hi <= g - 1 for (lo, hi), g
+              in zip(spans, sim.ts.grid)),
+          f"{label}: particles outside [0, L-1]: {spans}")
+    ke, pe = out["kinetic"].sum(axis=1), out["potential"]
+    check(len(ke) == steps + 1 and all(math.isfinite(v) for v in
+                                       list(ke) + list(pe)),
+          f"{label}: non-finite energies")
+    step_ms = float(sum(out["step_seconds"][1:])
+                    / (steps - 1)) * 1e3
+    spans = [tuple(round(v, 4) for v in x) for x in spans]
+    print(f"phase 8 {label}: {steps} steps, {wall:.1f} s including set-up; "
+          f"launches {got}; state on cuda, alive {n_alive} of "
+          f"{S * per_species}, 0 dropped, {out['n_lost']} margin hits, "
+          f"global positions in {spans} (walls [0, {sim.ts.grid[0] - 1}]); "
+          f"total energy "
+          f"{ke[0] + pe[0]:.9g} -> {ke[-1] + pe[-1]:.9g}; {step_ms:.3f} "
+          f"ms a step (mean of steps 2-{steps}, re-buckets included) "
+          f"({card})", flush=True)
+    return step_ms
+
+
+def check_run_modes(cli_main, card: str) -> None:
+    """Phase 8.4: mgMode at 128^3, mgModeErrorScaling at 32^3 (16^3 and
+    32^3 solves: at 128^3 the 4-level solve stops at its 15-cycle cap far
+    from the discretization error), puModeParticle and puModeInterp,
+    through the CLI on the card."""
+    mode_deck = """[time]
+timeStep = 0.2
+[grid]
+nDims = 3
+nSubdomains = 1,1,1
+trueSize = {n},{n},{n}
+stepSize = 1
+boundaries = PERIODIC
+[population]
+nSpecies = 2
+nParticles = 1 pc
+nAlloc = 1 pc
+charge = -1,1
+mass = 1,1836
+[methods]
+mode = {mode}
+poisson = mgSolve
+""" + MG_SECTION
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, n in (("mgMode", 128), ("mgModeErrorScaling", 32),
+                        ("puModeParticle", 64), ("puModeInterp", 64)):
+            deck = os.path.join(tmp, f"{mode}.ini")
+            with open(deck, "w") as f:
+                f.write(mode_deck.format(n=n, mode=mode))
+            out: dict = {}
+            t0 = time.monotonic()
+            check(cli_main([deck], out=out) == 0,
+                  f"phase 8 {mode}: the CLI failed")
+            results[mode] = (out, time.monotonic() - t0)
+    out, wall = results["mgMode"]
+    check(out["seconds"] > 0 and out["cycles"] >= 1,
+          f"phase 8 mgMode: {out}")
+    print(f"phase 8 mgMode at 128^3 (maxwellian.ini's [multigrid]): "
+          f"{out['seconds'] * 1e3:.3f} ms a solve (CUDA events, mean of 5), "
+          f"{out['cycles']} cycles, rms error against the analytic phi "
+          f"{out['rms_error']:.4e}; {wall:.1f} s in all ({card})",
+          flush=True)
+    out, _ = results["mgModeErrorScaling"]
+    check(out["order"] > 1.5, f"phase 8 mgModeErrorScaling: order "
+          f"{out['order']} (tests/test_solvers.py:88 bound 1.5)")
+    print(f"phase 8 mgModeErrorScaling ({out['fixture']}, {out['sizes']}): "
+          f"errors {out['errors']}, order {out['order']:.4f} > 1.5",
+          flush=True)
+    out, _ = results["puModeParticle"]
+    check(all(o > 1.8 for o in out["orders"]),
+          f"phase 8 puModeParticle: orders {out['orders']}")
+    print(f"phase 8 puModeParticle: orders {out['orders']} (> 1.8)",
+          flush=True)
+    out, _ = results["puModeInterp"]
+    check(0.8 < out["order_ngp"] < 1.2 and 1.8 < out["order_cic"] < 2.2,
+          f"phase 8 puModeInterp: {out}")
+    print(f"phase 8 puModeInterp: orders ngp {out['order_ngp']:.4f}, cic "
+          f"{out['order_cic']:.4f}", flush=True)
+
+
+def check_maxwellian(cli_main, card: str) -> None:
+    """Phase 8.5: input/maxwellian.ini (mgSolve) on one subdomain without
+    its files:output line, 5 steps through the CLI: periodic as shipped,
+    inside Dirichlet and Neumann walls of zero value (the Neumann default
+    2.0 is a wall field that multiplies this deck's kinetic energy
+    ~1300-fold in its first step): the flat layout on the card, the multigrid solve, every
+    particle inside the walls, finite energies."""
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = deck_path("maxwellian.ini", tmp, output=False)
+        for walls in ([], *([f"grid:boundaries={b}",
+                             "grid:bndValues=0,0,0,0,0,0"]
+                            for b in ("DIRICHLET", "NEUMANN"))):
+            out: dict = {}
+            label = ("phase 8 maxwellian.ini "
+                     + (" ".join(walls) or "periodic"))
+            check(cli_main([deck, "grid:nSubdomains=1,1,1",
+                            "time:nTimeSteps=5", *walls], out=out) == 0,
+                  f"{label}: the CLI failed")
+            sim, ke, pe = out["sim"], out["kinetic"].sum(1), out["potential"]
+            p = sim.particles
+            pos = p.pos()[p.alive]
+            L = sim.spec.global_size
+            inside = all(float(pos[:, d].min()) >= 0.0
+                         and float(pos[:, d].max()) <= L[d] - 1
+                         for d in range(3)) if walls else True
+            check(type(sim.solver).__name__ == "MultigridSolver"
+                  and p.cell.is_cuda and inside and len(ke) == 6
+                  and all(math.isfinite(v) for v in list(ke) + list(pe)),
+                  f"{label}: solver {type(sim.solver).__name__}, on "
+                  f"{p.cell.device}, inside the walls {inside}, energies "
+                  f"{ke} {pe}")
+            print(f"{label}: {type(sim).__name__} on {p.cell.device}, "
+                  f"{p.capacity} slots x {p.n_species} species, 5 steps, "
+                  f"total energy {ke[0] + pe[0]:.6g} -> "
+                  f"{ke[-1] + pe[-1]:.6g}"
+                  f"{', every particle inside the walls' if walls else ''}"
+                  f" ({card})", flush=True)
+
+
+def check_small_decks(cli_main, modules, card: str) -> None:
+    """Phase 8.5: langmuirCold1D.ini and langmuir2D.ini on the tiled
+    layout without files:output, 20 steps re-bucketed every 5 (the sort):
+    pinc_tpu's kernel-free route for 1-D and 2-D decks (no kernel
+    launches), the state on the card."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SMALL_DECKS:
+            for m in modules:
+                m.reset_launches()
+            out: dict = {}
+            check(cli_main([deck_path(name, tmp, output=False),
+                            "methods:layout=tiled",
+                            f"tiles:rebucketEvery={SMALL_REBUCKET}",
+                            f"time:nTimeSteps={MG_STEPS}"], out=out) == 0,
+                  f"phase 8 {name}: the CLI failed")
+            launched = {k: v for m in modules for k, v in m.LAUNCHES.items()
+                        if v}
+            sim = out["sim"]
+            ke, pe = out["kinetic"].sum(1), out["potential"]
+            check(type(sim).__name__ == "TiledSimulation" and not launched
+                  and sim.state.lpos.is_cuda and out["dropped"] == 0
+                  and len(ke) == MG_STEPS + 1
+                  and all(math.isfinite(v) for v in list(ke) + list(pe)),
+                  f"phase 8 {name}: launches {launched}, dropped "
+                  f"{out['dropped']}, energies {ke}")
+            print(f"phase 8 {name} tiled: {sim.ts.ntiles} tiles, B = "
+                  f"{sim.ts.B}, {sim._backend} route, {sim._rebucket_mode} "
+                  f"re-bucket every {sim.rebucket_every_s}, state on {sim.state.lpos.device}, no kernel "
+                  f"launch, total energy {ke[0] + pe[0]:.6g} -> "
+                  f"{ke[-1] + pe[-1]:.6g} ({card})", flush=True)
+            del sim, out
+            torch.cuda.empty_cache()
+
+
+def check_mg_and_walls(cli_main, modules, prod, card: str, run_ms: float,
+                       aux_ms: float) -> None:
+    """Phase 8: the multigrid solver, deck (a) (the bench deck solved by
+    multigrid) through run() and the mega window, decks (b) and (c)
+    (Dirichlet and Neumann walls) through run(), the run modes, the small
+    tiled decks and the bench deck under methods:debug."""
+    import torch
+    check_multigrid(card)
+    res = run_main_path(cli_main, modules, [], MG_STEPS,
+                        deck_text=MG_DECKS["a"])
+    sim, a_ms, _ = check_main_path("deck (a) mgSolve, periodic", *res,
+                                   MG_STEPS, prod, card, "gather",
+                                   phase="8")
+    check(type(sim.solver).__name__ == "MultigridSolver",
+          "phase 8 deck (a): not solved by multigrid")
+    mg_breakdown(sim, "deck (a) run()", card)
+    del sim, res
+    torch.cuda.empty_cache()
+    _, _, scan = run_scan("deck (a) mgSolve, periodic", MG_DECKS["a"],
+                          modules, card, dict(M=1, B=prod.B, sched=False),
+                          steps=MG_STEPS, fresh=False, phase="8")
+    torch.cuda.empty_cache()
+    bounded = {}
+    for key, label in (("b", "deck (b) Dirichlet walls"),
+                       ("c", "deck (c) Neumann walls")):
+        res = run_main_path(cli_main, modules, [], MG_STEPS,
+                            deck_text=MG_DECKS[key])
+        bounded[key] = check_bounded_run(label, *res, MG_STEPS, card)
+        mg_breakdown(res[1]["sim"], label, card)
+        del res
+        torch.cuda.empty_cache()
+    print(f"phase 8 ms a step ({card}): deck (a) run() {a_ms:.3f}, window "
+          f"{scan['ms_step']:.3f}; deck (b) run() {bounded['b']:.3f}; deck "
+          f"(c) run() {bounded['c']:.3f}; with the FFT solve: phase 3's "
+          f"run() {run_ms:.3f}, phase 5's aux window {aux_ms:.3f}",
+          flush=True)
+    check_run_modes(cli_main, card)
+    check_maxwellian(cli_main, card)
+    check_small_decks(cli_main, modules, card)
+    rc, out, launches, wall = run_main_path(
+        cli_main, modules, ["methods:debug=true", "population:maxVel=1"],
+        DEBUG_STEPS)
+    check(rc == 0 and out["dropped"] == 0,
+          "phase 8 bench deck with methods:debug: the run failed")
+    print(f"phase 8 bench deck with methods:debug=true population:maxVel=1:"
+          f" {DEBUG_STEPS} steps, every guard held, {wall:.1f} s including "
+          f"set-up ({card})", flush=True)
+    del out
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2461,6 +2898,10 @@ def main() -> int:
 
     # -- phase 7: output and checkpoints on the card ----------------------
     check_output(cli_main, modules, card)
+
+    # -- phase 8: bounded walls, multigrid, run modes, small decks --------
+    check_mg_and_walls(cli_main, modules, prod, card, run_ms,
+                       aux["ms_step"])
 
     rows = [{"name": name, "route": "cuda",
              "source": getattr(m, "SOURCES", {}).get(name, m.SOURCE),

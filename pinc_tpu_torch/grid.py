@@ -93,6 +93,11 @@ def laplacian(phi: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def neutralize(rho: torch.Tensor) -> torch.Tensor:
+    """Remove the mean charge (gNeutralizeGrid, src/grid.c:730-752)."""
+    return rho - torch.mean(rho)
+
+
 def potential_energy(rho: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
     """Total field energy 0.5*sum(rho*phi) over true nodes
     (gPotEnergy, src/grid.c:1276-1321)."""
@@ -117,3 +122,109 @@ def fill_sin(spec: GridSpec, modes: List[int] | None = None
         k2 += k * k
     phi = rho / k2
     return rho, phi
+
+
+def fill_sin_dirichlet(spec: GridSpec,
+                       modes: List[int] | None = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Dirichlet-compatible sinusoid fixture: phi = prod_d sin(pi m_d x_d
+    / (L_d - 1)) vanishes on every wall, rho = k^2 phi solves
+    grad^2 phi = -rho with phi=0 Dirichlet BCs (the BC-aware counterpart
+    of gFillSin for bounded decks — the reference's error-scaling study
+    was periodic-only, src/multigrid.c:1734-1851)."""
+    L = spec.global_size
+    nd = spec.n_dims
+    modes = modes or [1] * nd
+    axes = [np.arange(l, dtype=np.float64) for l in L]
+    mesh = np.meshgrid(*axes, indexing="ij")
+    phi = np.ones(L, dtype=np.float64)
+    k2 = 0.0
+    for d in range(nd):
+        k = np.pi * modes[d] / (L[d] - 1)
+        phi = phi * np.sin(k * mesh[d])
+        k2 += k * k
+    return k2 * phi, phi
+
+
+def fill_heavi(spec: GridSpec, d: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Square-wave fixture along dim ``d`` (gFillHeavi/gFillHeaviSol,
+    src/grid.c:1350-1475): rho = +1 on the first half, -1 on the second,
+    0 at the two transition planes; phi_exact is the piecewise parabola
+    0.5*(L/2 - x)*x mirrored, the 1D solution of phi'' = -rho (constant
+    along the other dims)."""
+    L = spec.global_size
+    n = L[d]
+    half = n // 2
+    x = np.arange(n, dtype=np.float64)
+    rho1 = np.where(x < half, 1.0, -1.0)
+    rho1[0] = 0.0
+    rho1[half] = 0.0
+    sol1 = np.where(x < half, 0.5 * (half - x) * x,
+                    -0.5 * (half - (x - half)) * (x - half))
+    shape = [1] * spec.n_dims
+    shape[d] = n
+    rho = np.broadcast_to(rho1.reshape(shape), L).copy()
+    phi = np.broadcast_to(sol1.reshape(shape), L).copy()
+    return rho, phi
+
+
+def fill_point(spec: GridSpec,
+               value: float = -1e2) -> Tuple[np.ndarray, np.ndarray]:
+    """Point charge at the grid center (gFillPoint/gFillPointSol,
+    src/grid.c:1496-1560): rho = value at the center node, phi_exact the
+    vacuum Green's function 1/r (the reference's qualitative fixture —
+    unnormalized, 0 at the singular node)."""
+    L = spec.global_size
+    center = tuple(l // 2 for l in L)
+    rho = np.zeros(L, dtype=np.float64)
+    rho[center] = value
+    axes = [np.arange(l, dtype=np.float64) - c for l, c in zip(L, center)]
+    mesh = np.meshgrid(*axes, indexing="ij")
+    r = np.sqrt(sum(m * m for m in mesh))
+    with np.errstate(divide="ignore"):
+        phi = np.where(r > 1e-5, 1.0 / np.maximum(r, 1e-5), 0.0)
+    return rho, phi
+
+
+def fill_exp(spec: GridSpec) -> np.ndarray:
+    """Gaussian bump exp(-10 |x - L/2|^2 / L^2) (gFillExp,
+    src/grid.c:1686-1716); no closed-form solution in the reference."""
+    L = spec.global_size
+    axes = [np.arange(l, dtype=np.float64) for l in L]
+    mesh = np.meshgrid(*axes, indexing="ij")
+    half = L[0] / 2
+    norm = 1.0 / (L[0] * L[0])
+    r2 = sum((m - half) ** 2 * norm for m in mesh)
+    return np.exp(-10.0 * r2)
+
+
+def fill_rng(spec: GridSpec, seed: int = 0) -> np.ndarray:
+    """Unit-gaussian noise field (gFillRng, src/grid.c:1718-1727)."""
+    return np.random.default_rng(seed).standard_normal(spec.global_size)
+
+
+def fill_cst(spec: GridSpec, value: float = 1.0) -> np.ndarray:
+    """Constant field (gFillCst, src/grid.c:1729-1739)."""
+    return np.full(spec.global_size, value, dtype=np.float64)
+
+
+def fill_polynomial(spec: GridSpec) -> Tuple[np.ndarray, np.ndarray]:
+    """x^2 along the first dim (gFillPolynomial, src/grid.c:1477-1494),
+    paired with its exact FD laplacian (constant 2) for transfer-operator
+    tests."""
+    L = spec.global_size
+    shape = [1] * spec.n_dims
+    shape[0] = L[0]
+    x2 = (np.arange(L[0], dtype=np.float64) ** 2).reshape(shape)
+    phi = np.broadcast_to(x2, L).copy()
+    lap = np.full(L, 2.0)
+    return phi, lap
+
+
+#: fixture registry for mgModeErrorScaling — name -> (rho, phi_exact)
+#: builder; names match the reference's gFill* family
+FILL_FIXTURES = {
+    "sin": fill_sin,
+    "sindirichlet": fill_sin_dirichlet,
+    "heavi": fill_heavi,
+    "point": fill_point,
+}

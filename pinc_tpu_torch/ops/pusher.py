@@ -37,6 +37,42 @@ def move(p: Particles, L: Sequence[int], periodic: bool = True) -> Particles:
     return Particles(cell=cell, frac=frac, vel=p.vel, alive=p.alive)
 
 
+def reflect(p: Particles, L: Sequence[int],
+            bounded: Optional[Sequence[bool]] = None) -> Particles:
+    """Elastic specular reflection at non-periodic walls: the physical
+    domain is [0, L-1] (node extent); positions fold back and the normal
+    velocity flips on an odd number of bounces, however many one step
+    makes.  (The reference declares pReflect but leaves it unimplemented,
+    src/population.c:468-495.)  bounded: per-dim mask (default: all);
+    mixed decks wrap their periodic dims."""
+    dt, dev = p.frac.dtype, p.frac.device
+    hi = torch.tensor([n - 1 for n in L], dtype=dt, device=dev)
+    pos = p.cell.to(dt) + p.frac
+    # fold into [0, 2*hi), then reflect the upper half
+    period = 2.0 * hi
+    pos_m = torch.remainder(pos, period)
+    pos_r = torch.where(pos_m > hi, period - pos_m, pos_m)
+    flip = torch.remainder(torch.floor(pos / hi).to(torch.int32), 2) != 0
+    vel = torch.where(flip, -p.vel, p.vel)
+    every = bounded is None or all(bounded)
+    if not every:
+        bmask = torch.tensor(list(bounded), device=dev)
+        Lf = torch.tensor(list(L), dtype=dt, device=dev)
+        pos_r = torch.where(bmask, pos_r, torch.remainder(pos, Lf))
+        vel = torch.where(bmask, vel, p.vel)
+    cell = torch.floor(pos_r).to(p.cell.dtype)
+    frac = pos_r - cell.to(dt)
+    cmax = [n - 2 for n in L] if every else [
+        n - 2 if b else n - 1 for n, b in zip(L, bounded)]
+    cell = torch.minimum(torch.clamp(cell, min=0), torch.tensor(
+        cmax, dtype=cell.dtype, device=dev))
+    at_wall = cell.to(dt) + frac > hi
+    if not every:
+        at_wall = at_wall & bmask
+    frac = torch.where(at_wall, torch.ones_like(frac), frac)
+    return Particles(cell=cell, frac=frac, vel=vel, alive=p.alive)
+
+
 def _chunks(n: int, chunk: int):
     """Slices covering range(n) in pieces of ``chunk`` (one piece when
     chunk is 0 or >= n)."""

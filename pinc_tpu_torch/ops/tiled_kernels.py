@@ -199,13 +199,15 @@ def _cross(a: Sequence[torch.Tensor], b: Sequence[float]):
 
 def kick_planes(vs, Ecs, qm: float, boris=None):
     """pallas_tiled._kick_rows on planes: the leapfrog kick with
-    vdot = v.(v+dv), or (boris = (T, S) float 3-tuples) the Boris rotation
-    with vdot = |v_plus|^2 (puAcc3D1KE / puBoris3D1KE,
+    vdot = v.(v+dv) (any number of components), or (boris = (T, S)
+    float 3-tuples) the Boris rotation with vdot = |v_plus|^2 (puAcc3D1KE / puBoris3D1KE,
     src/pusher.c:197-210, 465-471).  Returns (new velocities, unmasked;
     vdot)."""
     if boris is None:
-        outs = [vs[c] + qm * Ecs[c] for c in range(3)]
-        vdot = vs[0] * outs[0] + vs[1] * outs[1] + vs[2] * outs[2]
+        outs = [v + qm * e for v, e in zip(vs, Ecs)]
+        vdot = vs[0] * outs[0]
+        for v, o in zip(vs[1:], outs[1:]):
+            vdot = vdot + v * o
         return outs, vdot
     T, S = boris
     half = [(0.5 * qm) * Ecs[c] for c in range(3)]

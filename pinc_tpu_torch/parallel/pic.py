@@ -4,9 +4,9 @@
 
 from __future__ import annotations
 
-from ..config import PincConfig, required_np
+from ..config import PincConfig
 from ..population import capacity_of
-from ..simulation import _TODO, Simulation
+from ..simulation import Simulation, check_single_device
 from ..utils.logging import STATUS, msg
 
 # Above this many particle slots (capacity x species) the flat layout's
@@ -20,10 +20,7 @@ def make_simulation(cfg: PincConfig, seed: int = 1,
     """Tiled layout when methods:layout = tiled, or automatically for decks
     too big for the flat working set; plain single-block otherwise.
     device: the CUDA card by default, or e.g. "cpu"."""
-    if required_np(cfg) > 1:
-        raise NotImplementedError(
-            f"grid:nSubdomains > 1 (the multi-device layer, parallel/) is "
-            f"{_TODO}")
+    check_single_device(cfg, "a run")
     layout = cfg.get_str("methods:layout", "").lower()
     tiled = layout == "tiled"
     slots = capacity_of(cfg) * cfg.get_int("population:nspecies")

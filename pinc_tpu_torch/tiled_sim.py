@@ -2,12 +2,20 @@
 counterpart of ``pinc_tpu/tiled_sim.py``).
 
 Same physics as :class:`Simulation`, but particles live in per-tile buckets
-(``ops/tiled.py``) as component planes, and every step runs the fused
-kernels of ``ops/tiled_kernels.py``: per species ``deposit_move`` (drift,
-margin count, deposit), then the fold, the FFT solve and E = -grad(phi),
-then per species ``gather_kick`` (gather, kick, KE sum).  The half kick
-runs ``deposit`` and ``gather``.  On CUDA tensors these are the
-hand-written kernels, on CPU tensors their plain versions.
+(``ops/tiled.py``) as component planes.  On a periodic 3-D deck every step
+runs the fused kernels of ``ops/tiled_kernels.py``: per species
+``deposit_move`` (drift, margin count, deposit), then the fold, the solve
+and E = -grad(phi), then per species ``gather_kick`` (gather, kick, KE
+sum).  A deck with bounded walls (``grid:boundaries`` DIRICHLET or
+NEUMANN) takes pinc_tpu's unfused step: the drift, the walls' reflection
+on the tile-local planes, the margin count, ``deposit`` per species, the
+fold, the solve, the BC-aware E = -grad(phi), then ``gather`` and the
+kick.  The half kick runs ``deposit`` and ``gather``.  On CUDA tensors
+these are the hand-written kernels, on CPU tensors their plain versions.
+The kernels are 3-D: 1-D and 2-D decks take pinc_tpu's route for them, the
+unfused step on the plain tiled deposit, fold and gather of
+``ops/tiled.py`` and the sort re-bucket, where no kernel runs (nor does a
+Pallas kernel in pinc_tpu).
 
 Deck knobs, section ``[tiles]``: ``tileSize`` (default 8), ``margin``
 (default 1 when the velocity scale allows a re-bucket cadence >= 4, else
@@ -23,27 +31,34 @@ kernels (K11, ``ops/onehot_exchange.py``).  ``tiles:rebucket = sort``
 selects the stable sort of ``ops/tiled.bucket`` instead.
 
 ``make_scan_steps(n)`` is the production long-run path (the counterpart of
-pinc_tpu's ``make_scan_steps``): n steps with the per-species re-bucket schedule
-applied between them, no host sync inside the window.  By default
-(``tiles:mega``, true) each step is one K5 ``pic_step`` for every species
-(gather with the previous step's field, kick, drift, deposit), then the
-K7 fold, the FFT solve and the K6 E tiles (``ops/field_kernels.py``); on
-decks with margin >= 2 and ``fresh=True`` the steps run at the per-step
-margin schedule (``tiles:marginSchedule``, true).  ``tiles:mega = false``
-scans the kernel-pair step of ``run()``.
+pinc_tpu's ``make_scan_steps``): n steps with the per-species re-bucket
+schedule applied between them, no host sync inside the window with the
+FFT solve (an ``mgSolve`` deck makes one a V-cycle, to test the
+tolerance).  On a periodic 3-D deck by default (``tiles:mega``, true)
+each step is one K5 ``pic_step`` for every species (gather with the
+previous step's field, kick, drift, deposit), then the K7 fold, the solve
+and the K6 E tiles (``ops/field_kernels.py``); on decks with margin >= 2
+and ``fresh=True`` the steps run at the per-step margin schedule
+(``tiles:marginSchedule``, true).  ``tiles:mega = false``, and every deck
+the fused kernels do not serve, scans the step of ``run()``.
 
 ``tiles:backend`` is read as pinc_tpu reads it.  ``pallas`` (the port's
-default on every device) is the route above.  Any other value is pinc_tpu's
-XLA route: the window scans ``run()``'s step (no mega body, no margin
-schedule) and the weights are f32 whatever ``tiles:mxuDtype`` says, as
-pinc_tpu's XLA deposit and gather are; the kernels that compute it are the
-same.  ``tiles:gather`` (pinc_tpu's choice between two XLA gathers of the
-same field) is accepted and ignored.
+default on every device for 3-D decks; 1-D and 2-D decks default to
+``xla``, as in pinc_tpu) is the route above.  Any other value is
+pinc_tpu's XLA route: the unfused step (on a 3-D deck with ``deposit`` and
+``gather`` at f32 weights whatever ``tiles:mxuDtype`` says, as pinc_tpu's
+XLA deposit and gather are), and the window scans it (no mega body, no
+margin schedule).  ``tiles:gather`` (pinc_tpu's choice between two XLA
+gathers of the same field) is accepted and ignored.
+
+``methods:debug`` checks the invariants after every step of ``run()``
+(speed under ``population:maxVel``, every particle inside its tile's
+margin, a neutral grid on periodic decks) and raises ``PincError``.
 
 ``run(writer)`` writes the deck's output (``io_h5.OutputWriter``) and
 checkpoints as pinc_tpu's does; a tiled checkpoint holds the tile planes
 verbatim and what ``retune`` set, so a resumed run is the uninterrupted
-one bit for bit.  Decks with bounded walls or objects are refused.
+one bit for bit.  Decks with objects are refused.
 """
 
 from __future__ import annotations
@@ -57,7 +72,7 @@ import numpy as np
 import torch
 
 from .config import PincConfig
-from .grid import gradient, potential_energy
+from .grid import potential_energy
 from .ops import exchange as ex
 from .ops import field_kernels as fk
 from .ops import gather_exchange as gx
@@ -65,8 +80,8 @@ from .ops import onehot_exchange as ox
 from .ops import tiled as tl
 from .ops import tiled_kernels as tk
 from .population import Particles
-from .simulation import _TODO, Diagnostics, Simulation, StepOutput, _stack
-from .utils.logging import STATUS, TIMER, WARNING, msg
+from .simulation import Diagnostics, Simulation, StepOutput, _stack
+from .utils.logging import ERROR, STATUS, TIMER, WARNING, msg
 
 
 @dataclass
@@ -85,10 +100,6 @@ class TiledSimulation(Simulation):
 
     def __init__(self, cfg: PincConfig, seed: int = 1, device=None):
         nd = cfg.get_int("grid:ndims")
-        if nd != 3:
-            raise NotImplementedError(
-                f"methods:layout=tiled on a {nd}-D deck is {_TODO}: the "
-                f"tiled port covers 3-D decks (use methods:layout=flat)")
         super().__init__(cfg, seed=seed, device=device)
         # physics-method routing: the kernels honor the same deck
         # selections as the flat path through the registry closures'
@@ -166,7 +177,8 @@ class TiledSimulation(Simulation):
         self.ts.validate()
 
         # re-bucket: the exchange (pinc_tpu's 3-D default) or the sort
-        self._rebucket_mode = cfg.get_str("tiles:rebucket", "exchange").lower()
+        self._rebucket_mode = cfg.get_str(
+            "tiles:rebucket", "exchange" if nd == 3 else "sort").lower()
         # per-face transfer capacity: the mean leavers per face over one
         # cadence is ~1% of ppt at M=1; ppt*M/(8T) is ~1.5x that mean with
         # +5 Poisson sigmas of head room (overflow is counted as drops)
@@ -190,13 +202,20 @@ class TiledSimulation(Simulation):
             self.rebucket_every = min(self.rebucket_every_s)
         # tiles:backend as pinc_tpu reads it: "pallas" is its fused-kernel
         # route (bf16 weights where tiles:mxuDtype asks, the mega scan
-        # body, the margin schedule); any other value its XLA route, whose
-        # steps are run()'s in-step kick order with f32 weights.  The
-        # default is "pallas" on every device (pinc_tpu's is "xla" on its
-        # CPU): the CPU runs the pallas route's plain versions.
-        # tiles:gather only picks one of two XLA gathers of the same field
-        # in pinc_tpu; it is read and ignored.
-        self._backend = cfg.get_str("tiles:backend", "pallas").lower()
+        # body, the margin schedule); any other value its XLA route, the
+        # unfused step with f32 weights.  The default on 3-D decks is
+        # "pallas" on every device (pinc_tpu's is "xla" on its CPU): the
+        # CPU runs the pallas route's plain versions.  1-D and 2-D decks
+        # default to "xla", as in pinc_tpu; the kernels and the exchange
+        # are 3-D.  tiles:gather only picks one of two XLA gathers of the
+        # same field in pinc_tpu; it is read and ignored.
+        self._backend = cfg.get_str("tiles:backend",
+                                    "pallas" if nd == 3 else "xla").lower()
+        if nd != 3 and (self._backend == "pallas"
+                        or self._rebucket_mode == "exchange"):
+            raise ValueError(
+                f"tiles:backend=pallas and tiles:rebucket=exchange need a "
+                f"3-D deck (grid:nDims = {nd}); leave both keys unset")
         self._gather_mode = cfg.get_str("tiles:gather", "mxu").lower()
         self._mxu_dtype = (torch.bfloat16 if self._backend == "pallas"
                            and cfg.get_str("tiles:mxudtype", "f32").lower()
@@ -322,7 +341,7 @@ class TiledSimulation(Simulation):
             return False
         ks = ox.default_row_cap(self._exchange_cap, B)
         free_per_row = (B - ppt) / 8.0
-        if gx.supported(B):
+        if gx.supported(B) and self.ts.n_dims == 3:
             return 8 * free_per_row >= 2 * gx.round_cap(ks)
         return free_per_row >= 2 * ks
 
@@ -424,11 +443,21 @@ class TiledSimulation(Simulation):
     def _deposit_rho(self, st: TiledState) -> torch.Tensor:
         """Deposit every species with K1, sum the padded blocks, fold once
         (K7).  A species' values are q_s or 0, so |q_s| bounds them (no
-        host sync for the kernel's fixed-point grid)."""
+        host sync for the kernel's fixed-point grid).  1-D and 2-D decks:
+        the plain tiled deposit and fold of ops/tiled.py per species."""
+        if self.ts.n_dims != 3:
+            rho = None
+            for s in range(st.lpos.shape[0]):
+                r = tl.deposit_tiled(st.lpos[s].permute(1, 2, 0),
+                                     st.alive[s] > 0.5, self._charge[s],
+                                     self.ts, order=self._distr_order)
+                rho = r if rho is None else rho + r
+            return rho.to(self.spec.dtype)
         tiles = None
         for s in range(st.lpos.shape[0]):
             value = torch.where(st.alive[s] != 0,
-                                torch.tensor(self._charge[s], device=self.device),
+                                torch.tensor(self._charge[s],
+                                             device=self.device),
                                 torch.zeros((), device=self.device))
             t = tk.deposit(st.lpos[s], value, self.ts,
                            mxu_dtype=self._mxu_dtype, order=self._distr_order,
@@ -439,14 +468,23 @@ class TiledSimulation(Simulation):
     def _fields(self, st: TiledState):
         rho = self._deposit_rho(st)
         phi = self.solver(rho)
-        return rho, phi, -gradient(phi)
+        return rho, phi, self._efield(phi)
 
     def _field_tiles(self, E: torch.Tensor) -> torch.Tensor:
         """E (X, Y, Z, 3) -> contiguous padded tiles (NT, P, P, P, 3) f32."""
         return tl.pad_tiles(E, self.ts).float().contiguous()
 
+    def _gather(self, E_pad: torch.Tensor, lpos: torch.Tensor):
+        """E at one species' slots, (D, NT, B): K3, or on 1-D and 2-D decks
+        the plain tiled gather of ops/tiled.py."""
+        if self.ts.n_dims != 3:
+            return tl.gather_tiled(E_pad, lpos.permute(1, 2, 0), self.ts,
+                                   order=self._acc_order).permute(2, 0, 1)
+        return tk.gather(E_pad, lpos, self.ts, mxu_dtype=self._mxu_dtype,
+                         order=self._acc_order)
+
     def _kick(self, st: TiledState, E: torch.Tensor, half: bool):
-        """Velocity kick on the tile planes: gather E(x) with K3, add any
+        """Velocity kick on the tile planes: gather E(x) (K3), add any
         external E, then the electrostatic kick or the Boris rotation of
         tk.kick_planes, which K4's plain version shares
         (puAcc*/puBoris3D1[KE], src/pusher.c:147-505).  half=True is the
@@ -456,14 +494,14 @@ class TiledSimulation(Simulation):
         e_scale = 0.5 if half else 1.0
         if half:
             E_pad = 0.5 * E_pad
+        D = self.ts.n_dims
         vels, kes = [], []
         for s in range(st.lpos.shape[0]):
-            Ep = tk.gather(E_pad, st.lpos[s], self.ts,
-                           mxu_dtype=self._mxu_dtype, order=self._acc_order)
+            Ep = self._gather(E_pad, st.lpos[s])
             Ecs = [Ep[c] if self._e_ext is None
-                   else Ep[c] + e_scale * self._e_ext[c] for c in range(3)]
+                   else Ep[c] + e_scale * self._e_ext[c] for c in range(D)]
             v = st.vel[s]
-            outs, v_dot = tk.kick_planes([v[c] for c in range(3)], Ecs,
+            outs, v_dot = tk.kick_planes([v[c] for c in range(D)], Ecs,
                                          self._qm[s], self._boris(s))
             alive = st.alive[s] != 0
             v_dot = torch.where(alive, v_dot, torch.zeros_like(v_dot))
@@ -483,6 +521,55 @@ class TiledSimulation(Simulation):
         bad = (((st.lpos < lo) | (st.lpos >= hi)).any(dim=1)
                & (st.alive > 0.5))
         return bad.sum().to(torch.int32)
+
+    def _reflect_walls(self, st: TiledState) -> TiledState:
+        """Specular reflection at the bounded global walls, on the
+        tile-local planes (ops/pusher.reflect's fold per bounded dim).
+        Deposits and gathers never cross a bounded wall (the hat weights
+        vanish one cell out, and the fold keeps every position in
+        [0, L-1]), so the periodic tile machinery needs no other change:
+        the wrap planes at a bounded edge only ever carry zeros."""
+        origins = tl.tile_origins(self.ts, self.device)        # (NT, D)
+        lpos, vel = st.lpos.clone(), st.vel.clone()
+        for d, bounded in enumerate(self._bounded_dims):
+            if not bounded:
+                continue
+            hi = float(self.ts.grid[d] - 1)
+            org = origins[:, d][None, :, None]                 # (1, NT, 1)
+            g = lpos[:, d] + org                               # (S, NT, B)
+            period = 2.0 * hi
+            g_m = torch.remainder(g, period)
+            g_r = torch.where(g_m > hi, period - g_m, g_m)
+            flip = torch.remainder(torch.floor(g / hi).to(torch.int32),
+                                   2) != 0
+            lpos[:, d] = g_r - org
+            vel[:, d] = torch.where(flip, -vel[:, d], vel[:, d])
+        return TiledState(lpos=lpos, vel=vel, alive=st.alive)
+
+    def _tiled_step(self, st: TiledState):
+        """One step of run(): the fused kernel pairs where they serve the
+        deck (_use_fused), else pinc_tpu's unfused sequence: drift, the
+        walls' reflection, the margin count, the fields (K1 per species,
+        K7, solve, E) and the kick (K3)."""
+        if self._use_fused:
+            return self._tiled_step_fused(st)
+        st = TiledState(lpos=st.lpos + st.vel, vel=st.vel, alive=st.alive)
+        if not self.spec.periodic:
+            st = self._reflect_walls(st)
+        n_out = self._out_of_margin(st)
+        rho, phi, E = self._fields(st)
+        st, ke = self._kick(st, E, half=False)
+        return st, rho, phi, E, Diagnostics(
+            kin_energy=ke, pot_energy=potential_energy(rho, phi),
+            n_lost=n_out)
+
+    @property
+    def _use_fused(self) -> bool:
+        """The fused kernel pairs (K2 deposit_move, K4 gather_kick): the
+        periodic pallas route, as in pinc_tpu (bounded walls hook in
+        between the drift and the deposit, so those decks take the
+        unfused step)."""
+        return self._backend == "pallas" and self.spec.periodic
 
     def _tiled_half_kick(self, st: TiledState):
         rho, phi, E = self._fields(st)
@@ -509,7 +596,7 @@ class TiledSimulation(Simulation):
         rho = fk.fold_global(tiles, self.ts).to(self.spec.dtype)
         del tiles
         phi = self.solver(rho)
-        E = -gradient(phi)
+        E = self._efield(phi)
         ep5 = self._field_tiles(E)
         vels, kes = [], []
         for s in range(S):
@@ -539,12 +626,12 @@ class TiledSimulation(Simulation):
         writer.write_energy(n, ke, pe)
 
     def run(self, writer=None, progress_every: int = 10):
-        """Half kick (skipped on a resumed run), then the fused steps up
-        to nTimeSteps with the per-species re-bucket schedule (and an
-        early re-bucket of every species when particles reach the margin),
-        the writer's (io_h5 OutputWriter) callbacks and the checkpoints.
-        Returns the energy histories, the wall time, the host time of each
-        step, and the drop and margin counts."""
+        """Half kick (skipped on a resumed run), then the steps up to
+        nTimeSteps with the per-species re-bucket schedule (and an early
+        re-bucket of every species when particles reach the margin), the
+        writer's (io_h5 OutputWriter) callbacks, the methods:debug guards
+        and the checkpoints.  Returns the energy histories, the wall time,
+        the host time of each step, and the drop and margin counts."""
         t_start = time.monotonic()
         ke_hist, pe_hist = [], []
         if self._resumed:
@@ -558,9 +645,11 @@ class TiledSimulation(Simulation):
                             pe_hist[0])
         step_seconds = []
         total_dropped = total_lost = 0
+        debug = self.cfg.get_bool("methods:debug", False)
+        max_vel = self.cfg.get_double("population:maxvel", 0.0)
         for n in range(self.start_step + 1, self.n_time_steps + 1):
             t0 = time.monotonic()
-            st, rho, phi, E, diag = self._tiled_step_fused(st)
+            st, rho, phi, E, diag = self._tiled_step(st)
             due = [s for s, R in enumerate(self.rebucket_every_s)
                    if n % R == 0]
             lost = int(diag.n_lost)
@@ -584,6 +673,8 @@ class TiledSimulation(Simulation):
             pe_hist.append(pe)
             if writer is not None:
                 self._write(writer, n, st, (rho, phi, E), diag, ke, pe)
+            if debug:
+                self._assert_invariants_tiled(st, rho, n, max_vel)
             if self.checkpoint_every and n % self.checkpoint_every == 0:
                 from . import checkpoint as _ckpt
                 _ckpt.save_tiled(self.cfg, n, st, self.tuning())
@@ -605,15 +696,41 @@ class TiledSimulation(Simulation):
                 "wall_time": wall, "step_seconds": np.asarray(step_seconds),
                 "dropped": total_dropped, "n_lost": total_lost}
 
+    def _assert_invariants_tiled(self, st: TiledState, rho: torch.Tensor,
+                                 n: int, max_vel: float) -> None:
+        """methods:debug guards on the tiled state, the invariants of
+        Simulation._assert_invariants (pVelAssertMax /
+        pPosAssertInLocalFrame / gAssertNeutralGrid,
+        src/population.c:316-365, src/grid.c:862-869) without converting
+        to the flat layout; raise PincError."""
+        alive = st.alive > 0.5                               # (S, NT, B)
+        if max_vel > 0.0 and bool(alive.any()):
+            vmax = float(st.vel.abs().amax(dim=1)[alive].max())
+            if vmax > max_vel:
+                msg(ERROR, "step %d: particle speed %g exceeds "
+                    "population:maxVel=%g", n, vmax, max_vel)
+        lo, hi = -float(self.ts.M), float(self.ts.T + self.ts.M)
+        bad = int((((st.lpos < lo) | (st.lpos >= hi)).any(dim=1)
+                   & alive).sum())
+        if bad:
+            msg(ERROR, "step %d: %d particle(s) outside the tile margin "
+                "[%g, %g)", n, bad, lo, hi)
+        if self.spec.periodic:
+            mean = float(rho.double().mean())
+            gross = self._gross_density(alive.sum(dim=(1, 2)))
+            if abs(mean) > 1e-4 * gross:
+                msg(ERROR, "step %d: grid not charge-neutral (mean %g vs "
+                    "gross charge density %g)", n, mean, gross)
+
     # --------------------------------------------------------------- scan
     @property
     def _use_mega(self) -> bool:
         """The mega-fused scan body (K5 pic_step: every species' kick,
-        drift and deposit in one kernel a step), on the pallas backend.
-        Scan path only: the kick uses the previous step's field, so run()
-        keeps the reference's in-step kick ordering."""
-        return (self._backend == "pallas"
-                and self.cfg.get_bool("tiles:mega", True))
+        drift and deposit in one kernel a step), where the fused kernels
+        serve the deck and tiles:mega is not false.  Scan path only: the
+        kick uses the previous step's field, so run() keeps the
+        reference's in-step kick ordering."""
+        return self._use_fused and self.cfg.get_bool("tiles:mega", True)
 
     def _rebucket_schedule(self, n: int):
         """step -> species due, from the per-species cadences."""
@@ -760,21 +877,23 @@ class TiledSimulation(Simulation):
                         fresh: bool = False):
         """A window of n steps with the per-species re-bucket schedule
         applied between them.  Returns run_n(st) -> (state, (ke (n, S),
-        pe (n,), dropped)), every number left on the device: the window
-        makes no host sync.  donate=True lets the window update st's
-        tensors in place (st is consumed); with donate=False st is left as
-        it was.  fresh=True asserts that every species of st is freshly
-        re-bucketed (true after the initial bucketing, and after a window
-        whose n is a multiple of every cadence): on margin >= 2 decks with
-        n a multiple of the fast cadence, the mega path then runs the
-        per-step margin schedule.  run_n.plan is the window's sequence of
+        pe (n,), dropped)), every number left on the device.  With the FFT
+        solve the window makes no host sync; an mgSolve deck makes one a
+        V-cycle (the multigrid reads its residual on the host to test the
+        tolerance).  donate=True lets the window update st's tensors in
+        place (st is consumed); with donate=False st is left as it was.
+        fresh=True asserts that every species of st is freshly re-bucketed
+        (true after the initial bucketing, and after a window whose n is a
+        multiple of every cadence): on margin >= 2 decks with n a multiple
+        of the fast cadence, the mega path then runs the per-step margin
+        schedule.  run_n.plan is the window's sequence of
         steps and re-bucket events."""
         if self._use_mega:
             return self._make_scan_steps_mega(n, donate, fresh)
         plan = self._plan_generic(n)
 
         def body(carry, margins):
-            st, rho, phi, E, diag = self._tiled_step_fused(carry[0])
+            st, rho, phi, E, diag = self._tiled_step(carry[0])
             return (st,), (diag.kin_energy, diag.pot_energy)
 
         def run_n(st: TiledState):

@@ -5,8 +5,9 @@ pinc_tpu reads tiles:backend (pinc_tpu/tiled_sim.py:224-228): "pallas"
 takes its fused kernels, the mega scan body and the margin schedule; any
 other value ("xla") the unfused XLA step, f32 weights whatever
 tiles:mxuDtype says, and a scan over run()'s in-step kick order.  The port
-reads it the same way, and runs the XLA route with its kernel pairs (K2/K4
-in run() and in the scan window, K1/K3 in the half kick) at f32 weights.
+reads it the same way, and runs the XLA route as pinc_tpu's unfused step
+(the drift, then K1 and K7, the solve, K3 and the kick, in run() and in
+the scan window) at f32 weights.
 
 * The XLA route as a whole: a 16^3 deck (T = 4, M = 2, two species, the
   sort re-bucket, tiles:mxuDtype = bf16, which the XLA route ignores), the
@@ -111,7 +112,7 @@ def _check_init(sim, jsim):
 def test_xla_scan_window_matches_pinc_tpu():
     """The window on the XLA route: pinc_tpu scans its unfused step with
     the generic re-bucket schedule even with fresh=True; so does the port,
-    with its kernel pairs at f32 weights."""
+    with its unfused step at f32 weights."""
     jsim = _force_cadences(JTiledSimulation(
         JConfig.from_string(_deck("xla")), seed=3))
     assert jsim._backend == "xla" and not jsim._use_mega
@@ -135,7 +136,7 @@ def test_xla_scan_window_matches_pinc_tpu():
 
 def test_xla_run_matches_pinc_tpu():
     """run() on the XLA route: pinc_tpu's unfused step against the port's
-    K2/K4 sequence, both with f32 weights."""
+    (K1 and K3), both with f32 weights."""
     deck = _deck("xla", "rebucketEvery = 2\n")
     jsim = JTiledSimulation(JConfig.from_string(deck), seed=3)
     assert not jsim._use_fused

@@ -27,7 +27,9 @@ deposits and within 1e-5 of max|plain| for the gathers; its exchange
 primitives (ops/kbench_prims.py: take, roll, plane_add, lane_prefix) bit
 pattern for bit pattern, NaN and INT32_MIN fills included.  The slice and
 the scan on the card vs the CPU: energies rtol 1e-4 and state atol 1e-4
-(cuFFT vs pocketfft and atomic-order sums, over 6 or 8 steps)."""
+(cuFFT vs pocketfft and atomic-order sums, over 6 or 8 steps).  The
+multigrid solve on the card vs the CPU: the same cycle count, phi atol
+1e-4 of max|phi|, the final residual rtol 1e-3."""
 
 import numpy as np
 import pytest
@@ -1381,3 +1383,66 @@ def test_scan_on_the_card_matches_cpu(cuda, mega, fresh):
                                rtol=0, atol=1e-4)
     np.testing.assert_allclose(s_g.vel.cpu().numpy(), s_c.vel.numpy(),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walls", ["periodic", "dirichlet", "neumann_x"])
+def test_multigrid_on_the_card_matches_cpu(cuda, walls):
+    """solvers/multigrid.py on the card against the same solve on the CPU
+    (16^3, 3 levels): the same cycle count (the tolerance is tested on the
+    host after each cycle), phi within 1e-4 of max|phi|."""
+    from pinc_tpu_torch.bc import BCSpec
+    from pinc_tpu_torch.grid import BndType
+    from pinc_tpu_torch.solvers.multigrid import MultigridSolver
+    P, D, N = BndType.PERIODIC, BndType.DIRICHLET, BndType.NEUMANN
+    zero = (0.0,) * 3
+    bc = {"periodic": None,
+          "dirichlet": BCSpec((D,) * 3, (D,) * 3, zero, zero),
+          "neumann_x": BCSpec((N, P, P), (N, P, P), zero, zero)}[walls]
+    rho = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (16, 16, 16)).astype(np.float32))
+    kw = dict(n_levels=3, n_pre=4, n_post=4, n_coarse=10, max_cycles=10,
+              tol=1e-4, bc=bc)
+    phi_c, n_c, r_c = MultigridSolver((16,) * 3, **kw).solve_with_stats(rho)
+    phi_g, n_g, r_g = MultigridSolver((16,) * 3, **kw).solve_with_stats(
+        rho.to(cuda))
+    assert phi_g.is_cuda and n_g == n_c
+    np.testing.assert_allclose(phi_g.cpu().numpy(), phi_c.numpy(), rtol=0,
+                               atol=1e-4 * float(phi_c.abs().max()))
+    np.testing.assert_allclose(float(r_g), float(r_c), rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walls", ["DIRICHLET", "NEUMANN"])
+def test_bounded_step_on_the_card(cuda, walls):
+    """Two steps of run() on the slice deck inside walls (zero values,
+    mgSolve), on the card and on the CPU: the unfused step launches K1 and
+    K3 per species a step (and in the half kick) and K7 once a step, never
+    K2, K4 or K5; the state agrees as in test_slice_on_the_card_matches_cpu
+    and stays inside [0, L-1]."""
+    from pinc_tpu_torch.tiled_sim import TiledSimulation
+    deck = (DECK.replace("boundaries = PERIODIC",
+                         f"boundaries = {walls}\nbndValues = 0,0,0,0,0,0")
+            .replace("poisson = sSolve", "poisson = mgSolve")
+            .replace("nTimeSteps = 6", "nTimeSteps = 2")
+            + "mxuDtype = f32\n[multigrid]\nmgLevels = 2\nmgCycles = 4\n")
+    runs = {}
+    for dev in ("cpu", cuda):
+        for m in (tk, fk, gx, ox):
+            m.reset_launches()
+        sim = TiledSimulation(PincConfig.from_string(deck), seed=3, device=dev)
+        runs[str(dev)] = (sim.run(progress_every=0), sim,
+                          {**tk.LAUNCHES, **fk.LAUNCHES, **gx.LAUNCHES,
+                           **ox.LAUNCHES})
+    (h_cpu, s_cpu, _), (h_gpu, s_gpu, n_gpu) = runs.values()
+    assert not s_gpu._use_fused
+    assert {k: v for k, v in n_gpu.items() if v} == {
+        "deposit": 6, "gather": 6, "fold_global": 3}
+    np.testing.assert_allclose(h_gpu["kinetic"], h_cpu["kinetic"], rtol=1e-4)
+    assert torch.equal(s_gpu.state.alive.cpu(), s_cpu.state.alive)
+    np.testing.assert_allclose(s_gpu.state.lpos.cpu().numpy(),
+                               s_cpu.state.lpos.numpy(), rtol=0, atol=1e-4)
+    from pinc_tpu_torch.ops.tiled import tile_origins
+    g = (s_gpu.state.lpos + tile_origins(s_gpu.ts, cuda).T[None, :, :, None])
+    g = g.permute(1, 0, 2, 3)[:, s_gpu.state.alive > 0.5]       # (3, live)
+    assert float(g.min()) >= 0.0 and float(g.max()) <= 15.0

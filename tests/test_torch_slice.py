@@ -325,12 +325,7 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override, match", [
-    ("methods:mode=puModeInterp", "puModeInterp"),
     ("objects:objects=sphere.h5", "objects"),
-    ("grid:boundaries=DIRICHLET", "non-periodic"),
-    ("methods:poisson=mgSolve", "multigrid"),
-    ("methods:debug=true", "methods:debug"),
-    ("methods:mode=mgMode", "mgMode"),
     ("grid:nSubdomains=2,1,1", "nSubdomains"),
 ])
 def test_unported_features_raise(tmp_path, override, match):
@@ -338,6 +333,29 @@ def test_unported_features_raise(tmp_path, override, match):
     deck.write_text(_deck("f32"))
     with pytest.raises(NotImplementedError, match=match):
         main([str(deck), override], device="cpu")
+
+
+@pytest.mark.parametrize("overrides, result", [
+    (["methods:mode=puModeInterp"], "order_cic"),
+    (["grid:boundaries=DIRICHLET", "methods:poisson=mgSolve"], "kinetic"),
+    (["grid:boundaries=NEUMANN", "grid:bndValues=0,0,0,0,0,0",
+      "methods:poisson=mgSolve"], "kinetic"),
+    (["methods:poisson=mgSolve"], "kinetic"),
+    (["methods:debug=true", "population:maxVel=1"], "kinetic"),
+    (["methods:mode=mgMode", "methods:poisson=mgSolve"], "cycles"),
+])
+def test_ported_features_run(tmp_path, overrides, result):
+    """The deck features test_unported_features_raise pinned before bc.py,
+    the multigrid solver, the debug guards and the run modes were ported
+    now run on the CPU."""
+    deck = tmp_path / "deck.ini"
+    deck.write_text(_deck("f32"))
+    out = {}
+    assert main([str(deck), *overrides, "time:nTimeSteps=2"], out=out,
+                device="cpu") == 0
+    assert result in out
+    if result == "kinetic":
+        assert np.isfinite(out["kinetic"]).all() and out["dropped"] == 0
 
 
 @pytest.mark.parametrize("override, written", [
@@ -369,6 +387,8 @@ def test_no_jax_import():
         import pinc_tpu_torch.utils.timer
         import pinc_tpu_torch.io_h5, pinc_tpu_torch.spool
         import pinc_tpu_torch.checkpoint, pinc_tpu_torch.native
+        import pinc_tpu_torch.bc, pinc_tpu_torch.solvers.multigrid
+        import pinc_tpu_torch.pumodes
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pinc_tpu")]
         assert not bad, bad
