@@ -147,6 +147,29 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    under methods:debug = true and population:maxVel = 1 for 5 steps.
    Prints each deck's ms a step beside phase 3's and phase 5's with the
    FFT solve.
+9. Embedded objects (objects.py; the grids built in memory with
+   make_sphere and given to the factory as domain=, the card host having
+   no h5py).  9.1: the bench deck with a sphere of radius 16 at (64, 64,
+   64) (17,077 interior and 4,784 surface nodes, 243 of 4096 tiles near
+   it) and collisionType = absorb,absorb: the object set-up timed (the
+   Green's solve, building A, the float64 inversion), 20 steps of run()
+   through the factory (K1 and K3 per species and K7 every step and in
+   the half kick, the gather exchange at every species event, never K2,
+   K4, K5 or K6), nothing dropped, every number finite, the charge of the
+   particles and rho_obj conserved from the cull on within 1e-5 of the
+   gross charge, the object charge and potential negative; one object
+   step split by CUDA events; then make_scan_steps(20, donate=True) with
+   the same checks, and both ms a step beside phase 8's walled decks.
+   9.2: reflect,secondary (secondaries into the electrons) for 10 steps
+   with the same checks, the emitted count and the count with no free
+   slot.  9.3: input/sphereObject.ini (flat, mgSolve, 32^3, a sphere of
+   radius 4) for 5 steps on the card and on the port's CPU path, as
+   shipped and with adhere,backscatter: equal alive counts, rho_obj and
+   phi_c within the CPU tests' tolerances; one step and a solve timed.
+   9.4: that deck inside Dirichlet walls of zero value on the tiled
+   layout: the batched capacitance set-up (296 unit charges) timed, its
+   first batch's cycle counts against the CPU's, then 5 steps of run()
+   with 9.1's checks and every particle inside the walls.
 
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
@@ -2520,11 +2543,12 @@ def check_small_decks(cli_main, modules, card: str) -> None:
 
 
 def check_mg_and_walls(cli_main, modules, prod, card: str, run_ms: float,
-                       aux_ms: float) -> None:
+                       aux_ms: float) -> dict:
     """Phase 8: the multigrid solver, deck (a) (the bench deck solved by
     multigrid) through run() and the mega window, decks (b) and (c)
     (Dirichlet and Neumann walls) through run(), the run modes, the small
-    tiled decks and the bench deck under methods:debug."""
+    tiled decks and the bench deck under methods:debug.  Returns the
+    run() ms a step of decks (a)-(c)."""
     import torch
     check_multigrid(card)
     res = run_main_path(cli_main, modules, [], MG_STEPS,
@@ -2568,6 +2592,409 @@ def check_mg_and_walls(cli_main, modules, prod, card: str, run_ms: float,
           f"set-up ({card})", flush=True)
     del out
     torch.cuda.empty_cache()
+    return {"a": a_ms, **bounded}
+
+
+# -- phase 9: embedded objects ------------------------------------------------
+OBJ_CENTRE, OBJ_RADIUS = (64, 64, 64), 16   # the full-width sphere
+OBJ_NODES = (17077, 4784)     # its interior and surface nodes
+OBJ_NEAR_TILES = 243          # of 4096 tiles of 8^3
+OBJ_STEPS = 20                # run() and the window, absorb
+OBJ_RESP_STEPS = 10           # reflect,secondary
+SHIPPED_STEPS = 5             # input/sphereObject.ini, flat and walled
+SHIPPED_SPHERE = ((32, 32, 32), (16, 16, 16), 4)   # its header's grid
+SHIPPED_SURFACE = 296
+OBJ_CHARGE_RTOL = 1e-5        # charge conservation, of the gross charge
+OBJ_RHO_RTOL = 1e-5           # card vs CPU: rho_obj of max|rho_obj| (+
+OBJ_PHI_RTOL, OBJ_PHI_ATOL = 1e-4, 1e-7   # 1e-7 max|q|), phi_c
+
+
+def obj_deck(ctypes: str, extra: str = "") -> str:
+    """The bench deck with a sphere (given in memory as domain=) and the
+    responses, on the tiled layout."""
+    return (f"[objects]\nobjects = sphere128.grid.h5\ncollisionType = "
+            f"{ctypes}\n{extra}" + BENCH_DECK.replace(
+                "migrate = puExtractEmigrantsND",
+                "migrate = puExtractEmigrantsND\nlayout = tiled"))
+
+
+def obj_charge_total(sim, st, rho_obj, cull: bool = False):
+    """(sum_s q_s alive_s + sum(rho_obj), sum_s |q_s| alive_s) in float64
+    from a tiled state on the card; cull=True counts only the particles
+    the initial cull keeps (floor cell outside the object)."""
+    import torch
+    from pinc_tpu_torch.objects import _at, _cell_of
+    from pinc_tpu_torch.ops.tiled import tile_origins
+    org = tile_origins(sim.ts, st.lpos.device)
+    q = [float(v) for v in sim.params.charge]
+    total = gross = 0.0
+    for s in range(st.alive.shape[0]):
+        alive = st.alive[s] > 0.5
+        if cull:
+            g = (st.lpos[s] + org.T[:, :, None]).movedim(0, -1)
+            alive = alive & (_at(sim.objects.interior_id,
+                                 _cell_of(g, sim.ts.grid)) == 0)
+            del g
+        n = int(alive.sum())
+        total += q[s] * n
+        gross += abs(q[s]) * n
+    if rho_obj is not None:
+        total += float(rho_obj.double().sum())
+    return total, gross
+
+
+def obj_launch_check(label: str, launches: dict, S: int, steps: int,
+                     kick: int, events: int) -> dict:
+    """K1 and K3 per species a step (and in the half kick), K7 once a
+    step, the gather exchange at every species event; never K2, K4, K5
+    or K6."""
+    want = {"deposit": S * (steps + kick), "gather": S * (steps + kick),
+            "fold_global": steps + kick}
+    want.update({k: n * events for k, n in ROUTE_CALLS["gather"].items()
+                 if events})
+    got = {k: v for k, v in launches.items() if v}
+    check(got == want, f"{label}: launches {got}, expected {want}")
+    return got
+
+
+def obj_setup_text(sim, seconds: float) -> str:
+    su = sim.objects.setup
+    return (f"set-up {seconds:.2f} s (the solves {su['solve_s']:.3f} s, "
+            f"building A {su['matrix_s']:.3f} s, the float64 inversion "
+            f"{su['invert_s']:.3f} s)")
+
+
+def make_obj_sim(deck: str, dom, device, overrides=()):
+    """The factory (parallel/pic.py) on a deck text, the object grid given
+    as domain=; returns (sim, host seconds)."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.parallel.pic import make_simulation
+    cfg = PincConfig.from_string(deck)
+    for o in overrides:
+        k, v = o.split("=", 1)
+        cfg.set_str(k, v)
+    t0 = time.monotonic()
+    sim = make_simulation(cfg, device=device, domain=dom)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return sim, time.monotonic() - t0
+
+
+def obj_run(label: str, sim, modules, steps: int, card: str,
+            negative: bool) -> float:
+    """run() on an object deck on the card with phase 9's checks; returns
+    the mean ms a step (steps 2-n, re-buckets included)."""
+    import numpy as np
+    import torch
+    S = sim.state.alive.shape[0]
+    q0, gross = obj_charge_total(sim, sim.state, None, cull=True)
+    sim.n_time_steps = steps
+    for m in modules:
+        m.reset_launches()
+    hist = sim.run(progress_every=0)
+    torch.cuda.synchronize()
+    launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    events = launches["extract"]
+    scheduled = sum(steps // R for R in sim.rebucket_every_s)
+    check(events == scheduled or (events > scheduled and hist["n_lost"]),
+          f"{label}: {events} re-bucket events, {scheduled} scheduled")
+    got = obj_launch_check(label, launches, S, steps, 1, events)
+    st = sim.state
+    check(st.lpos.is_cuda and sim.rho_obj.is_cuda
+          and sim.objects.interior_id.is_cuda,
+          f"{label}: a tensor of the run left the card")
+    check(hist["dropped"] == 0, f"{label}: {hist['dropped']} dropped")
+    ke, pe = hist["kinetic"].sum(axis=1), hist["potential"]
+    finite = (all(math.isfinite(v) for v in list(ke) + list(pe))
+              and bool(torch.isfinite(sim.rho_obj).all())
+              and np_finite(sim.last_obj_potential))
+    check(finite and len(ke) == steps + 1, f"{label}: non-finite numbers")
+    total, _ = obj_charge_total(sim, st, sim.rho_obj)
+    check(abs(total - q0) <= OBJ_CHARGE_RTOL * gross,
+          f"{label}: charge {q0:.9g} after the cull -> {total:.9g} "
+          f"(gross {gross:.6g})")
+    q_obj = float(sim.objects.object_charge(sim.rho_obj)[0])
+    phi_c = float(sim.last_obj_potential[0])
+    if negative:
+        check(q_obj < 0.0 and phi_c < 0.0,
+              f"{label}: object charge {q_obj:.6g}, potential {phi_c:.6g}")
+    step_ms = float(np.mean(hist["step_seconds"][1:])) * 1e3
+    n_alive = int((st.alive > 0.5).sum())
+    print(f"phase 9 {label}: {steps} steps of run(); launches {got} "
+          f"({events} species re-bucket events, {hist['n_lost']} margin "
+          f"hits); state on cuda, {n_alive} alive, 0 dropped; charge "
+          f"{q0:.9g} after the cull -> {total:.9g} (|d| / gross "
+          f"{abs(total - q0) / gross:.2e}); object charge {q_obj:.6g}, "
+          f"potential {phi_c:.6g}; total energy {ke[0] + pe[0]:.9g} -> "
+          f"{ke[-1] + pe[-1]:.9g}; {step_ms:.3f} ms a step (mean of "
+          f"steps 2-{steps}, re-buckets included) ({card})", flush=True)
+    return step_ms
+
+
+def np_finite(x) -> bool:
+    import numpy as np
+    return x is not None and bool(np.isfinite(np.asarray(x)).all())
+
+
+def obj_window(label: str, sim, modules, steps: int, card: str) -> float:
+    """make_scan_steps(steps, donate=True) from the run's final state and
+    rho_obj, with phase 9's checks; returns ms a step."""
+    import torch
+    S = sim.state.alive.shape[0]
+    st = sim.state
+    q0, gross = obj_charge_total(sim, st, sim.rho_obj)
+    run_n = sim.make_scan_steps(steps, donate=True)
+    events = sum(len(a) for kind, a in run_n.plan if kind == "rebucket")
+    for m in modules:
+        m.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    (st, rho_obj), (ke, pe, dropped, phi_c) = run_n(st, sim.rho_obj)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    got = obj_launch_check(label, launches, S, steps, 0, events)
+    check(all(t.is_cuda for t in (st.lpos, rho_obj, ke, pe, phi_c)),
+          f"{label}: a tensor of the window left the card")
+    check(int(dropped) == 0, f"{label}: {int(dropped)} dropped")
+    check(bool(torch.isfinite(ke).all() and torch.isfinite(pe).all()
+               and torch.isfinite(phi_c).all()
+               and torch.isfinite(rho_obj).all())
+          and tuple(ke.shape) == (steps, S), f"{label}: non-finite numbers")
+    total, _ = obj_charge_total(sim, st, rho_obj)
+    check(abs(total - q0) <= OBJ_CHARGE_RTOL * gross,
+          f"{label}: charge {q0:.9g} -> {total:.9g} (gross {gross:.6g})")
+    q_obj = float(sim.objects.object_charge(rho_obj)[0])
+    check(q_obj < 0.0 and float(phi_c[-1, 0]) < 0.0,
+          f"{label}: object charge {q_obj:.6g}, potential "
+          f"{float(phi_c[-1, 0]):.6g}")
+    sim.state, sim.rho_obj = st, rho_obj
+    ms = wall / steps * 1e3
+    print(f"phase 9 {label}: make_scan_steps({steps}, donate=True): "
+          f"launches {got} ({events} species re-bucket events); 0 dropped;"
+          f" charge {q0:.9g} -> {total:.9g} (|d| / gross "
+          f"{abs(total - q0) / gross:.2e}); object charge {q_obj:.6g}, "
+          f"potential {float(phi_c[-1, 0]):.6g}; {ms:.3f} ms a step "
+          f"({card})", flush=True)
+    return ms
+
+
+def obj_breakdown(sim, card: str) -> None:
+    """Device time of each part of one object step (_tiled_step_obj) on
+    the final state, by CUDA events: the drift and margin count, the
+    absorb on the near-object tiles, the spread into rho_obj, K1 x S + K7,
+    the two solves, the capacitance, E, K3 + the kick."""
+    import torch
+    from pinc_tpu_torch.tiled_sim import TiledState
+    st, rho_obj = sim.state, sim.rho_obj
+    S = st.alive.shape[0]
+
+    def fresh():
+        return (TiledState(lpos=st.lpos.clone(), vel=st.vel.clone(),
+                           alive=st.alive.clone()),)
+    _, counter, _ = sim._absorb(*fresh())
+    rho = sim._deposit_rho(st) + rho_obj
+    phi = sim.solver(rho)
+    rho_c, _ = sim.objects.apply_capacitance(rho, phi)
+    E = sim._efield(phi)
+    ns = len(sim.objects.surface_idx[0])
+    parts = {
+        "whole object step (no re-bucket)": (
+            lambda: fresh() + (rho_obj,), sim._tiled_step_obj),
+        "drift + margin count": (None, lambda: sim._out_of_margin(
+            TiledState(lpos=st.lpos + st.vel, vel=st.vel, alive=st.alive))),
+        f"absorb, {S} species on {sim._obj_tiles.numel()} near-object "
+        f"tiles": (fresh, sim._absorb),
+        "spread into rho_obj": (None, lambda: sim._spread_obj_charge(
+            rho_obj, counter)),
+        f"K1 deposit x {S} + K7 fold_global": (
+            None, lambda: sim._deposit_rho(st)),
+        "solve 1 (FFT)": (None, lambda: sim.solver(rho)),
+        f"capacitance (C of {ns}^2)": (
+            None, lambda: sim.objects.apply_capacitance(rho, phi)),
+        "solve 2 (FFT)": (None, lambda: sim.solver(rho_c)),
+        "E = -grad(phi)": (None, lambda: sim._efield(phi)),
+        f"K3 gather + kick x {S}": (None, lambda: sim._kick(st, E, False)),
+    }
+    print(f"phase 9 one object step by CUDA events ({card}):", flush=True)
+    for name, (setup, fn) in parts.items():
+        ms = (cuda_ms(fn, reps=2, warmup=1) if setup is None
+              else cuda_ms_fresh(setup, fn, reps=2))
+        print(f"  {name}: {ms:.3f} ms", flush=True)
+    del rho, phi, rho_c, E
+    torch.cuda.empty_cache()
+
+
+def check_shipped_deck(card: str) -> None:
+    """Phase 9.3: input/sphereObject.ini (flat, mgSolve, 32^3, the sphere
+    of radius 4 its header names, given as domain=) for 5 steps on the
+    card and on the port's CPU path, with its collisionType and with
+    adhere,backscatter: equal alive counts, rho_obj and phi_c within the
+    CPU tests' tolerances."""
+    import numpy as np
+    import torch
+    from pinc_tpu_torch.objects import make_sphere
+    dom = make_sphere(*SHIPPED_SPHERE)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(deck_path("sphereObject.ini", tmp, output=False)) as f:
+            text = f.read()
+    for extra in ([], ["objects:collisionType=adhere,backscatter"]):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            sim, setup_s = make_obj_sim(
+                text, dom, dev, [f"time:nTimeSteps={SHIPPED_STEPS}",
+                                 *extra])
+            t0 = time.monotonic()
+            hist = sim.run(progress_every=0)
+            runs[dev] = (sim, hist, setup_s, time.monotonic() - t0)
+        (g, hg, sg, wg), (c, hc, _, wc) = runs["cuda"], runs["cpu"]
+        label = "phase 9 sphereObject.ini " + (
+            " ".join(extra) or "(absorb, as shipped)")
+        check(type(g).__name__ == "Simulation"
+              and type(g.solver).__name__ == "MultigridSolver"
+              and g.particles.cell.is_cuda,
+              f"{label}: {type(g).__name__} / {type(g.solver).__name__} on "
+              f"{g.particles.cell.device}")
+        ag = g.particles.alive.sum(1).cpu().numpy()
+        ac = c.particles.alive.sum(1).numpy()
+        check((ag == ac).all(), f"{label}: alive {ag} on the card, {ac} on "
+              f"the CPU")
+        q = np.abs(c.params.charge.numpy()).max()
+        drho = float(np.abs(g.last_rho_obj - c.last_rho_obj).max())
+        tol = OBJ_RHO_RTOL * float(np.abs(c.last_rho_obj).max()) + 1e-7 * q
+        check(drho <= tol, f"{label}: rho_obj differs by {drho:.3g} (tol "
+              f"{tol:.3g})")
+        check(np.allclose(g.last_obj_potential, c.last_obj_potential,
+                          rtol=OBJ_PHI_RTOL, atol=OBJ_PHI_ATOL)
+              and np_finite(hg["kinetic"]),
+              f"{label}: phi_c {g.last_obj_potential} on the card, "
+              f"{c.last_obj_potential} on the CPU")
+        rho = g.distr(g.particles, g.params, g.spec.global_size,
+                      periodic=g._periodic_dims, dtype=g.spec.dtype)
+        _, n_cyc, _ = g.solver.solve_with_stats(rho + g.rho_obj)
+        solve_ms = cuda_ms(lambda: g.solver(rho + g.rho_obj), reps=2,
+                           warmup=1)
+        step_ms = cuda_ms(lambda: g._step(g.particles, g.rho_obj), reps=2,
+                          warmup=1)
+        print(f"{label}: one step on the final state {step_ms:.3f} ms, of "
+              f"which a solve {solve_ms:.3f} ms ({n_cyc} cycles; two a "
+              f"step) ({card})", flush=True)
+        print(f"{label}: flat, mgSolve, {SHIPPED_STEPS} steps; alive {ag} "
+              f"on the card and the CPU; max|d rho_obj| {drho:.3g}; phi_c "
+              f"{float(g.last_obj_potential[0]):.8g} / "
+              f"{float(c.last_obj_potential[0]):.8g}; card: "
+              f"{obj_setup_text(g, sg)}, run {wg:.2f} s; CPU run {wc:.2f} s"
+              f" ({card})", flush=True)
+        del runs, g, c
+        torch.cuda.empty_cache()
+
+
+def check_walled_object_deck(modules, card: str) -> None:
+    """Phase 9.4: the shipped deck inside Dirichlet walls of zero value on
+    the tiled layout: the batched capacitance set-up (296 unit charges in
+    batches of 16) timed, its first batch's cycle counts against the
+    CPU's, then 5 steps of run() with phase 9's checks and every particle
+    inside the walls."""
+    import numpy as np
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.objects import find_surface, make_sphere
+    from pinc_tpu_torch.solvers.multigrid import make_from_config
+    from pinc_tpu_torch.units import alloc_and_normalize
+    dom = make_sphere(*SHIPPED_SPHERE)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(deck_path("sphereObject.ini", tmp, output=False)) as f:
+            text = f.read()
+    walls = ["grid:boundaries=DIRICHLET", "grid:bndValues=0,0,0,0,0,0",
+             "methods:layout=tiled"]
+    sim, setup_s = make_obj_sim(text, dom, "cuda", walls)
+    label = "phase 9 sphereObject.ini in Dirichlet walls, tiled"
+    su = sim.objects.setup
+    ns = len(sim.objects.surface_idx[0])
+    check(ns == SHIPPED_SURFACE and not sim.objects.periodic
+          and len(su["cycles"]) == -(-ns // 16),
+          f"{label}: {ns} surface nodes, {len(su['cycles'])} batches")
+    cfg = PincConfig.from_string(text)
+    for o in walls:
+        k, v = o.split("=", 1)
+        cfg.set_str(k, v)
+    alloc_and_normalize(cfg)
+    idx = np.flatnonzero(find_surface(dom, 1)[0].ravel())[:16]
+    rhs = torch.zeros((len(idx), dom.size))
+    rhs[torch.arange(len(idx)), torch.as_tensor(idx)] = 1.0
+    t0 = time.monotonic()
+    _, cpu_cycles, _ = make_from_config(cfg).solve_batch_with_stats(
+        rhs.reshape((-1,) + dom.shape))
+    cpu_s = time.monotonic() - t0
+    card_cycles = su["cycles"][0]
+    check((card_cycles == cpu_cycles).all(),
+          f"{label}: first batch's cycles {card_cycles.tolist()} on the "
+          f"card, {cpu_cycles.tolist()} on the CPU")
+    print(f"{label}: {ns} surface nodes in {len(su['cycles'])} batches of "
+          f"16; {obj_setup_text(sim, setup_s)}; the first batch's cycles "
+          f"{card_cycles.tolist()} on the card and on the CPU ({cpu_s:.2f} "
+          f"s there); cycles of all batches {sorted(set(int(c) for b in su['cycles'] for c in b))} ({card})", flush=True)
+    obj_run("sphereObject.ini in Dirichlet walls, tiled", sim, modules,
+            SHIPPED_STEPS, card, negative=False)
+    spans = walls_ok(sim)
+    check(all(lo >= 0.0 and hi <= g - 1 for (lo, hi), g
+              in zip(spans, sim.ts.grid)),
+          f"{label}: particles outside [0, L-1]: {spans}")
+    del sim
+    torch.cuda.empty_cache()
+
+
+def check_objects(modules, card: str, walled_ms: dict) -> None:
+    """Phase 9: embedded objects on the card (see the module docstring)."""
+    import torch
+    from pinc_tpu_torch.objects import make_sphere
+    t_phase = time.monotonic()
+    dom = make_sphere((128,) * 3, OBJ_CENTRE, OBJ_RADIUS)
+    # 9.1: the full-width absorb deck, run() then the window
+    sim, setup_s = make_obj_sim(obj_deck("absorb,absorb"), dom, "cuda")
+    obj = sim.objects
+    n_int = int((obj.interior_id > 0).sum())
+    n_surf = len(obj.surface_idx[0])
+    check((n_int, n_surf) == OBJ_NODES
+          and sim._obj_tiles.numel() == OBJ_NEAR_TILES
+          and type(sim).__name__ == "TiledSimulation"
+          and not sim._use_fused and not sim._use_mega,
+          f"phase 9: {n_int} interior, {n_surf} surface nodes, "
+          f"{sim._obj_tiles.numel()} near tiles, {type(sim).__name__}, "
+          f"fused {sim._use_fused}")
+    print(f"phase 9.1 full-width sphere (radius {OBJ_RADIUS} at "
+          f"{OBJ_CENTRE}, 128^3, {n_int} interior and {n_surf} surface "
+          f"nodes, C {n_surf}^2 f32 = "
+          f"{n_surf ** 2 * 4 / 1e6:.1f} MB on the card, "
+          f"{sim._obj_tiles.numel()} of {sim.ts.NT} tiles near the object; "
+          f"B = {sim.ts.B}, M = {sim.ts.M}, cadences "
+          f"{sim.rebucket_every_s}): {obj_setup_text(sim, setup_s)} "
+          f"({card})", flush=True)
+    run_ms = obj_run("9.1 absorb,absorb", sim, modules, OBJ_STEPS, card,
+                     negative=True)
+    obj_breakdown(sim, card)
+    win_ms = obj_window("9.1 absorb,absorb window", sim, modules,
+                        OBJ_STEPS, card)
+    print(f"phase 9.1 ms a step ({card}): object run() {run_ms:.3f}, object "
+          f"window {win_ms:.3f}; the unfused walled decks (phase 8, "
+          f"this run): (b) Dirichlet {walled_ms['b']:.3f}, (c) Neumann "
+          f"{walled_ms['c']:.3f}", flush=True)
+    del sim, obj
+    torch.cuda.empty_cache()
+    # 9.2: reflecting electrons, ions emitting secondary electrons
+    sim, setup_s = make_obj_sim(obj_deck("reflect,secondary",
+                                         "seeSpecies = 0\n"), dom, "cuda")
+    obj_run("9.2 reflect,secondary", sim, modules, OBJ_RESP_STEPS, card,
+            negative=False)
+    print(f"phase 9.2 secondaries emitted {int(sim.see_emitted)}, found no "
+          f"free slot {int(sim.see_overflow)} ({card})", flush=True)
+    del sim
+    torch.cuda.empty_cache()
+    # 9.3 and 9.4: the shipped deck
+    check_shipped_deck(card)
+    check_walled_object_deck(modules, card)
+    print(f"phase 9: {time.monotonic() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2900,8 +3327,11 @@ def main() -> int:
     check_output(cli_main, modules, card)
 
     # -- phase 8: bounded walls, multigrid, run modes, small decks --------
-    check_mg_and_walls(cli_main, modules, prod, card, run_ms,
-                       aux["ms_step"])
+    walled_ms = check_mg_and_walls(cli_main, modules, prod, card, run_ms,
+                                   aux["ms_step"])
+
+    # -- phase 9: embedded objects ----------------------------------------
+    check_objects(modules, card, walled_ms)
 
     rows = [{"name": name, "route": "cuda",
              "source": getattr(m, "SOURCES", {}).get(name, m.SOURCE),

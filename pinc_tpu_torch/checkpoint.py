@@ -7,8 +7,9 @@ carry a ``time:startTime`` key "in case of continuing a simulation"
 (test.ini:21), but nothing consumes it and there is no particle-state
 restore.  Here the simulation state goes to one HDF5 file,
 ``<prefix><sep>checkpoint.chk.h5``, with attributes ``step`` and
-``format_version`` (1), and ``layout`` = "tiled" for the tiled state (the
-port runs no objects, so it writes no ``rho_obj`` and reads none):
+``format_version`` (1), and ``layout`` = "tiled" for the tiled state; on
+an object deck also the dataset ``rho_obj``, the persistent object surface
+charge on the grid (restored on resume):
 
 * flat: datasets ``cell`` (S, cap, D) int32, ``frac``, ``vel`` (S, cap, D)
   and ``alive`` (S, cap) bool;
@@ -93,23 +94,40 @@ def _open_layout(cfg: PincConfig, layout: str):
     return path, f
 
 
-def save(cfg: PincConfig, step: int, particles: Particles) -> Path:
+def _with_rho_obj(datasets: dict, rho_obj) -> dict:
+    if rho_obj is not None:
+        datasets["rho_obj"] = fetch_global(rho_obj)
+    return datasets
+
+
+def _read_rho_obj(f, device) -> Optional[torch.Tensor]:
+    if "rho_obj" not in f:
+        return None
+    return torch.as_tensor(np.asarray(f["rho_obj"]), device=device)
+
+
+def save(cfg: PincConfig, step: int, particles: Particles,
+         rho_obj=None) -> Path:
     path = checkpoint_path(cfg)
-    _write(path, step, {k: fetch_global(getattr(particles, k))
-                        for k in ("cell", "frac", "vel", "alive")})
+    _write(path, step, _with_rho_obj(
+        {k: fetch_global(getattr(particles, k))
+         for k in ("cell", "frac", "vel", "alive")}, rho_obj))
     msg(STATUS, "checkpoint written: %s (step %d)", path, step)
     return path
 
 
-def load(cfg: PincConfig, device="cpu") -> Tuple[int, Particles]:
+def load(cfg: PincConfig, device="cpu"
+         ) -> Tuple[int, Particles, Optional[torch.Tensor]]:
+    """-> (step, particles, rho_obj or None) on ``device``."""
     path, f = _open_layout(cfg, "flat")
     with f:
         step = int(f.attrs["step"])
         particles = Particles(**{
             k: torch.as_tensor(np.asarray(f[k]), device=device)
             for k in ("cell", "frac", "vel", "alive")})
+        rho_obj = _read_rho_obj(f, device)
     msg(STATUS, "checkpoint restored: %s (step %d)", path, step)
-    return step, particles
+    return step, particles, rho_obj
 
 
 def peek_layout(cfg: PincConfig) -> Optional[str]:
@@ -123,15 +141,16 @@ def peek_layout(cfg: PincConfig) -> Optional[str]:
 
 
 def save_tiled(cfg: PincConfig, step: int, state,
-               tuning: Optional[dict] = None) -> Path:
+               tuning: Optional[dict] = None, rho_obj=None) -> Path:
     """Tiled-layout checkpoint: the (S, D, NT, B) component planes are
     stored verbatim (slot assignment included), so a resumed run replays
     the original bit for bit — converting through the flat Particles
     layout would re-bucket on restore and reorder the per-tile sums.
     tuning: ``TiledSimulation.tuning()``, stored as ``tuning:<key>``."""
     path = checkpoint_path(cfg)
-    _write(path, step, {k: fetch_global(getattr(state, k))
-                        for k in ("lpos", "vel", "alive")},
+    _write(path, step, _with_rho_obj({k: fetch_global(getattr(state, k))
+                                      for k in ("lpos", "vel", "alive")},
+                                     rho_obj),
            layout="tiled",
            attrs={f"tuning:{k}": v for k, v in (tuning or {}).items()})
     msg(STATUS, "checkpoint written: %s (step %d, tiled)", path, step)
@@ -140,7 +159,8 @@ def save_tiled(cfg: PincConfig, step: int, state,
 
 def load_tiled(cfg: PincConfig, expect_shape=None, device="cpu"):
     """-> (step, TiledState with (S, D, NT, B) axes on ``device``, the
-    saved tuning: a dict, empty where the file holds none)."""
+    saved tuning: a dict, empty where the file holds none, rho_obj or
+    None)."""
     from .tiled_sim import TiledState
 
     path, f = _open_layout(cfg, "tiled")
@@ -161,5 +181,6 @@ def load_tiled(cfg: PincConfig, expect_shape=None, device="cpu"):
                            alive=t(np.asarray(f["alive"])))
         tuning = {k[len("tuning:"):]: v for k, v in f.attrs.items()
                   if k.startswith("tuning:")}
+        rho_obj = _read_rho_obj(f, device)
     msg(STATUS, "checkpoint restored: %s (step %d, tiled)", path, step)
-    return step, state, tuning
+    return step, state, tuning, rho_obj

@@ -15,11 +15,12 @@ from ..utils.logging import STATUS, msg
 AUTO_TILED_SLOTS = 24_000_000
 
 
-def make_simulation(cfg: PincConfig, seed: int = 1,
-                    device=None) -> Simulation:
+def make_simulation(cfg: PincConfig, seed: int = 1, device=None,
+                    domain=None) -> Simulation:
     """Tiled layout when methods:layout = tiled, or automatically for decks
     too big for the flat working set; plain single-block otherwise.
-    device: the CUDA card by default, or e.g. "cpu"."""
+    device: the CUDA card by default, or e.g. "cpu".  domain: an object-id
+    grid in place of the file the deck names (Simulation's)."""
     check_single_device(cfg, "a run")
     layout = cfg.get_str("methods:layout", "").lower()
     tiled = layout == "tiled"
@@ -31,5 +32,5 @@ def make_simulation(cfg: PincConfig, seed: int = 1,
         tiled = True
     if tiled:
         from ..tiled_sim import TiledSimulation
-        return TiledSimulation(cfg, seed=seed, device=device)
-    return Simulation(cfg, seed=seed, device=device)
+        return TiledSimulation(cfg, seed=seed, device=device, domain=domain)
+    return Simulation(cfg, seed=seed, device=device, domain=domain)

@@ -327,3 +327,53 @@ def initialize_auto(cfg: PincConfig, spec: GridSpec, seed: int = 1,
         except ValueError:
             pass
     return initialize(cfg, spec, seed, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Particle injection into free slots: the working pNew
+# (src/population.c:430-443).  The reference appends at iStop and silently
+# drops when full; here free slots are rank-matched under the alive mask
+# and the overflow is counted.
+# ---------------------------------------------------------------------------
+
+def spawn(p: Particles, s: int, pos: torch.Tensor, vel: torch.Tensor,
+          mask: torch.Tensor) -> Tuple[Particles, torch.Tensor, torch.Tensor]:
+    """Insert new particles into species ``s``'s free (dead) slots.
+
+    pos/vel: (N, D) candidate states; mask: (N,) which candidates are
+    real.  Candidate k (the k-th True in mask) lands in the k-th free slot.
+    Returns (particles', n_spawned, n_overflow), 0-d int32 tensors;
+    candidates beyond the free slots are dropped and counted."""
+    cap = p.capacity
+    dev = p.alive.device
+    free = ~p.alive[s]
+    # slot_for_rank[r] = index of the r-th free slot (cap: the dump entry)
+    frank = torch.cumsum(free.to(torch.int64), dim=0) - 1
+    slot_for_rank = torch.full((cap + 1,), cap, dtype=torch.int64,
+                               device=dev)
+    slot_for_rank[torch.where(free, frank, torch.full_like(frank, cap))] = \
+        torch.arange(cap, device=dev)
+    n_free = free.sum()
+    erank = torch.cumsum(mask.to(torch.int64), dim=0) - 1
+    ok = mask & (erank < n_free)
+    tgt = torch.where(ok, slot_for_rank[torch.clamp(erank, 0, cap)],
+                      torch.full_like(erank, cap))
+    cell_new = torch.floor(pos).to(p.cell.dtype)
+    frac_new = pos - cell_new.to(pos.dtype)
+
+    def put(a, new):
+        """Species s's rows of a with the candidates written at tgt, a
+        dump row at cap cut off."""
+        rows = torch.cat([a[s], a[s][-1:]], dim=0)
+        okb = ok.reshape((-1,) + (1,) * (rows.ndim - 1))
+        rows[tgt] = torch.where(okb, new.to(rows.dtype), rows[tgt])
+        out = a.clone()
+        out[s] = rows[:cap]
+        return out
+
+    n_spawned = ok.sum().to(torch.int32)
+    n_over = (mask & ~ok).sum().to(torch.int32)
+    return (Particles(cell=put(p.cell, cell_new), frac=put(p.frac, frac_new),
+                      vel=put(p.vel, vel),
+                      alive=put(p.alive, torch.ones_like(ok))),
+            n_spawned, n_over)

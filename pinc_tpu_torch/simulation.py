@@ -7,9 +7,10 @@ initialization (src/main.c:141-186) and the production time loop
 (src/main.c:197-274).  PyTorch runs eagerly, so the step is a plain method
 on tensors that live on ``Simulation.device``.
 
-Deck features that are not ported yet (objects; ``grid:nSubdomains`` > 1
-through the factory, ``parallel/pic.py``) raise ``NotImplementedError``
-(see ``unported_features``) rather than run something else.
+Embedded objects (``objects.py``) run the reference's object sequence in
+the step.  The one deck feature not ported yet, ``grid:nSubdomains`` > 1
+(the multi-device layer, ``parallel/``), raises ``NotImplementedError``
+(``check_supported``) rather than run something else.
 """
 
 from __future__ import annotations
@@ -36,16 +37,6 @@ from . import pumodes as _pumodes               # noqa: F401 (registry)
 _TODO = "not ported to pinc_tpu_torch yet (ROADMAP.md, 'Still to port')"
 
 
-def unported_features(cfg: PincConfig) -> List[str]:
-    """The deck's features the port cannot run yet (empty when none)."""
-    found = []
-    for key in ("objects:objects", "files:objects"):
-        if key in cfg and any(n.endswith(".h5")
-                              for n in cfg.get_str_arr(key)):
-            found.append(f"embedded objects ({key})")
-    return found
-
-
 def check_single_device(cfg: PincConfig, what: str) -> None:
     """Decomposed decks (grid:nSubdomains > 1) need the multi-device layer
     (parallel/), which is not ported: raise."""
@@ -57,9 +48,9 @@ def check_single_device(cfg: PincConfig, what: str) -> None:
 
 
 def check_supported(cfg: PincConfig) -> None:
-    found = unported_features(cfg)
-    if found:
-        raise NotImplementedError("; ".join(found) + f": {_TODO}")
+    """Raise for the deck features the port cannot run yet: a decomposed
+    grid."""
+    check_single_device(cfg, "a run")
 
 
 @dataclass
@@ -76,18 +67,30 @@ class StepOutput:
     phi: torch.Tensor
     E: torch.Tensor
     diag: Diagnostics
+    # the persistent object surface charge (None on decks without
+    # objects): absorbed charge accumulated across steps, the reference's
+    # rhoObj grid (src/main.c:222, object.c:460-515)
+    rho_obj: Optional[torch.Tensor] = None
+    # the equipotential value per object from the capacitance step (the
+    # "Potential-check" STATUS, src/object.c:338)
+    obj_potential: Optional[torch.Tensor] = None
 
 
 class Simulation:
     """Owns the configuration, the static problem setup and the step on
     the flat layout.  Mirrors the lifetime of regular() in the reference.
     ``device`` is where every tensor of the run lives: the CUDA card by
-    default, the CPU only when the caller passes ``device="cpu"``."""
+    default, the CPU only when the caller passes ``device="cpu"``.
+    ``domain``: an object-id grid (numpy) used in place of reading the
+    ``.grid.h5`` file the deck names under ``objects:objects`` (which it
+    must still name; ``objects.from_config``), for hosts without h5py.  A
+    deviation from pinc_tpu that changes no result."""
 
     _DEFER_PARTICLES = False
     _TILED_CKPT = False        # TiledSimulation restores tiled checkpoints
 
-    def __init__(self, cfg: PincConfig, seed: int = 1, device=None):
+    def __init__(self, cfg: PincConfig, seed: int = 1, device=None,
+                 domain: Optional[np.ndarray] = None):
         check_supported(cfg)
         self.cfg = cfg
         self.device = (default_device() if device is None
@@ -128,6 +131,12 @@ class Simulation:
                 cfg, self.spec, seed=seed, device=self.device)
         self.n_time_steps = cfg.get_int("time:ntimesteps")
 
+        from . import objects as _objects
+        self.objects = _objects.from_config(cfg, self.spec, self.solver,
+                                            device=self.device, domain=domain)
+        self.rho_obj = self._zeros() if self.objects is not None else None
+        self.last_rho_obj = self.last_obj_potential = None
+
         # checkpoint/resume (checkpoint.py): files:checkpointEvery writes,
         # time:resume or time:startTime > 0 restores and continues the
         # step numbering
@@ -151,11 +160,17 @@ class Simulation:
                         "resume with the same layout")
                 self._pending_tiled_resume = True
             else:
-                self.start_step, self.particles = _ckpt.load(
+                self.start_step, self.particles, rho_obj = _ckpt.load(
                     cfg, device=self.device)
+                if rho_obj is not None:
+                    self.rho_obj = rho_obj
                 self._resumed = True
 
     # ----------------------------------------------------------------- step
+    def _zeros(self) -> torch.Tensor:
+        return torch.zeros(self.spec.global_size, dtype=self.spec.dtype,
+                           device=self.device)
+
     def _efield(self, phi: torch.Tensor) -> torch.Tensor:
         """E = -grad(phi), through the BC-aware gradient on bounded decks."""
         if self.spec.periodic:
@@ -169,18 +184,38 @@ class Simulation:
         return rho, phi, self._efield(phi)
 
     def _half_kick(self, particles: Particles) -> StepOutput:
-        """Initialization: solve the initial field and advance velocities a
-        half step back (src/main.c:161-186: gMul(E,0.5); acc; gMul(E,2))."""
+        """Initialization: cull the particles inside objects, solve the
+        initial field and advance velocities a half step back
+        (src/main.c:161-186: oCollectObjectCharge with a zeroed rhoObj,
+        then gMul(E,0.5); acc; gMul(E,2))."""
+        rho_obj = None
+        if self.objects is not None:
+            particles, _ = self.objects.collect_charge(
+                particles, self.params, self._zeros())
+            rho_obj = self._zeros()
         rho, phi, E = self._fields_from_particles(particles)
         particles, ke = self.acc(particles, self.params, 0.5 * E,
                                  periodic=self._periodic_dims, e_scale=0.5)
         return StepOutput(particles, rho, phi, E, Diagnostics(
             kin_energy=ke, pot_energy=potential_energy(rho, phi),
-            n_lost=torch.zeros((), dtype=torch.int32)))
+            n_lost=torch.zeros((), dtype=torch.int32)), rho_obj=rho_obj)
 
-    def _step(self, particles: Particles) -> StepOutput:
+    def _object_fields(self, rho: torch.Tensor, rho_obj: torch.Tensor):
+        """rho += rho_obj, solve, the capacitance correction, solve again
+        (src/main.c:222-240).  Returns (rho, phi, E, phi_c per object)."""
+        rho = rho + rho_obj
+        phi = self.solver(rho)
+        rho, obj_phi = self.objects.apply_capacitance(rho, phi)
+        phi = self.solver(rho)          # 2nd solve (src/main.c:240)
+        return rho, phi, self._efield(phi), obj_phi
+
+    def _step(self, particles: Particles,
+              rho_obj: Optional[torch.Tensor] = None) -> StepOutput:
         """One full leapfrog step (src/main.c:197-274): move (and reflect
-        at bounded walls), migrate, deposit, solve, E = -grad(phi), kick."""
+        at bounded walls), migrate, deposit, solve, E = -grad(phi), kick;
+        on an object deck the object sequence between the migration and
+        the kick: the collision responses, collect, deposit, rho +=
+        rho_obj, solve, capacitance, solve (src/main.c:222-240)."""
         particles = _pusher_ops.move(particles, self.spec.global_size,
                                      periodic=self.spec.periodic)
         if not self.spec.periodic:
@@ -189,12 +224,29 @@ class Simulation:
             particles = _pusher_ops.reflect(particles, self.spec.global_size,
                                             bounded=self._bounded_dims)
         particles = self.migrate(particles)
-        rho, phi, E = self._fields_from_particles(particles)
+        obj_phi = None
+        if self.objects is not None:
+            if rho_obj is None:
+                rho_obj = self._zeros()
+            if self.objects.has_collisions:
+                # reflect/backscatter/adhere/secondary first; failures stay
+                # interior and collect_charge absorbs them
+                particles, rho_obj, _ = self.objects.collide(
+                    particles, self.params, rho_obj)
+            particles, rho_obj = self.objects.collect_charge(
+                particles, self.params, rho_obj)
+            rho = self.distr(particles, self.params, self.spec.global_size,
+                             periodic=self._periodic_dims,
+                             dtype=self.spec.dtype)
+            rho, phi, E, obj_phi = self._object_fields(rho, rho_obj)
+        else:
+            rho, phi, E = self._fields_from_particles(particles)
         particles, ke = self.acc(particles, self.params, E,
                                  periodic=self._periodic_dims)
         return StepOutput(particles, rho, phi, E, Diagnostics(
             kin_energy=ke, pot_energy=potential_energy(rho, phi),
-            n_lost=torch.zeros((), dtype=torch.int32)))
+            n_lost=torch.zeros((), dtype=torch.int32)),
+            rho_obj=rho_obj, obj_potential=obj_phi)
 
     def _gross_density(self, counts: torch.Tensor) -> float:
         """sum_s |q_s| * alive_s / volume: the yardstick of the
@@ -223,7 +275,7 @@ class Simulation:
         if pos.numel() and (bool((pos < 0).any()) or bool((pos >= L).any())):
             msg(ERROR, "step %d: particle outside the domain "
                 "(min %g, max %g)", n, float(pos.min()), float(pos.max()))
-        if self.spec.periodic:
+        if self.spec.periodic and self.objects is None:
             mean = float(out.rho.double().mean())
             gross = self._gross_density(p.counts())
             if abs(mean) > 1e-4 * gross:
@@ -241,12 +293,17 @@ class Simulation:
         run, whose velocities are already staggered), the steps up to
         nTimeSteps, per-step energy history, the writer's (io_h5
         OutputWriter) callbacks, the methods:debug guards (with
-        population:maxVel) and the checkpoints."""
+        population:maxVel) and the checkpoints.  On an object deck the
+        persistent rho_obj rides from step to step, every progress line is
+        followed by each object's "Potential-check", and the run leaves
+        last_rho_obj and last_obj_potential (numpy) behind."""
         t_start = time.monotonic()
         ke_hist: List[np.ndarray] = []
         pe_hist: List[float] = []
+        out = None
         if self._resumed:
             particles = self.particles
+            rho_obj = self.rho_obj
         else:
             out = self._half_kick(self.particles)
             ke_hist.append(out.diag.kin_energy.cpu().numpy())
@@ -255,11 +312,12 @@ class Simulation:
                 writer.write_step(0, out)
                 writer.write_energy(0, ke_hist[0], pe_hist[0])
             particles = out.particles
+            rho_obj = out.rho_obj
         debug = self.cfg.get_bool("methods:debug", False)
         max_vel = self.cfg.get_double("population:maxvel", 0.0)
         for n in range(self.start_step + 1, self.n_time_steps + 1):
-            out = self._step(particles)
-            particles = out.particles
+            out = self._step(particles, rho_obj)
+            particles, rho_obj = out.particles, out.rho_obj
             ke = out.diag.kin_energy.cpu().numpy()
             pe = float(out.diag.pot_energy)
             ke_hist.append(ke)
@@ -271,17 +329,27 @@ class Simulation:
                 self._assert_invariants(out, n, max_vel)
             if self.checkpoint_every and n % self.checkpoint_every == 0:
                 from . import checkpoint as _ckpt
-                _ckpt.save(self.cfg, n, particles)
+                _ckpt.save(self.cfg, n, particles, rho_obj)
             if progress_every and n % progress_every == 0:
                 msg(STATUS, "Computing time-step %i (KE=%g PE=%g)",
                     n, ke.sum(), pe)
+                if out.obj_potential is not None:
+                    # the reference's "Potential-check" (src/object.c:338)
+                    for a, pc in enumerate(out.obj_potential.cpu().numpy()):
+                        msg(STATUS, "Potential-check for object %d : %f",
+                            a, pc)
         self._sync()
         wall = time.monotonic() - t_start
         msg(TIMER, "Time spent: %f s (%d steps)", wall, self.n_time_steps)
-        self.particles = particles
+        self.particles, self.rho_obj = particles, rho_obj
+        self.last_rho_obj = (None if rho_obj is None
+                             else rho_obj.cpu().numpy())
+        self.last_obj_potential = (
+            None if out is None or out.obj_potential is None
+            else out.obj_potential.cpu().numpy())
         if self.checkpoint_every:
             from . import checkpoint as _ckpt
-            _ckpt.save(self.cfg, self.n_time_steps, particles)
+            _ckpt.save(self.cfg, self.n_time_steps, particles, rho_obj)
         return {"kinetic": _stack(ke_hist, self.params.charge.shape[0]),
                 "potential": np.asarray(pe_hist), "wall_time": wall}
 

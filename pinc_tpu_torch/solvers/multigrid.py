@@ -16,6 +16,11 @@ src/multigrid.c:1688-1724).
   (``lax.while_loop``), eager PyTorch reads the RMS residual after every
   cycle, one host sync a cycle (at most ``mgCycles`` a solve).  The cycle
   count, and so phi, is pinc_tpu's.
+* ``solve_batch_with_stats`` solves a batch of right-hand sides together
+  (``torch.func.vmap`` over the same cycle), each item frozen once it
+  meets the tolerance: the semantics of ``jax.vmap`` over pinc_tpu's
+  ``while_loop``, with each item's own cycle count (the unit-charge
+  solves of the capacitance matrix on bounded decks, ``objects.py``).
 * Dirichlet planes are clamped and masked out of the smoothers; Neumann
   ghosts come from ``pad_bc``.  Coarse levels solve the error equation
   with homogeneous versions of the same BCs.  Levels with no Dirichlet
@@ -329,6 +334,20 @@ class MultigridSolver:
         tolerance (what the reference's mgMode writes to timer.xy.h5,
         src/multigrid.c:1998-2004) and the final RMS residual, a 0-d
         tensor on rho's device.  One host sync a cycle."""
+        rho, phi = self._prepare(rho, phi0)
+        # the while_loop of pinc_tpu, its f32 comparison r2 > tol^2
+        tol2 = float(np.float32(self.tol ** 2))
+        n_cycles = 0
+        r2 = self._rms2(phi, rho)
+        while n_cycles < self.max_cycles and float(r2) > tol2:
+            phi = self._vcycle(0, phi, rho)
+            n_cycles += 1
+            r2 = self._rms2(phi, rho)
+        return self._finish(phi), n_cycles, torch.sqrt(r2)
+
+    def _prepare(self, rho: torch.Tensor,
+                 phi0: Optional[torch.Tensor] = None):
+        """(rho, phi0) as the tolerance loop starts from them."""
         rho = rho.to(self.dtype)
         if self._has_nullspace:
             rho = _neutral(rho)
@@ -338,19 +357,39 @@ class MultigridSolver:
             phi0 = clamp_dirichlet(phi0, self.bc)
         if self.cycle in ("mgfmg", "fmg"):
             phi0 = self._fmg(rho)
-        # the while_loop of pinc_tpu, its f32 comparison r2 > tol^2
-        tol2 = float(np.float32(self.tol ** 2))
-        phi, n_cycles = phi0, 0
-        r2 = self._rms2(phi, rho)
-        while n_cycles < self.max_cycles and float(r2) > tol2:
-            phi = self._vcycle(0, phi, rho)
-            n_cycles += 1
-            r2 = self._rms2(phi, rho)
+        return rho, phi0
+
+    def _finish(self, phi: torch.Tensor) -> torch.Tensor:
         if self._has_nullspace:
             phi = _neutral(phi)
         if self.bc is not None:
             phi = clamp_dirichlet(phi, self.bc)
-        return phi, n_cycles, torch.sqrt(r2)
+        return phi
+
+    def solve_batch_with_stats(self, rho: torch.Tensor
+                               ) -> Tuple[torch.Tensor, np.ndarray,
+                                          torch.Tensor]:
+        """n independent solves, rho (n, *shape) -> (phi (n, *shape),
+        n_cycles (n,) numpy int, rms residuals (n,)).  Every item runs the
+        cycles of solve_with_stats; an item that meets the tolerance (or
+        the cycle cap) is frozen while the others go on, as jax.vmap over
+        pinc_tpu's while_loop freezes it.  One host sync a cycle."""
+        from torch.func import vmap
+        rho, phi = vmap(self._prepare)(rho)
+        vcycle = vmap(lambda p, r: self._vcycle(0, p, r))
+        rms2 = vmap(self._rms2)
+        tol2 = float(np.float32(self.tol ** 2))
+        r2 = rms2(phi, rho)
+        cycles = torch.zeros(rho.shape[0], dtype=torch.int64,
+                             device=rho.device)
+        active = (r2 > tol2) & (cycles < self.max_cycles)
+        grid = (-1,) + (1,) * (rho.ndim - 1)
+        while bool(active.any()):
+            phi = torch.where(active.reshape(grid), vcycle(phi, rho), phi)
+            r2 = torch.where(active, rms2(phi, rho), r2)
+            cycles = cycles + active.to(torch.int64)
+            active = active & (r2 > tol2) & (cycles < self.max_cycles)
+        return vmap(self._finish)(phi), cycles.cpu().numpy(), torch.sqrt(r2)
 
 
 # ---------------------------------------------------------------------------

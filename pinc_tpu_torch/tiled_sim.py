@@ -58,7 +58,17 @@ margin, a neutral grid on periodic decks) and raises ``PincError``.
 ``run(writer)`` writes the deck's output (``io_h5.OutputWriter``) and
 checkpoints as pinc_tpu's does; a tiled checkpoint holds the tile planes
 verbatim and what ``retune`` set, so a resumed run is the uninterrupted
-one bit for bit.  Decks with objects are refused.
+one bit for bit.
+
+Decks with embedded objects (``objects.py``) take the unfused step with
+the object sequence between the drift and the deposit (``_tiled_step_obj``:
+drift, walls, margin count, the collision responses and the absorption on
+the static subset of tiles near an object, the absorbed charge spread into
+``rho_obj``, K1 per species and K7, rho += rho_obj, solve, capacitance,
+solve, E, K3 and the kick), in ``run()`` and in the window
+(``make_scan_steps`` scans that step with ``rho_obj`` in the carry); they
+never run K2, K4 or K5.  The object work is plain PyTorch, as it is plain
+``jnp`` in pinc_tpu.
 """
 
 from __future__ import annotations
@@ -98,9 +108,10 @@ class TiledSimulation(Simulation):
                                # giant populations (see Simulation)
     _TILED_CKPT = True         # a tiled checkpoint restores verbatim
 
-    def __init__(self, cfg: PincConfig, seed: int = 1, device=None):
+    def __init__(self, cfg: PincConfig, seed: int = 1, device=None,
+                 domain: Optional[np.ndarray] = None):
         nd = cfg.get_int("grid:ndims")
-        super().__init__(cfg, seed=seed, device=device)
+        super().__init__(cfg, seed=seed, device=device, domain=domain)
         # physics-method routing: the kernels honor the same deck
         # selections as the flat path through the registry closures'
         # attributes; anything they cannot express raises
@@ -224,6 +235,17 @@ class TiledSimulation(Simulation):
         self._charge = [float(c) for c in charge]
         self._mass = [float(m) for m in mass]
         self._qm = [float(q) for q in charge / mass]
+        if self.objects is not None:
+            self._obj_tiles = self._near_object_tiles()
+            self._obj_origins = tl.tile_origins(
+                self.ts, self.device)[self._obj_tiles]          # (NTo, D)
+            # secondaries emitted, and those that found no free slot, over
+            # the object steps (0-d tensors on the device)
+            self.see_emitted = torch.zeros((), dtype=torch.int64,
+                                           device=self.device)
+            self.see_overflow = torch.zeros_like(self.see_emitted)
+            msg(STATUS, "tiled objects: %d/%d tiles near object surfaces",
+                int(self._obj_tiles.shape[0]), self.ts.NT)
 
         if self._pending_tiled_resume:
             from . import checkpoint as _ckpt
@@ -242,16 +264,19 @@ class TiledSimulation(Simulation):
             self.rebucket_every_s, self.device)
 
     def resume(self, step: int, state: TiledState,
-               tuning: Optional[dict] = None) -> None:
+               tuning: Optional[dict] = None, rho_obj=None) -> None:
         """Continue from ``state`` (the tile planes verbatim, slot
         assignment included) at step ``step`` with the interrupted run's
         ``tuning()``: run() skips the half kick and runs steps step + 1 ..
         nTimeSteps, the uninterrupted trajectory bit for bit.  What a
         tiled checkpoint restores.  Without ``tuning`` the deck's
         cadences and face cap stand, which is the uninterrupted run only
-        where no retune fired before ``step``."""
+        where no retune fired before ``step``.  rho_obj: the object deck's
+        persistent surface charge at ``step``."""
         self.state, self.start_step, self._resumed = state, step, True
         self.particles = None
+        if rho_obj is not None:
+            self.rho_obj = torch.as_tensor(rho_obj, device=self.device)
         if tuning:
             self.rebucket_every_s = [int(R)
                                      for R in tuning["rebucket_every_s"]]
@@ -566,10 +591,11 @@ class TiledSimulation(Simulation):
     @property
     def _use_fused(self) -> bool:
         """The fused kernel pairs (K2 deposit_move, K4 gather_kick): the
-        periodic pallas route, as in pinc_tpu (bounded walls hook in
-        between the drift and the deposit, so those decks take the
-        unfused step)."""
-        return self._backend == "pallas" and self.spec.periodic
+        periodic pallas route without objects, as in pinc_tpu (bounded
+        walls and the object absorption hook in between the drift and the
+        deposit, so those decks take the unfused step)."""
+        return (self._backend == "pallas" and self.spec.periodic
+                and self.objects is None)
 
     def _tiled_half_kick(self, st: TiledState):
         rho, phi, E = self._fields(st)
@@ -613,8 +639,247 @@ class TiledSimulation(Simulation):
             pot_energy=potential_energy(rho, phi),
             n_lost=n_out.to(torch.int32))
 
+    # ------------------------------------------------------------ objects
+    def _near_object_tiles(self) -> torch.Tensor:
+        """The static subset of tiles that can hold an absorbable
+        particle: tiles with interior nodes, dilated by one tile (a
+        particle's floor cell stays within one tile of its bucket, margin
+        M < T).  The interior lookup then runs on those tiles' slots only.
+        (NTo,) int64 tile indices on the device."""
+        interior = self.objects.interior_id.cpu().numpy() > 0
+        T, nt = self.ts.T, self.ts.ntiles
+        D = len(nt)
+        tmask = interior.reshape(sum(((n, T) for n in nt), ())).any(
+            axis=tuple(range(1, 2 * D, 2)))
+        for ax in range(D):
+            tmask = (tmask | np.roll(tmask, 1, axis=ax)
+                     | np.roll(tmask, -1, axis=ax))
+        return torch.as_tensor(np.flatnonzero(tmask.ravel()),
+                               dtype=torch.int64, device=self.device)
+
+    def _collision_type(self, s: int) -> str:
+        ct = self.objects.collision_types
+        return ct[s] if s < len(ct) else "absorb"
+
+    def _has_adhere(self) -> bool:
+        return (self.objects is not None
+                and "adhere" in self.objects.collision_types)
+
+    def _global_planes(self, lp: torch.Tensor, origins: torch.Tensor):
+        """Tile-local planes (D, NTo, B) -> wrapped global positions
+        (NTo, B, D)."""
+        Lf = torch.tensor(self.ts.grid, dtype=torch.float32,
+                          device=lp.device)
+        g = torch.remainder(lp + origins.T[:, :, None], Lf[:, None, None])
+        return g.movedim(0, -1)
+
+    def _collide_tile_planes(self, lp, vl, al, origins, method, valid=None):
+        """reflect/backscatter on the near-object tile planes: lp/vl (D,
+        NTo, B) tile-local, origins (NTo, D) the tiles' global origins.
+        Positions move by the wrapped displacement, so tile-local
+        coordinates stay near their bucket where the global position
+        wrapped.  Returns (lp', vl')."""
+        from .objects import collide_segments
+        obj = self.objects
+        pos, vel, _, hit, _ = self._hits_tile_planes(lp, vl, al, origins,
+                                                     valid, tunnel=False)
+        pos2, vel2, _ = collide_segments(pos, vel, hit, obj.interior_id,
+                                         obj.normals, self.ts.grid, method)
+        Lf = torch.tensor(self.ts.grid, dtype=torch.float32,
+                          device=lp.device)
+        delta = torch.remainder(pos2 - pos + 0.5 * Lf, Lf) - 0.5 * Lf
+        return lp + delta.movedim(-1, 0), vel2.movedim(-1, 0)
+
+    def _hits_tile_planes(self, lp, vl, al, origins, valid=None,
+                          tunnel: bool = True):
+        """The hit classification on near-object tile planes: (pos (NTo,
+        B, D) global wrapped, vel, oid, hit, tunneled); ``tunneled`` marks
+        hits whose segment start was interior too (no crossing to bisect,
+        the flat path's failure class; None when tunnel=False)."""
+        from .objects import _at, _cell_of
+        obj = self.objects
+        pos = self._global_planes(lp, origins)
+        vel = vl.movedim(0, -1)
+        oid = _at(obj.interior_id, _cell_of(pos, self.ts.grid))
+        hit = (al > 0.5) & (oid > 0)
+        if valid is not None:
+            hit = hit & valid
+        tunneled = hit & obj._interior_at(pos - vel) if tunnel else None
+        return pos, vel, oid, hit, tunneled
+
+    def _adhere_tiles(self, s, lp, vl, al, origins, rho_add, valid=None):
+        """Tiled pAdhere: impactors die at their trajectory-surface
+        crossing and their charge goes to the nearest surface node (the
+        flat _adhere on the near-object tile planes); tunneled hits stay
+        alive for the absorb.  Returns (alive', rho_add', a flat (V,)
+        localized charge)."""
+        from .objects import intersect_segments
+        obj = self.objects
+        pos, vel, _, hit, tunneled = self._hits_tile_planes(
+            lp, vl, al, origins, valid)
+        ok = hit & ~tunneled
+        _, x_int, _ = intersect_segments(pos, vel, obj.interior_id,
+                                         obj.normals, self.ts.grid)
+        flat_idx = obj._nearest_surface_flat(x_int)
+        zero = torch.zeros((), device=al.device)
+        rho_add.index_add_(0, flat_idx.reshape(-1),
+                           torch.where(ok, self._charge[s], zero).reshape(-1))
+        return torch.where(ok, zero, al), rho_add
+
+    def _emit_secondaries_tiles(self, s, lp, vl, al, lp_t, vl_t, al_t,
+                                origins, valid=None):
+        """Tiled pSecondaryElectron: see_yield cosine-distributed
+        secondaries an impact into free (dead) slots of the target
+        species' bucket of the same tile, dead slots in slot order (a
+        stable sort); a secondary with no free slot is dropped.  The
+        impactor is left interior for the absorb.  Emission points lie
+        within a cell of the impactor, inside the wander margin (the
+        margin count catches a rare overshoot).  Returns (lp_t', vl_t',
+        al_t', emission counts per object (n_objects,), the count of
+        secondaries that found no free slot)."""
+        from .objects import (_hash_uniform, _mul32, cosine_directions,
+                              intersect_segments, u32_bits)
+        obj = self.objects
+        D = self.ts.n_dims
+        dev = lp.device
+        Lf = torch.tensor(self.ts.grid, dtype=torch.float32, device=dev)
+        pos, vel, oid, hit, tunneled = self._hits_tile_planes(
+            lp, vl, al, origins, valid)
+        hit = hit & ~tunneled
+        _, x_int, nrm = intersect_segments(pos, vel, obj.interior_id,
+                                           obj.normals, self.ts.grid)
+        x_emit = x_int + 0.01 * nrm
+        x_emit = (torch.remainder(x_emit, Lf) if obj.periodic
+                  else torch.minimum(torch.clamp(x_emit, min=0.0),
+                                     Lf - 1e-3))
+        # tile-local emission coordinates: the impactor's plus the wrapped
+        # displacement
+        delta = torch.remainder(x_emit - pos + 0.5 * Lf, Lf) - 0.5 * Lf
+        lpe = lp + delta.movedim(-1, 0)                   # (D, NTo, B)
+        NTo, B = al.shape
+        rows = torch.arange(NTo, device=dev)[:, None]
+        order = torch.argsort(al_t, dim=-1, stable=True)  # dead first
+        n_dead = torch.sum(al_t < 0.5, dim=-1, keepdim=True)
+        rank = torch.cumsum(hit.to(torch.int64), dim=-1) - 1
+        bits = (torch.arange(NTo * B, dtype=torch.int64,
+                             device=dev).reshape(NTo, B) ^ u32_bits(vl[0]))
+        # column B of each plane is the drop column, cut off at the end
+        lp_t = torch.cat([lp_t, lp_t[..., :1]], dim=-1)
+        vl_t = torch.cat([vl_t, vl_t[..., :1]], dim=-1)
+        al_t = torch.cat([al_t, al_t[..., :1]], dim=-1)
+        n_emit = torch.zeros(obj.n_objects, device=dev)
+        n_over = torch.zeros((), dtype=torch.int64, device=dev)
+        for k in range(obj.see_yield):
+            u1 = _hash_uniform(bits + (2 * k + 1))
+            u2 = _hash_uniform(_mul32(bits, 0x9E3779B1) + k)
+            v_e = obj.see_vth * cosine_directions(nrm, u1, u2)
+            grank = rank * obj.see_yield + k
+            ok = hit & (grank >= 0) & (grank < n_dead)
+            n_over = n_over + (hit & (grank >= n_dead)).sum()
+            slot = torch.where(
+                ok, torch.gather(order, -1, torch.clamp(grank, 0, B - 1)),
+                torch.full_like(grank, B))
+            al_t[rows, slot] = 1.0
+            for d in range(D):
+                lp_t[d][rows, slot] = lpe[d]
+                vl_t[d][rows, slot] = v_e[..., d].to(vl_t.dtype)
+            n_emit = n_emit + obj.object_counter(
+                torch.where(ok, oid, 0), ok.float())
+        return lp_t[..., :B], vl_t[..., :B], al_t[..., :B], n_emit, n_over
+
+    def _absorb(self, st: TiledState, collide: bool = True):
+        """Object absorption on the near-object tiles (the particle half
+        of oCollectObjectCharge, src/object.c:460-515), after the
+        per-species collision responses the deck selects
+        (objects:collisionType).  collide=False is the initial cull
+        (src/main.c:161-166): interior particles are removed, no response.
+        Updates st's planes in place.  Returns (st, the absorbed charge
+        per object (n_objects,), the adhered charge: flat (V,) or None)."""
+        obj = self.objects
+        idx, origins = self._obj_tiles, self._obj_origins
+        counter = torch.zeros(obj.n_objects, device=self.device)
+        rho_add = (torch.zeros(self.spec.global_volume, device=self.device)
+                   if collide and self._has_adhere() else None)
+        lpos, vel, alive = st.lpos, st.vel, st.alive
+        for s in range(lpos.shape[0]):
+            lp = lpos[s][:, idx]                          # (D, NTo, B)
+            al = alive[s][idx]                            # (NTo, B) f32
+            m = self._collision_type(s) if collide else "absorb"
+            if m in ("reflect", "backscatter"):
+                lp, vl = self._collide_tile_planes(lp, vel[s][:, idx], al,
+                                                   origins, m)
+                lpos[s][:, idx] = lp
+                vel[s][:, idx] = vl
+            elif m == "adhere":
+                al, rho_add = self._adhere_tiles(s, lp, vel[s][:, idx], al,
+                                                 origins, rho_add)
+            elif m == "secondary":
+                tgt = obj.see_species
+                (lp_t, vl_t, al_t, n_emit,
+                 n_over) = self._emit_secondaries_tiles(
+                    s, lp, vel[s][:, idx], al, lpos[tgt][:, idx],
+                    vel[tgt][:, idx], alive[tgt][idx], origins)
+                self.see_emitted = (self.see_emitted
+                                    + n_emit.sum().to(torch.int64))
+                self.see_overflow = self.see_overflow + n_over
+                lpos[tgt][:, idx] = lp_t
+                vel[tgt][:, idx] = vl_t
+                alive[tgt][idx] = al_t
+                # the emitted charge debited from the impacted surface
+                # (uniform spread, as the flat path books it)
+                counter = counter - self._charge[tgt] * n_emit
+                if tgt == s:        # emission changed this species' planes
+                    lp, al = lpos[s][:, idx], alive[s][idx]
+            from .objects import _at, _cell_of
+            oid = _at(obj.interior_id,
+                      _cell_of(self._global_planes(lp, origins),
+                               self.ts.grid))
+            absorbed = (al > 0.5) & (oid > 0)
+            counter = counter + obj.object_counter(
+                torch.where(absorbed, oid, 0),
+                torch.full_like(al, self._charge[s]))
+            alive[s][idx] = torch.where(absorbed, torch.zeros_like(al), al)
+        return st, counter, rho_add
+
+    def _spread_obj_charge(self, rho_obj: torch.Tensor,
+                           counter: torch.Tensor) -> torch.Tensor:
+        """The absorbed charge per object spread over its surface nodes
+        (the grid half of oCollectObjectCharge)."""
+        obj = self.objects
+        return obj._spread(rho_obj.reshape(-1).clone(),
+                           counter).reshape(obj.shape)
+
+    def _tiled_step_obj(self, st: TiledState, rho_obj: torch.Tensor):
+        """One step with the object sequence (collect, deposit, rho +=
+        rho_obj, solve, capacitance, solve: src/main.c:222-240) on the
+        tiled layout: the drift, the walls, the margin count, the
+        responses and absorption (_absorb), K1 per species and K7, the
+        fields (Simulation._object_fields) and the kick (K3).  Returns
+        (st, rho, phi, E, diag, rho_obj, phi_c per object)."""
+        st = TiledState(lpos=st.lpos + st.vel, vel=st.vel, alive=st.alive)
+        if not self.spec.periodic:
+            st = self._reflect_walls(st)
+        n_out = self._out_of_margin(st)
+        st, counter, rho_add = self._absorb(st)
+        rho_obj = self._spread_obj_charge(rho_obj, counter)
+        if rho_add is not None:
+            rho_obj = rho_obj + rho_add.reshape(self.objects.shape)
+        rho, phi, E, obj_phi = self._object_fields(self._deposit_rho(st),
+                                                   rho_obj)
+        st, ke = self._kick(st, E, half=False)
+        return (st, rho, phi, E, Diagnostics(
+            kin_energy=ke, pot_energy=potential_energy(rho, phi),
+            n_lost=n_out), rho_obj, obj_phi)
+
+    def _tiled_half_kick_obj(self, st: TiledState):
+        """Initialization with objects: cull the interior particles (their
+        charge discarded, src/main.c:161-166), then the half kick."""
+        st, _, _ = self._absorb(st, collide=False)
+        return self._tiled_half_kick(st)
+
     # ---------------------------------------------------------------- run
-    def _write(self, writer, n: int, st: TiledState, fields, diag, ke, pe):
+    def _write(self, writer, n: int, st: TiledState, fields, diag, ke, pe,
+               rho_obj=None, obj_phi=None):
         """Step n's output and energies to the writer; fields: (rho, phi,
         E).  The StepOutput (and the flat particles, only where the
         population is written) is built only on the steps the writer
@@ -622,7 +887,7 @@ class TiledSimulation(Simulation):
         if writer.writes(n):
             writer.write_step(n, StepOutput(
                 self.to_particles(st) if writer.write_pop else None,
-                *fields, diag))
+                *fields, diag, rho_obj=rho_obj, obj_potential=obj_phi))
         writer.write_energy(n, ke, pe)
 
     def run(self, writer=None, progress_every: int = 10):
@@ -631,25 +896,38 @@ class TiledSimulation(Simulation):
         re-bucket of every species when particles reach the margin), the
         writer's (io_h5 OutputWriter) callbacks, the methods:debug guards
         and the checkpoints.  Returns the energy histories, the wall time,
-        the host time of each step, and the drop and margin counts."""
+        the host time of each step, and the drop and margin counts.  On an
+        object deck each step is _tiled_step_obj, rho_obj rides from step
+        to step, and the run leaves last_rho_obj and last_obj_potential
+        (numpy) behind."""
         t_start = time.monotonic()
         ke_hist, pe_hist = [], []
+        objects = self.objects is not None
+        obj_phi = None
         if self._resumed:
             st = self.state
+            rho_obj = self.rho_obj
         else:
-            st, rho, phi, E, diag = self._tiled_half_kick(self.state)
+            rho_obj = self._zeros() if objects else None
+            st, rho, phi, E, diag = (
+                self._tiled_half_kick_obj(self.state) if objects
+                else self._tiled_half_kick(self.state))
             ke_hist.append(diag.kin_energy.cpu().numpy())
             pe_hist.append(float(diag.pot_energy))
             if writer is not None:
                 self._write(writer, 0, st, (rho, phi, E), diag, ke_hist[0],
-                            pe_hist[0])
+                            pe_hist[0], rho_obj)
         step_seconds = []
         total_dropped = total_lost = 0
         debug = self.cfg.get_bool("methods:debug", False)
         max_vel = self.cfg.get_double("population:maxvel", 0.0)
         for n in range(self.start_step + 1, self.n_time_steps + 1):
             t0 = time.monotonic()
-            st, rho, phi, E, diag = self._tiled_step(st)
+            if objects:
+                (st, rho, phi, E, diag, rho_obj,
+                 obj_phi) = self._tiled_step_obj(st, rho_obj)
+            else:
+                st, rho, phi, E, diag = self._tiled_step(st)
             due = [s for s, R in enumerate(self.rebucket_every_s)
                    if n % R == 0]
             lost = int(diag.n_lost)
@@ -672,12 +950,13 @@ class TiledSimulation(Simulation):
             ke_hist.append(ke)
             pe_hist.append(pe)
             if writer is not None:
-                self._write(writer, n, st, (rho, phi, E), diag, ke, pe)
+                self._write(writer, n, st, (rho, phi, E), diag, ke, pe,
+                            rho_obj, obj_phi)
             if debug:
                 self._assert_invariants_tiled(st, rho, n, max_vel)
             if self.checkpoint_every and n % self.checkpoint_every == 0:
                 from . import checkpoint as _ckpt
-                _ckpt.save_tiled(self.cfg, n, st, self.tuning())
+                _ckpt.save_tiled(self.cfg, n, st, self.tuning(), rho_obj)
             step_seconds.append(time.monotonic() - t0)
             if progress_every and n % progress_every == 0:
                 msg(STATUS, "Computing time-step %i (KE=%g PE=%g)",
@@ -688,9 +967,15 @@ class TiledSimulation(Simulation):
         self.state = st
         if self._capacity * st.lpos.shape[0] <= 32_000_000:
             self.particles = self.to_particles(st)
+        if objects:
+            self.rho_obj = rho_obj
+            self.last_rho_obj = rho_obj.cpu().numpy()
+            self.last_obj_potential = (None if obj_phi is None
+                                       else obj_phi.cpu().numpy())
         if self.checkpoint_every:
             from . import checkpoint as _ckpt
-            _ckpt.save_tiled(self.cfg, self.n_time_steps, st, self.tuning())
+            _ckpt.save_tiled(self.cfg, self.n_time_steps, st, self.tuning(),
+                             rho_obj)
         return {"kinetic": _stack(ke_hist, st.lpos.shape[0]),
                 "potential": np.asarray(pe_hist),
                 "wall_time": wall, "step_seconds": np.asarray(step_seconds),
@@ -715,7 +1000,7 @@ class TiledSimulation(Simulation):
         if bad:
             msg(ERROR, "step %d: %d particle(s) outside the tile margin "
                 "[%g, %g)", n, bad, lo, hi)
-        if self.spec.periodic:
+        if self.spec.periodic and self.objects is None:
             mean = float(rho.double().mean())
             gross = self._gross_density(alive.sum(dim=(1, 2)))
             if abs(mean) > 1e-4 * gross:
@@ -887,7 +1172,10 @@ class TiledSimulation(Simulation):
         multiple of every cadence): on margin >= 2 decks with n a multiple
         of the fast cadence, the mega path then runs the per-step margin
         schedule.  run_n.plan is the window's sequence of
-        steps and re-bucket events."""
+        steps and re-bucket events.  On an object deck, see
+        _make_scan_steps_obj."""
+        if self.objects is not None:
+            return self._make_scan_steps_obj(n, donate)
         if self._use_mega:
             return self._make_scan_steps_mega(n, donate, fresh)
         plan = self._plan_generic(n)
@@ -900,6 +1188,31 @@ class TiledSimulation(Simulation):
             carry, outs, dropped = self._run_plan(
                 plan, body, (self._owned(st, donate),))
             return carry[0], _stack_outs(outs, dropped)
+        run_n.plan = plan
+        return run_n
+
+    def _make_scan_steps_obj(self, n: int, donate: bool = False):
+        """The window of an object deck: _tiled_step_obj a step (the whole
+        object sequence), rho_obj in the carry, the per-species re-bucket
+        schedule of _plan_generic.  Returns run_n(st, rho_obj=None) ->
+        ((state, rho_obj), (ke (n, S), pe (n,), dropped, phi_c (n,
+        n_objects))), every number on the device; rho_obj None starts
+        from zero charge."""
+        plan = self._plan_generic(n)
+
+        def body(carry, margins):
+            (st, rho, phi, E, diag, rho_obj,
+             obj_phi) = self._tiled_step_obj(*carry)
+            return (st, rho_obj), (diag.kin_energy, diag.pot_energy, obj_phi)
+
+        def run_n(st: TiledState, rho_obj=None):
+            if rho_obj is None:
+                rho_obj = self._zeros()
+            carry, outs, dropped = self._run_plan(
+                plan, body, (self._owned(st, donate), rho_obj))
+            ke, pe, dropped = _stack_outs(outs, dropped)
+            return carry, (ke, pe, dropped,
+                           torch.stack([o[2] for o in outs]))
         run_n.plan = plan
         return run_n
 

@@ -1446,3 +1446,54 @@ def test_bounded_step_on_the_card(cuda, walls):
     g = (s_gpu.state.lpos + tile_origins(s_gpu.ts, cuda).T[None, :, :, None])
     g = g.permute(1, 0, 2, 3)[:, s_gpu.state.alive > 0.5]       # (3, live)
     assert float(g.min()) >= 0.0 and float(g.max()) <= 15.0
+
+
+@pytest.mark.cuda
+def test_tiled_object_step_on_the_card(cuda):
+    """One tiled object step (run() with nTimeSteps = 1: the half kick and
+    _tiled_step_obj) on the slice deck with a sphere of radius 2.5 at the
+    grid's centre, given as domain=, on the card and on the CPU: K1 and K3
+    per species in the half kick and the step, K7 twice, never K2, K4 or
+    K5; the same alive counts, rho_obj within 1e-5 of max|rho_obj|, and the
+    charge of the particles and rho_obj conserved within 1e-5 of the gross
+    charge."""
+    from pinc_tpu_torch.objects import make_sphere
+    from pinc_tpu_torch.tiled_sim import TiledSimulation
+    dom = make_sphere((16,) * 3, (8, 8, 8), 2.5)
+    deck = ("[objects]\nobjects = sphere.grid.h5\n"
+            + DECK.replace("nTimeSteps = 6", "nTimeSteps = 1")
+            + "mxuDtype = f32\n")
+    runs = {}
+    for dev in ("cpu", cuda):
+        sim = TiledSimulation(PincConfig.from_string(deck), seed=3,
+                              device=dev, domain=dom)
+        q = sim.params.charge.double().cpu()
+        # the particles the initial cull keeps (its charge is discarded)
+        p0 = sim.to_particles(sim.state)
+        iid = sim.objects.interior_id.cpu().numpy()
+        c = p0.cell.cpu().numpy()
+        alive0 = torch.from_numpy(
+            (p0.alive.cpu().numpy()
+             & (iid[c[..., 0], c[..., 1], c[..., 2]] == 0)).sum(1)).double()
+        for m in (tk, fk, gx, ox):
+            m.reset_launches()
+        hist = sim.run(progress_every=0)
+        runs[str(dev)] = (hist, sim, q, alive0,
+                          {**tk.LAUNCHES, **fk.LAUNCHES, **gx.LAUNCHES,
+                           **ox.LAUNCHES})
+    (h_c, s_c, q, a0, _), (h_g, s_g, _, a0_g, n_g) = runs.values()
+    assert s_g.objects is not None and not s_g._use_fused
+    assert s_g.objects.interior_id.is_cuda and s_g.state.lpos.is_cuda
+    assert {k: v for k, v in n_g.items() if v} == {
+        "deposit": 4, "gather": 4, "fold_global": 2}
+    alive_c = (s_c.state.alive > 0.5).sum(dim=(1, 2))
+    alive_g = (s_g.state.alive > 0.5).sum(dim=(1, 2)).cpu()
+    assert torch.equal(alive_c, alive_g) and torch.equal(a0, a0_g)
+    rho_c, rho_g = s_c.last_rho_obj, s_g.last_rho_obj
+    np.testing.assert_allclose(rho_g, rho_c, rtol=0,
+                               atol=1e-5 * np.abs(rho_c).max())
+    np.testing.assert_allclose(h_g["kinetic"], h_c["kinetic"], rtol=1e-4)
+    total = float((q * alive_g.double()).sum()) + float(
+        np.sum(rho_g, dtype=np.float64))
+    gross = float((q.abs() * a0).sum())
+    assert abs(total - float((q * a0).sum())) <= 1e-5 * gross

@@ -325,7 +325,6 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override, match", [
-    ("objects:objects=sphere.h5", "objects"),
     ("grid:nSubdomains=2,1,1", "nSubdomains"),
 ])
 def test_unported_features_raise(tmp_path, override, match):
@@ -343,13 +342,21 @@ def test_unported_features_raise(tmp_path, override, match):
     (["methods:poisson=mgSolve"], "kinetic"),
     (["methods:debug=true", "population:maxVel=1"], "kinetic"),
     (["methods:mode=mgMode", "methods:poisson=mgSolve"], "cycles"),
+    (["objects:objects={sphere}"], "kinetic"),
 ])
 def test_ported_features_run(tmp_path, overrides, result):
     """The deck features test_unported_features_raise pinned before bc.py,
-    the multigrid solver, the debug guards and the run modes were ported
-    now run on the CPU."""
+    the multigrid solver, the debug guards, the run modes and the embedded
+    objects (objects.py; a sphere grid written by the port's save_domain)
+    were ported now run on the CPU."""
     deck = tmp_path / "deck.ini"
     deck.write_text(_deck("f32"))
+    if any("{sphere}" in o for o in overrides):
+        pytest.importorskip("h5py")
+        from pinc_tpu_torch.objects import make_sphere, save_domain
+        sphere = str(tmp_path / "sphere.grid.h5")
+        save_domain(sphere, make_sphere((16,) * 3, (8, 8, 8), 2.5))
+        overrides = [o.format(sphere=sphere) for o in overrides]
     out = {}
     assert main([str(deck), *overrides, "time:nTimeSteps=2"], out=out,
                 device="cpu") == 0
@@ -388,7 +395,7 @@ def test_no_jax_import():
         import pinc_tpu_torch.io_h5, pinc_tpu_torch.spool
         import pinc_tpu_torch.checkpoint, pinc_tpu_torch.native
         import pinc_tpu_torch.bc, pinc_tpu_torch.solvers.multigrid
-        import pinc_tpu_torch.pumodes
+        import pinc_tpu_torch.pumodes, pinc_tpu_torch.objects
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pinc_tpu")]
         assert not bad, bad
