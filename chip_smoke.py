@@ -170,6 +170,26 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    layout: the batched capacitance set-up (296 unit charges) timed, its
    first batch's cycle counts against the CPU's, then 5 steps of run()
    with 9.1's checks and every particle inside the walls.
+10. The multi-device layer (parallel/) on meshes that name the one card
+   several times.  10.1: input/bench_scaleout.ini as shipped (256 x 128 x
+   128, 2 x 32 a cell; each shard carries phase 3's per-card deck, at
+   phase 2's local shapes) through make_simulation(cfg, devices=[cuda:0,
+   cuda:0]): 20 steps of run() (per shard: K2 and K4 once a species a
+   step, K1 and K3 in the half kick, the gather exchange's kernels at each
+   species event; K6 and K7 never), then an untimed and a timed 40-step
+   make_scan_steps window (K5 once a shard a step), each with phase 3's
+   checks (no drop, alive conserved, energies finite and within 1%); ms a
+   step beside phase 3's run() and phase 5's aux window, and the share of
+   the torch fold/pad and their halo plane copies (CUDA events).  10.2:
+   the flat and the tiled class over (2, 2, 2) on [cuda:0] * 8 against the
+   same global deck on cuda:0, 8 steps, within the CPU tests' tolerances.
+   10.3: input/maxwellian.ini and input/langmuirCold.ini as shipped over
+   [cuda:0] * 4, 20 steps, the sharded multigrid's cycles a solve, against
+   the deck at nSubdomains = 1,1,1, trueSize = 32,32,32.  10.4: the
+   solvers at 256 x 128 x 128 over two shards: the replicated against the
+   pencil FFT, the sharded against the single V-cycle, ms of each.  10.5:
+   the CLI on maxwellian.ini: with fewer than four cards pinc_tpu's "deck
+   wants 4 devices", never the CPU.
 
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
@@ -2997,6 +3017,518 @@ def check_objects(modules, card: str, walled_ms: dict) -> None:
     print(f"phase 9: {time.monotonic() - t_phase:.1f} s", flush=True)
 
 
+# -- phase 10: the multi-device layer on a mesh of the one card ------------
+
+SCALEOUT_STEPS = 20   # run() steps of 10.1 (two electron re-bucket events)
+SCALEOUT_WINDOW = 40  # the 10.1 window: bench_scaleout.ini's nTimeSteps
+PARITY_STEPS = 8      # 10.2, a re-bucket every 2 steps on the tiled deck
+MG_DECK_STEPS = 20    # 10.3
+# 10.2's decks: tests/test_parallel.py's DECK_3D (flat) and
+# tests/test_tiled_sharded.py's deck (tiled), (2, 2, 2) at 8^3 local
+PARITY_FLAT = """
+[time]
+nTimeSteps = 8
+timeStep = 0.2
+[grid]
+nDims = 3
+nSubdomains = {nsub}
+trueSize = {ts}
+stepSize = 1
+boundaries = PERIODIC
+[population]
+nSpecies = 2
+nParticles = 8 pc
+nAlloc = 16 pc
+charge = -1,1
+mass = 1,1836
+multiplicity = auto
+thermalVelocity = 0.1,0.01
+drift = 0.3
+perturbAmplitude = 0.01,0,0,0,0,0
+perturbMode = 1,0,0,0,0,0
+[methods]
+mode = regular
+poisson = sSolve
+acc = puAcc3D1KE
+distr = puDistr3D1
+migrate = puExtractEmigrants3D
+"""
+PARITY_TILED = PARITY_FLAT.replace("8 pc", "4 pc").replace(
+    "16 pc", "4 pc").replace("0.1,0.01", "0.08,0.002").replace(
+    "drift = 0.3", "drift = 0.05").replace(
+    "perturbAmplitude = 0.01,0,0,0,0,0\nperturbMode = 1,0,0,0,0,0\n",
+    "") + "layout = tiled\n[tiles]\ntileSize = 4\nmargin = 1\n" \
+    "rebucketEvery = 2\n"
+
+
+def shard_counts(mesh, names) -> dict:
+    """{shard: {kernel: launches}} of the kernels ``names`` since the last
+    reset_shard_launches()."""
+    return {i: {k: c[k] for k in names if c[k]}
+            for i, c in sorted(mesh.SHARD_LAUNCHES.items())}
+
+
+def glue_ms(sim, card: str) -> dict:
+    """10.1's glue on the sharded tiled path, by CUDA events at the deck's
+    local shapes, over both shards: the torch fold of the density tiles,
+    the padded E tiles of K4 and of K5's window, each with its halo planes
+    from the other shard (roll_fns) and with the plain periodic roll in
+    their place; the difference is the plane copies and their cats."""
+    import torch
+    from pinc_tpu_torch.ops import tiled as tl
+    ctx, ln = sim.ctx, sim.ts_local
+    rolls = sim._roll_fns()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    tiles = [torch.rand((ln.NT, ln.P, ln.P * ln.P), device=d, generator=gen)
+             for d in ctx.devices]
+    E = [torch.rand(ctx.true_size + (3,), device=d, generator=gen)
+         for d in ctx.devices]
+    P = ln.P
+    parts = {
+        "fold": lambda r: lambda t: tl.fold_to_global(t, ln, roll_fns=r),
+        "pad": lambda r: lambda e: tl.pad_tiles(e, ln, roll_fns=r)
+        .float().contiguous(),
+        "pad_cmajor": lambda r: lambda e: tl.pad_tiles_cmajor(
+            e, ln, roll_fns=r).reshape(ln.NT, 3 * P, P * P).contiguous()}
+    out = {}
+    for name, make in parts.items():
+        arg = tiles if name == "fold" else E
+        out[name] = cuda_ms(lambda: ctx.shard_map(make(rolls), arg), 5, 1)
+        out[name + "_roll"] = cuda_ms(
+            lambda: [make(None)(a) for a in arg], 5, 1)
+    print("phase 10.1 glue, both shards, CUDA events around the call (" +
+          card + "): " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
+          + "; '_roll': the same op with the periodic roll in place of the "
+          "other shard's planes, the shards called in turn without threads "
+          "(the events see the host where it is slower than the card)",
+          flush=True)
+    return out
+
+
+def scaleout_breakdown(sim, card: str, steps: int = 2) -> None:
+    """10.1's device time of a run() step by torch.profiler (CUDA
+    activities of both shards' threads), on the state run() left: the
+    total and the largest kernels and ops a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    st = sim.state
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            st, *_ = sim._tiled_step(st)
+        torch.cuda.synchronize()
+    sim.state = st
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / 1e3
+             / steps) for e in prof.key_averages()]
+    rows = [r for r in rows if r[1] > 0]
+    rows.sort(key=lambda r: -r[1])
+    total = sum(ms for _, ms in rows)
+    print(f"phase 10.1 a run() step's device time (torch.profiler, {steps} "
+          f"steps, {card}): {total:.3f} ms; "
+          + "; ".join(f"{k[:48]} {ms:.3f}" for k, ms in rows[:8]),
+          flush=True)
+
+
+def check_scaleout(modules, card: str, prod, run_ms: float,
+                   window_ms: float) -> None:
+    """Phase 10.1: input/bench_scaleout.ini as shipped (256 x 128 x 128,
+    2 x 32 a cell: each shard carries phase 3's per-card deck) through
+    make_simulation(cfg, devices=[cuda:0, cuda:0])."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.parallel import mesh
+    from pinc_tpu_torch.parallel.pic import make_simulation
+    from pinc_tpu_torch.parallel.tiled_pic import ShardedTiledSimulation
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PincConfig.from_file(deck_path("bench_scaleout.ini", tmp),
+                                   [f"time:nTimeSteps={SCALEOUT_STEPS}"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    sim = make_simulation(cfg, devices=[dev, dev])
+    setup_s = time.monotonic() - t0
+    ln = sim.ts_local
+    check(isinstance(sim, ShardedTiledSimulation)
+          and sim.ctx.devices == [dev, dev] and sim._use_fused
+          and sim._use_mega and (ln.T, ln.M, ln.B, ln.NT)
+          == (prod.T, prod.M, prod.B, prod.NT),
+          f"phase 10.1: {type(sim).__name__} on {sim.ctx.devices}, local "
+          f"T={ln.T} M={ln.M} B={ln.B} NT={ln.NT} (phase 2 held the "
+          f"kernels at T={prod.T} M={prod.M} B={prod.B} NT={prod.NT})")
+    S = len(sim._charge)
+    n0 = sum(int((s.alive > 0.5).sum()) for s in sim.state)
+    print(f"phase 10.1 bench_scaleout.ini: {sim.ctx.n_subdomains} mesh of "
+          f"{sim.ctx.devices}, {sim.ts.ntiles} tiles ({ln.ntiles} a shard) "
+          f"of {ln.T}^3, B={ln.B}, M={ln.M}, cadences "
+          f"{sim.rebucket_every_s}, face cap {sim._exchange_cap}, rows "
+          f"{sim._exchange_rows}, solve "
+          f"{getattr(sim._solve, '__name__', type(sim._solve).__name__)}, "
+          f"{n0} particles, set-up {setup_s:.1f} s", flush=True)
+    step_names = ("deposit", "gather", "deposit_move", "gather_kick",
+                  "pic_step") + tuple(ROUTE_CALLS["gather"])
+    # run(): the launch counts set to 0 just before and read just after
+    for m in modules:
+        m.reset_launches()
+    mesh.reset_shard_launches()
+    hist = sim.run(progress_every=0)
+    torch.cuda.synchronize()
+    launches = {k: v for m in modules for k, v in m.LAUNCHES.items() if v}
+    per_shard = shard_counts(mesh, step_names)
+    # species events: the scheduled ones, and every species again at a
+    # step where a particle reached the margin (run()'s early re-bucket)
+    scheduled = sum(SCALEOUT_STEPS // R for R in sim.rebucket_every_s)
+    events = per_shard.get(0, {}).get("extract", 0)
+    want = {"deposit": S, "gather": S, "deposit_move": S * SCALEOUT_STEPS,
+            "gather_kick": S * SCALEOUT_STEPS}
+    want.update({k: n * events for k, n in ROUTE_CALLS["gather"].items()})
+    print(f"  run() launches per shard {per_shard}; all {launches}; "
+          f"{events} species events ({scheduled} scheduled, "
+          f"{hist['n_lost']} particle(s) reached the margin)", flush=True)
+    check(per_shard == {0: want, 1: want} and scheduled >= 2
+          and (events == scheduled
+               or (events > scheduled and hist["n_lost"] > 0))
+          and hist["dropped"] == 0
+          and launches == {k: 2 * v for k, v in want.items()},
+          f"phase 10.1 run(): per shard {per_shard}, expected {want} "
+          f"({events} species events, {scheduled} scheduled), "
+          f"{hist['n_lost']} margin hits, {hist['dropped']} dropped, all "
+          f"launches {launches}")
+    alive = sum(int((s.alive > 0.5).sum()) for s in sim.state)
+    ke, pe = hist["kinetic"].sum(axis=1), hist["potential"]
+    etot = ke + pe
+    drift = abs(etot[-1] - etot[0]) / abs(etot[0])
+    check(alive == n0 and all(math.isfinite(v) for v in list(ke) + list(pe))
+          and drift <= ENERGY_DRIFT,
+          f"phase 10.1 run(): alive {n0} -> {alive}, total energy drift "
+          f"{drift:.3e}")
+    steps_s = hist["step_seconds"][1:]
+    step_ms = float(sum(steps_s) / len(steps_s)) * 1e3
+    median_ms = sorted(steps_s)[len(steps_s) // 2] * 1e3
+    slow = sorted(range(len(steps_s)), key=lambda i: -steps_s[i])[:3]
+    print(f"  run(): {SCALEOUT_STEPS} steps, total energy {etot[0]:.9g} -> "
+          f"{etot[-1]:.9g} (relative change {drift:.3e}), alive {alive}, "
+          f"{step_ms:.3f} ms/step (mean of steps 2-{SCALEOUT_STEPS}, host "
+          f"clock, re-buckets and retune included; median "
+          f"{median_ms:.3f}; slowest "
+          + ", ".join(f"step {i + 2} {steps_s[i] * 1e3:.3f}" for i in slow)
+          + f") ({card})", flush=True)
+    scaleout_breakdown(sim, card)
+    # the window: an untimed, then a timed one
+    carry = sim.state
+    sim.state = None
+    run_n = sim.make_scan_steps(SCALEOUT_WINDOW, donate=True, fresh=True)
+    events = sum(len(a) for kind, a in run_n.plan if kind == "rebucket")
+    for window in ("warm", "timed"):
+        for m in modules:
+            m.reset_launches()
+        mesh.reset_shard_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        carry, (ke, pe, dropped) = run_n(carry)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: v for m in modules for k, v in m.LAUNCHES.items()
+                    if v}
+        per_shard = shard_counts(mesh, step_names)
+        want = {"deposit": S, "pic_step": SCALEOUT_WINDOW}
+        want.update({k: n * events
+                     for k, n in ROUTE_CALLS["gather"].items()})
+        alive = sum(int((s.alive > 0.5).sum()) for s in carry)
+        ke_np, pe_np = ke.cpu().numpy(), pe.cpu().numpy()
+        etot = ke_np.sum(axis=1) + pe_np
+        drift = abs(etot[-1] - etot[0]) / abs(etot[0])
+        check(per_shard == {0: want, 1: want}
+              and launches == {k: 2 * v for k, v in want.items()}
+              and int(dropped) == 0 and alive == n0
+              and bool(torch.isfinite(ke).all() and torch.isfinite(pe).all())
+              and drift <= ENERGY_DRIFT,
+              f"phase 10.1 {window} window: per shard {per_shard}, expected "
+              f"{want}, all {launches}, {int(dropped)} dropped, alive {n0} "
+              f"-> {alive}, drift {drift:.3e}")
+    win_ms = wall / SCALEOUT_WINDOW * 1e3
+    print(f"  window of {SCALEOUT_WINDOW} (K5 a shard a step, "
+          f"{events} species re-bucket events): launches per shard "
+          f"{per_shard}; timed {win_ms:.4f} ms/step, "
+          f"{n0 * SCALEOUT_WINDOW / wall:.4e} particle-steps/s; 0 dropped; "
+          f"alive {alive}; relative energy change {drift:.3e}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({card})", flush=True)
+    sim.state = carry
+    glue = glue_ms(sim, card)
+    run_glue = glue["fold"] + glue["pad"]
+    win_glue = glue["fold"] + glue["pad_cmajor"]
+    copies = run_glue - glue["fold_roll"] - glue["pad_roll"]
+    print(f"phase 10.1 ms a step ({card}): two shards on one card run() "
+          f"{step_ms:.3f} (median {median_ms:.3f}), window {win_ms:.4f}; "
+          f"one card's deck (phase 3's "
+          f"run() {run_ms:.3f}, phase 5's aux window {window_ms:.4f}); the "
+          f"torch fold/pad {run_glue:.3f} ms of a run() step "
+          f"({run_glue / median_ms:.1%} of the median), {win_glue:.3f} ms of "
+          f"a window step "
+          f"({win_glue / win_ms:.1%}), of which the halo plane copies and "
+          f"their cats {copies:.4f} ms", flush=True)
+    del sim, carry, run_n
+    torch.cuda.empty_cache()
+
+
+def check_mesh_parity(card: str) -> None:
+    """Phase 10.2: the flat and the tiled class over (2, 2, 2) on
+    [cuda:0] * 8 against the same global deck on cuda:0, from one host
+    state (the same seed), 8 steps of run() (the tiled deck re-buckets
+    every 2): KE within 1e-4 and PE within 1e-3 of their maxima (the CPU
+    tests' tolerances), no drop, equal alive counts; on the tiled deck
+    (B = 384) every shard launches the same kernels, K11's per-tile
+    sweeps at its re-buckets."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.parallel import mesh
+    from pinc_tpu_torch.parallel.pic import make_simulation
+    dev = torch.device("cuda", 0)
+    for label, deck in (("flat", PARITY_FLAT), ("tiled", PARITY_TILED)):
+        t0 = time.monotonic()
+        one = make_simulation(PincConfig.from_string(
+            deck.format(nsub="1,1,1", ts="16,16,16")), device=dev)
+        sim = make_simulation(PincConfig.from_string(
+            deck.format(nsub="2,2,2", ts="8,8,8")), devices=[dev] * 8)
+        h1 = one.run(progress_every=0)
+        mesh.reset_shard_launches()
+        hN = sim.run(progress_every=0)
+        torch.cuda.synchronize()
+        counts = {i: dict(c) for i, c in sorted(mesh.SHARD_LAUNCHES.items())}
+        ke1, keN = h1["kinetic"].sum(1), hN["kinetic"].sum(1)
+        pe1, peN = h1["potential"], hN["potential"]
+        dke = float(abs(ke1 - keN).max() / abs(ke1).max())
+        dpe = float(abs(pe1 - peN).max() / abs(pe1).max())
+        if label == "flat":
+            n1 = one.particles.counts().tolist()
+            nN = sim.gather_particles().counts().tolist()
+            dropped = 0
+        else:
+            n1 = int(one.state.alive.sum())
+            nN = sum(int(s.alive.sum()) for s in sim.state)
+            dropped = h1["dropped"] + hN["dropped"]
+            # B = 384: each shard re-buckets with K11's per-tile sweeps
+            route = ROUTE_CALLS["onehot_tile"]
+            S = len(sim._charge)
+            check(sorted(counts) == list(range(8))
+                  and all(c == counts[0] for c in counts.values())
+                  and counts[0].get("deposit_move") == S * PARITY_STEPS
+                  and all(counts[0].get(k, 0) > 0 for k in route),
+                  f"phase 10.2 tiled: launches per shard {counts}")
+            print(f"  launches per shard (each of the 8 the same): "
+                  f"{counts[0]}", flush=True)
+        check(dke < 1e-4 and dpe < 1e-3 and n1 == nN and dropped == 0,
+              f"phase 10.2 {label}: KE {dke:.3e}, PE {dpe:.3e} relative, "
+              f"alive {n1} vs {nN}, dropped {dropped}")
+        print(f"phase 10.2 {label} {type(sim).__name__} over 8 shards of "
+              f"cuda:0 vs {type(one).__name__}: {PARITY_STEPS} steps, KE "
+              f"within {dke:.3e} and PE within {dpe:.3e} of their maxima, "
+              f"alive {nN}, {time.monotonic() - t0:.1f} s ({card})",
+              flush=True)
+        del one, sim
+    torch.cuda.empty_cache()
+
+
+def deposit_corner_ms(sim, name: str, card: str) -> None:
+    """The flat deposit's adds, one CIC corner of the deck's particles:
+    ops/cic.scatter_cic's index_add_ on the flat grid against the
+    index_put_(accumulate=True) it replaced (CUDA events)."""
+    import torch
+    from pinc_tpu_torch.ops import cic
+    p = sim.particles
+    S, cap, D = p.cell.shape
+    shape = sim.spec.global_size
+    idx = cic._corner_indices(p.cell.reshape(-1, D), (0,) * D, shape,
+                              True)
+    w = cic._corner_weight(p.frac.reshape(-1, D), (0,) * D)
+    lin = cic._linear(idx, shape)
+    flat = torch.zeros(math.prod(shape), device=w.device)
+    grid = torch.zeros(shape, device=w.device)
+    add_ms = cuda_ms(lambda: flat.index_add_(0, lin, w), 5, 1)
+    put_ms = cuda_ms(lambda: grid.index_put_(idx, w, accumulate=True), 2, 1)
+    print(f"phase 10.3 {name} at {shape} ({S} x {cap} slots): the flat "
+          f"deposit's adds, one CIC corner, index_add_ {add_ms:.3f} ms, "
+          f"index_put_(accumulate=True) {put_ms:.3f} ms ({card})",
+          flush=True)
+
+
+def check_mg_decks(card: str) -> None:
+    """Phase 10.3: input/maxwellian.ini and input/langmuirCold.ini as
+    shipped (nSubdomains 1,2,2 of 32 x 16 x 16, mgSolve / mgSolver; without
+    files:output, the host has no h5py) over [cuda:0] * 4, 20 steps of
+    run(), against the deck at nSubdomains = 1,1,1, trueSize = 32,32,32 on
+    cuda:0: the sharded multigrid's cycles a solve, finite energies,
+    particles conserved; KE within 1e-4 and PE within 1e-3 of their
+    maxima (the CPU tests' tolerances)."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.parallel.mg import ShardedMultigridSolver
+    from pinc_tpu_torch.parallel.pic import ShardedSimulation, make_simulation
+    dev = torch.device("cuda", 0)
+    for name in ("maxwellian.ini", "langmuirCold.ini"):
+        runs = {}
+        for label, extra, devices in (
+                ("sharded", [], [dev] * 4),
+                ("single", ["grid:nSubdomains=1,1,1",
+                            "grid:trueSize=32,32,32"], None)):
+            with tempfile.TemporaryDirectory() as tmp:
+                cfg = PincConfig.from_file(
+                    deck_path(name, tmp, output=False),
+                    [f"time:nTimeSteps={MG_DECK_STEPS}", *extra])
+            sim = make_simulation(cfg, devices=devices, device=dev)
+            solver = sim._solve if label == "sharded" else sim.solver
+            if label == "single":
+                deposit_corner_ms(sim, name, card)
+            cycles = []
+            solve = solver.solve_with_stats
+
+            def counted(*a, solve=solve, cycles=cycles):
+                out = solve(*a)
+                cycles.append(out[1])
+                return out
+            solver.solve_with_stats = counted
+            n0 = (sim.gather_particles() if label == "sharded"
+                  else sim.particles).counts().tolist()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            hist = sim.run(progress_every=0)
+            wall = time.monotonic() - t0
+            n1 = (sim.gather_particles() if label == "sharded"
+                  else sim.particles).counts().tolist()
+            ok = (isinstance(sim, ShardedSimulation)
+                  and isinstance(solver, ShardedMultigridSolver)
+                  if label == "sharded" else type(sim).__name__ ==
+                  "Simulation")
+            check(ok and n0 == n1 and len(cycles) == MG_DECK_STEPS + 1
+                  and bool(np_finite(hist["kinetic"])
+                           and np_finite(hist["potential"])),
+                  f"phase 10.3 {name} {label}: {type(sim).__name__}, "
+                  f"{type(solver).__name__}, alive {n0} -> {n1}, "
+                  f"{len(cycles)} solves")
+            runs[label] = (hist, cycles, wall, sim.particles
+                           if label == "single" else None)
+            del sim
+        (h, cyc, wall), (h1, cyc1, wall1) = (runs["sharded"][:3],
+                                             runs["single"][:3])
+        ke, ke1 = h["kinetic"].sum(1), h1["kinetic"].sum(1)
+        dke = float(abs(ke - ke1).max() / abs(ke1).max())
+        dpe = float(abs(h["potential"] - h1["potential"]).max()
+                    / abs(h1["potential"]).max())
+        check(dke < 1e-4 and dpe < 1e-3,
+              f"phase 10.3 {name}: KE {dke:.3e}, PE {dpe:.3e} relative to "
+              f"the single-device run")
+        print(f"phase 10.3 {name} over 4 shards of cuda:0: "
+              f"{MG_DECK_STEPS} steps, {wall / MG_DECK_STEPS * 1e3:.1f} "
+              f"ms/step (host clock, set-up excluded; one device "
+              f"{wall1 / MG_DECK_STEPS * 1e3:.1f}), multigrid cycles a "
+              f"solve {sorted(set(cyc))} (one device {sorted(set(cyc1))}), "
+              f"KE within {dke:.3e} and PE within {dpe:.3e} of the one "
+              f"device's ({card})", flush=True)
+    torch.cuda.empty_cache()
+
+
+def check_sharded_solvers(card: str) -> None:
+    """Phase 10.4: the solvers at 256 x 128 x 128 over two shards of
+    cuda:0 (bench_scaleout.ini's mesh): the replicated FFT against the
+    pencil FFT within 1e-5 of max|phi|, and the sharded multigrid (2
+    V-cycles, maxwellian.ini's [multigrid]: 4 levels, 10/10/10 sweeps)
+    against the single-device one on the same rho within 1e-4 of
+    max|phi| (the card-vs-CPU bound of tests/test_torch_cuda.py); ms of
+    each by CUDA events."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.parallel.mesh import make_mesh
+    from pinc_tpu_torch.parallel.mg import ShardedMultigridSolver, from_single
+    from pinc_tpu_torch.parallel.pencil_fft import (PencilSpectralSolver,
+                                                    make_sharded_solver)
+    from pinc_tpu_torch.solvers.multigrid import MultigridSolver
+    from pinc_tpu_torch.solvers.spectral import SpectralSolver
+    dev = torch.device("cuda", 0)
+    shape = (256, 128, 128)
+    ctx = make_mesh((2, 1, 1), (128, 128, 128), devices=[dev, dev])
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rho = torch.randn(shape, device=dev, generator=gen)
+    rho -= rho.mean()
+    blocks = ctx.split(rho)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PincConfig.from_file(deck_path("bench_scaleout.ini", tmp))
+    rep = make_sharded_solver(SpectralSolver(shape), ctx, cfg, torch.float32)
+    cfg.set_str("parallel:pencilfft", "true")
+    pen = make_sharded_solver(SpectralSolver(shape), ctx, cfg, torch.float32)
+    check(not isinstance(rep, PencilSpectralSolver)
+          and isinstance(pen, PencilSpectralSolver),
+          "phase 10.4: the solver dispatch did not take the replicated and "
+          "the pencil FFT")
+    phi_r, phi_p = ctx.gather(rep(blocks)), ctx.gather(pen(blocks))
+    scale = float(phi_r.abs().max())
+    d_fft = float((phi_r - phi_p).abs().max()) / scale
+    one = SpectralSolver(shape)
+    ms = {"replicated": cuda_ms(lambda: rep(blocks), 5, 1),
+          "pencil": cuda_ms(lambda: pen(blocks), 5, 1),
+          "one device": cuda_ms(lambda: one(rho), 5, 1)}
+    mg_args = dict(n_levels=4, n_pre=10, n_post=10, n_coarse=10,
+                   max_cycles=2, tol=0.0)
+    mg1 = MultigridSolver(shape, **mg_args)
+    mgN = from_single(mg1, ctx, cfg, torch.float32)
+    check(isinstance(mgN, ShardedMultigridSolver) and mgN.n_levels == 4,
+          "phase 10.4: from_single did not keep the 4 levels")
+    phi1, c1, _ = mg1.solve_with_stats(rho)
+    phiN, cN, _ = mgN.solve_with_stats(blocks)
+    d_mg = float((ctx.gather(phiN) - phi1).abs().max()) / float(
+        phi1.abs().max())
+    ms["mg sharded"] = cuda_ms(lambda: mgN.solve_with_stats(blocks), 2, 1)
+    ms["mg one device"] = cuda_ms(lambda: mg1.solve_with_stats(rho), 2, 1)
+    check(d_fft <= 1e-5 and d_mg <= 1e-4 and c1 == cN == 2,
+          f"phase 10.4: pencil vs replicated {d_fft:.3e}, sharded vs "
+          f"single multigrid {d_mg:.3e} of max|phi| ({cN}, {c1} cycles)")
+    print(f"phase 10.4 solvers at {shape} over 2 shards of cuda:0: pencil "
+          f"within {d_fft:.3e} of the replicated FFT, the sharded "
+          f"multigrid within {d_mg:.3e} of the single one (2 V-cycles); "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f" a solve ({card})", flush=True)
+    del rho, blocks, phi_r, phi_p, phi1, phiN
+    torch.cuda.empty_cache()
+
+
+def check_cli_cards(cli_main, card: str) -> None:
+    """Phase 10.5: the CLI on input/maxwellian.ini as shipped (4
+    subdomains) takes the visible cards: with fewer than four it raises
+    pinc_tpu's "deck wants 4 devices", and never falls back to the CPU;
+    with four or more it runs on them."""
+    import torch
+    n = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = deck_path("maxwellian.ini", tmp, output=False)
+        out: dict = {}
+        try:
+            rc = cli_main([deck, "time:nTimeSteps=2"], out=out)
+        except ValueError as e:
+            check(n < 4 and "deck wants 4 devices" in str(e),
+                  f"phase 10.5: {n} card(s), the CLI raised {e!r}")
+            print(f"phase 10.5 the CLI on maxwellian.ini with {n} card(s): "
+                  f"raised {e} ({card})", flush=True)
+            return
+    devs = out["sim"].ctx.devices
+    check(n >= 4 and rc == 0 and all(d.type == "cuda" for d in devs),
+          f"phase 10.5: {n} card(s), rc {rc}, the mesh {devs}")
+    print(f"phase 10.5 the CLI on maxwellian.ini with {n} cards: ran on "
+          f"{devs} ({card})", flush=True)
+
+
+def check_parallel(cli_main, modules, prod, card: str, run_ms: float,
+                   window_ms: float) -> None:
+    """Phase 10: the multi-device layer (parallel/) on meshes of the one
+    card (see the module docstring)."""
+    t_phase = time.monotonic()
+    check_scaleout(modules, card, prod, run_ms, window_ms)
+    check_mesh_parity(card)
+    check_mg_decks(card)
+    check_sharded_solvers(card)
+    check_cli_cards(cli_main, card)
+    print(f"phase 10: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3332,6 +3864,9 @@ def main() -> int:
 
     # -- phase 9: embedded objects ----------------------------------------
     check_objects(modules, card, walled_ms)
+
+    # -- phase 10: the multi-device layer on meshes of the one card -------
+    check_parallel(cli_main, modules, prod, card, run_ms, aux["ms_step"])
 
     rows = [{"name": name, "route": "cuda",
              "source": getattr(m, "SOURCES", {}).get(name, m.SOURCE),

@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -101,6 +102,7 @@ SIGNATURES = {
 }
 
 _lib = None
+_LOAD_LOCK = threading.Lock()
 #: wall seconds of the last nvcc run in this process (0.0 if none ran)
 build_seconds = 0.0
 
@@ -175,13 +177,15 @@ def build(verbose: bool = False) -> Path:
 
 
 def load(verbose: bool = False) -> ctypes.CDLL:
-    """The bound kernel library (built first if needed)."""
+    """The bound kernel library (built first if needed; the shards of a
+    mesh may ask for it from several threads at once)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build(verbose=verbose)))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _LOAD_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build(verbose=verbose)))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib

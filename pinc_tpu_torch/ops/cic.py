@@ -4,13 +4,14 @@ counterpart of ``pinc_tpu/ops/cic.py``.
 Reference: ``puInterp3D1``/``puInterpND1``/``puInterpND0``
 (src/pusher.c:1089-1178) and ``puDistr3D1``/``puDistrND1``/``puDistrND0``
 (src/pusher.c:512-678).  Gather is 2^D wrapped corner lookups + lerp;
-scatter is 2^D ``index_put_(accumulate=True)`` adds.  Positions arrive in
+scatter is 2^D ``index_add_`` adds on the flat grid.  Positions arrive in
 split (cell:int32, frac:float) form, so CIC weights are exact.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -89,6 +90,19 @@ def gather_ngp(field: torch.Tensor, cell: torch.Tensor, frac: torch.Tensor,
     return field[_wrap_or_clamp_near(near, L, periodic)]
 
 
+def _linear(idx, shape: Sequence[int]) -> torch.Tensor:
+    """Per-dim node indices -> flat indices of a row-major grid.  The
+    deposits add with index_add_ on the flat grid: on a card that is one
+    atomic add a contribution, where index_put_(accumulate=True) sorts the
+    indices and walks each node's duplicates (one CIC corner of 2 x 3.1 M
+    slots on 32^3 nodes: 3.7 against 248 ms, H100; chip_smoke.py phase
+    10.3)."""
+    lin = idx[0]
+    for d in range(1, len(idx)):
+        lin = lin * shape[d] + idx[d]
+    return lin
+
+
 def scatter_cic(shape: Sequence[int], cell: torch.Tensor, frac: torch.Tensor,
                 value: torch.Tensor, periodic=True,
                 dtype=torch.float32) -> torch.Tensor:
@@ -97,12 +111,12 @@ def scatter_cic(shape: Sequence[int], cell: torch.Tensor, frac: torch.Tensor,
     charge * alive-mask, so dead slots deposit exactly zero.
     cell/frac: (N, D); value: (N,)."""
     D = cell.shape[-1]
-    rho = torch.zeros(tuple(shape), dtype=dtype, device=cell.device)
+    rho = torch.zeros(math.prod(shape), dtype=dtype, device=cell.device)
     for offsets in itertools.product((0, 1), repeat=D):
         idx = _corner_indices(cell, offsets, shape, periodic)
         w = _corner_weight(frac, offsets) * value
-        rho.index_put_(idx, w.to(dtype), accumulate=True)
-    return rho
+        rho.index_add_(0, _linear(idx, shape), w.to(dtype))
+    return rho.reshape(tuple(shape))
 
 
 def scatter_ngp(shape: Sequence[int], cell: torch.Tensor, frac: torch.Tensor,
@@ -111,6 +125,6 @@ def scatter_ngp(shape: Sequence[int], cell: torch.Tensor, frac: torch.Tensor,
     """NGP deposition: all charge to the nearest node (puDistrND0)."""
     near = cell + (frac >= 0.5).to(cell.dtype)
     idx = _wrap_or_clamp_near(near, tuple(shape), periodic)
-    rho = torch.zeros(tuple(shape), dtype=dtype, device=cell.device)
-    rho.index_put_(idx, value.to(dtype), accumulate=True)
-    return rho
+    rho = torch.zeros(math.prod(shape), dtype=dtype, device=cell.device)
+    rho.index_add_(0, _linear(idx, shape), value.to(dtype))
+    return rho.reshape(tuple(shape))

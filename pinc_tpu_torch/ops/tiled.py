@@ -160,11 +160,18 @@ def global_positions(lpos: torch.Tensor, ts: TileSpec) -> torch.Tensor:
 # Fold: padded tile blocks -> global grid (periodic overlap-add)
 # ---------------------------------------------------------------------------
 
+def _roll(a: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
+    return torch.roll(a, shift, axis)
+
+
 def _fold_axis(x: torch.Tensor, tile_ax: int, node_ax: int,
-               ts: TileSpec) -> torch.Tensor:
+               ts: TileSpec, roll_fn=None) -> torch.Tensor:
     """Overlap-add one dimension: node range [-M, T+M] -> [0, T) with the
     M low planes rolled to the previous tile and the M+1 high planes rolled
-    to the next (periodic tile wrap)."""
+    to the next (periodic tile wrap).  roll_fn(x, shift, axis) replaces
+    the tile-axis roll (the sharded path fetches the wrapping plane from
+    the neighbouring shard, parallel.halo.shifted_tiles)."""
+    roll = roll_fn or _roll
     M, T = ts.M, ts.T
 
     def zeros(n):
@@ -175,19 +182,22 @@ def _fold_axis(x: torch.Tensor, tile_ax: int, node_ax: int,
     out = x.narrow(node_ax, M, T)                      # offsets 0..T-1
     if M > 0:
         # low planes (offsets -M..-1) land at the previous tile's T-M..T-1
-        low = torch.roll(x.narrow(node_ax, 0, M), -1, dims=tile_ax)
+        low = roll(x.narrow(node_ax, 0, M), -1, tile_ax)
         out = out + torch.cat([zeros(T - M), low], dim=node_ax)
     # high planes (offsets T..T+M) land at the next tile's 0..M
-    high = torch.roll(x.narrow(node_ax, T + M, M + 1), 1, dims=tile_ax)
+    high = roll(x.narrow(node_ax, T + M, M + 1), 1, tile_ax)
     return out + torch.cat([high, zeros(T - M - 1)], dim=node_ax)
 
 
-def fold_to_global(tiles: torch.Tensor, ts: TileSpec) -> torch.Tensor:
-    """(NT, P..P) padded tile blocks -> (X, Y, ...) global grid."""
+def fold_to_global(tiles: torch.Tensor, ts: TileSpec,
+                   roll_fns=None) -> torch.Tensor:
+    """(NT, P..P) padded tile blocks -> (X, Y, ...) global grid.
+    roll_fns: per-dim replacements of the tile-axis roll (sharded halos)."""
     D = ts.n_dims
     x = tiles.reshape(ts.ntiles + (ts.P,) * D)
     for d in range(D):
-        x = _fold_axis(x, tile_ax=d, node_ax=D + d, ts=ts)
+        x = _fold_axis(x, tile_ax=d, node_ax=D + d, ts=ts,
+                       roll_fn=roll_fns[d] if roll_fns else None)
     # interleave (n0, n1, .., T, T, ..) -> (n0, T, n1, T, ...)
     perm = []
     for d in range(D):
@@ -195,9 +205,46 @@ def fold_to_global(tiles: torch.Tensor, ts: TileSpec) -> torch.Tensor:
     return x.permute(perm).reshape(ts.grid)
 
 
-def pad_tiles(field: torch.Tensor, ts: TileSpec) -> torch.Tensor:
+def _pad_tile_axes(x: torch.Tensor, ts: TileSpec, node0: int,
+                   roll_fns=None) -> torch.Tensor:
+    """Pad the node axes node0 + d of a tile-major array (tile axes 0..D-1)
+    with the M low planes of the previous tile and the M+1 high planes of
+    the next, dim by dim (corners correct)."""
+    for d in range(ts.n_dims):
+        roll = (roll_fns[d] if roll_fns else None) or _roll
+        node_ax = node0 + d
+        n = x.shape[node_ax]
+        lo = roll(x.narrow(node_ax, n - ts.M, ts.M), 1, d)
+        hi = roll(x.narrow(node_ax, 0, ts.M + 1), -1, d)
+        x = torch.cat([lo, x, hi], dim=node_ax)
+    return x
+
+
+def pad_tiles_cmajor(field: torch.Tensor, ts: TileSpec,
+                     roll_fns=None) -> torch.Tensor:
+    """Global (grid..., C) -> component-major padded tiles (NT, C, P,
+    P**(D-1)): the E layout of pic_step (efield_tiles' (NT, C*P, P*P) at
+    D = 3), the C axis placed in the tile transpose.  roll_fns: per-dim
+    replacements of the tile-axis roll (sharded halos)."""
+    D = ts.n_dims
+    nt = ts.ntiles
+    C = field.shape[-1]
+    shape = []
+    for d in range(D):
+        shape += [nt[d], ts.T]
+    x = field.reshape(shape + [C])
+    # (n0, T0, n1, T1, .., C) -> (n0, n1, .., C, T0, T1, ..)
+    perm = ([2 * d for d in range(D)] + [2 * D]
+            + [2 * d + 1 for d in range(D)])
+    x = _pad_tile_axes(x.permute(perm), ts, D + 1, roll_fns)
+    return x.reshape(ts.NT, C, ts.P, ts.P ** (D - 1))
+
+
+def pad_tiles(field: torch.Tensor, ts: TileSpec,
+              roll_fns=None) -> torch.Tensor:
     """Global (grid..., C) or (grid...) -> (NT, P.., [C]) padded blocks
-    (periodic).  Sequential per dim so corners are correct."""
+    (periodic).  Sequential per dim so corners are correct.  roll_fns:
+    per-dim replacements of the tile-axis roll (sharded halos)."""
     D = ts.n_dims
     nt = ts.ntiles
     vec = field.ndim == D + 1
@@ -212,13 +259,7 @@ def pad_tiles(field: torch.Tensor, ts: TileSpec) -> torch.Tensor:
     perm = [2 * d for d in range(D)] + [2 * d + 1 for d in range(D)]
     if vec:
         perm.append(2 * D)
-    x = x.permute(perm)
-    for d in range(D):
-        node_ax = D + d
-        n = x.shape[node_ax]
-        lo = torch.roll(x.narrow(node_ax, n - ts.M, ts.M), 1, dims=d)
-        hi = torch.roll(x.narrow(node_ax, 0, ts.M + 1), -1, dims=d)
-        x = torch.cat([lo, x, hi], dim=node_ax)
+    x = _pad_tile_axes(x.permute(perm), ts, D, roll_fns)
     return x.reshape((ts.NT,) + (ts.P,) * D + ((C,) if vec else ()))
 
 

@@ -35,12 +35,17 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import _cuda_build
 from .tiled import TileSpec
+from ..parallel import mesh as _mesh
+
+# the shards of a mesh launch from their own threads (parallel/mesh.py)
+_COUNT_LOCK = threading.Lock()
 
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"deposit": 0, "deposit_move": 0, "gather": 0, "gather_kick": 0,
@@ -379,12 +384,15 @@ def _planes_shape(xyz: torch.Tensor, ts: TileSpec) -> Tuple[int, int]:
 
 def _launch(name: str, fn, *args, counts: Optional[dict] = None) -> None:
     """Call the C entry point fn(*args), raise on a nonzero launch error,
-    and add one to counts[name] (default: this module's LAUNCHES)."""
+    and add one to counts[name] (default: this module's LAUNCHES) and,
+    inside a shard's work, to the shard's count (parallel.mesh)."""
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {err})")
-    (LAUNCHES if counts is None else counts)[name] += 1
+    with _COUNT_LOCK:
+        (LAUNCHES if counts is None else counts)[name] += 1
+    _mesh.note_launch(name)
 
 
 def _is_cpu(t: torch.Tensor, name: str) -> bool:

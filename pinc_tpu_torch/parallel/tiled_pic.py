@@ -1,0 +1,371 @@
+"""Sharded x tiled: the tiled layout over a device mesh (the counterpart of
+``pinc_tpu/parallel/tiled_pic.py``).
+
+Tiles are already a spatial decomposition, so the mesh partitions the tile
+grid: each shard holds the tiles of its block as its own (S, D, NT_local,
+B) TiledState, and every inter-tile wrap that the single-device path
+makes with a periodic roll along a tile axis fetches, at a shard boundary,
+one plane from the neighbouring shard (``parallel.halo.shifted_tiles``):
+
+* the deposition overlap-add fold -> ``ops.tiled.fold_to_global(roll_fns=)``
+* the field tile padding            -> ``ops.tiled.pad_tiles(roll_fns=)``
+  (``pad_tiles_cmajor`` for the mega body's E tiles)
+* the re-bucket's neighbour moves   -> ``ops.exchange.rebucket_exchange_planes
+  (roll_fns=)``, the gather (K8-K10) or the one-hot (K11) exchange
+
+This mirrors the reference's communication: gHaloOp's per-dimension
+Sendrecv sweeps (src/grid.c:340-406) and puMigrate's neighbour payload
+exchange (src/pusher.c:914-1035).  Each shard's part runs in its thread
+of ``MeshCtx.shard_map`` and launches the tiled kernels at the local
+shapes (``ts_local``): K2 and K4 in ``run()``'s step, K1 and K3 in the
+half kick and on walled decks, K5 in the window's mega body, K8-K11 in the
+re-bucket.  The fold and the padding are plain tensor ops plus halo
+planes, as ``pinc_tpu``'s are XLA there: K6 and K7 stay the
+single-device path's kernels.  The solve and E = -grad(phi) are those of
+``parallel/pic.py``.
+
+Embedded objects (``pinc_tpu/parallel/tiled_pic.py:96-128``, ``:365-530``)
+are not ported: ``simulation.check_supported`` raises for them.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import List
+
+import numpy as np
+import torch
+
+from ..config import PincConfig
+from ..grid import GridSpec
+from ..ops import tiled as tl
+from ..ops import tiled_kernels as tk
+from ..simulation import Diagnostics
+from ..tiled_sim import TiledSimulation, TiledState, _stack_outs
+from ..utils.logging import STATUS, msg
+from .halo import shifted_tiles
+from .mesh import make_mesh
+from .pic import solve_fields
+
+
+class ShardedTiledSimulation(TiledSimulation):
+    """Tiled layout over a grid:nSubdomains device mesh; ``state`` is the
+    list of per-shard TiledStates in mesh order."""
+
+    def __init__(self, cfg: PincConfig, seed: int = 1, devices=None):
+        spec = GridSpec.from_config(cfg)
+        ctx = make_mesh(spec.n_subdomains, spec.true_size, devices=devices)
+        super().__init__(cfg, seed=seed, device=ctx.devices[0])
+        if self._rebucket_mode != "exchange":
+            raise ValueError(
+                "the sharded tiled path supports tiles:rebucket=exchange "
+                "only (a per-device sort cannot re-home cross-device "
+                "migrants); drop the tiles:rebucket override or use a "
+                "single device")
+        self.ctx = ctx
+        for t, n in zip(ctx.true_size, ctx.n_subdomains):
+            if n > 1 and t % self.ts.T != 0:
+                raise ValueError(
+                    f"local grid extent {t} not divisible by tile "
+                    f"{self.ts.T}")
+        self.ts_local = tl.TileSpec(grid=ctx.true_size, T=self.ts.T,
+                                    M=self.ts.M, B=self.ts.B)
+        self.state = self._shard_state(self.state)
+        from .pencil_fft import make_sharded_solver
+        self._solve = make_sharded_solver(self.solver, ctx, cfg,
+                                          self.spec.dtype)
+        msg(STATUS, "sharded tiled layout: %s device mesh over %s tiles",
+            ctx.n_subdomains, self.ts.ntiles)
+
+    # ---------------------------------------------------------- placement
+    def _tile_block(self, i: int):
+        """Shard i's block of the global tile grid, as slices."""
+        lnt = self.ts_local.ntiles
+        return tuple(slice(c * n, (c + 1) * n)
+                     for c, n in zip(self.ctx.coords(i), lnt))
+
+    def _shard_state(self, st: TiledState) -> List[TiledState]:
+        """(S, D, NT, B) global state -> the shards' states: each shard's
+        cuboid of the (x-major) tile grid, copied onto its device."""
+        S, D, _, B = st.lpos.shape
+        gnt, NTl = self.ts.ntiles, self.ts_local.NT
+        out = []
+        for i, dev in enumerate(self.ctx.devices):
+            blk = self._tile_block(i)
+
+            def cut(a, lead):
+                g = a.reshape(lead + gnt + (B,))
+                sl = (slice(None),) * len(lead) + blk
+                return g[sl].reshape(lead + (NTl, B)).to(
+                    dev, copy=True).contiguous()
+            out.append(TiledState(lpos=cut(st.lpos, (S, D)),
+                                  vel=cut(st.vel, (S, D)),
+                                  alive=cut(st.alive, (S,))))
+        return out
+
+    def _flat_state(self, st: List[TiledState]) -> TiledState:
+        """The shards' states as one global (S, D, NT, B) state on the first
+        shard's device (the inverse of _shard_state)."""
+        S, D, _, B = st[0].lpos.shape
+        gnt, lnt = self.ts.ntiles, self.ts_local.ntiles
+        dev = self.ctx.devices[0]
+
+        def put(name, lead):
+            g = torch.empty(lead + gnt + (B,), dtype=torch.float32,
+                            device=dev)
+            for i, s in enumerate(st):
+                g[(slice(None),) * len(lead) + self._tile_block(i)].copy_(
+                    getattr(s, name).reshape(lead + lnt + (B,)))
+            return g.reshape(lead + (self.ts.NT, B))
+        return TiledState(lpos=put("lpos", (S, D)), vel=put("vel", (S, D)),
+                          alive=put("alive", (S,)))
+
+    def _roll_fns(self):
+        """Per-dim tile-axis wrap: a plane from the neighbouring shard."""
+        ctx = self.ctx
+        return [(lambda a, s, ax, d=d: shifted_tiles(a, ax, s, ctx, d))
+                for d in range(len(ctx.axes))]
+
+    # -------------------------------------------------------- local parts
+    def _local_fields(self, stl: TiledState) -> torch.Tensor:
+        """Per shard: K1 a species on the local tiles, the padded blocks
+        summed and folded once with the neighbours' halo planes."""
+        ln = self.ts_local
+        dev = stl.lpos.device
+        tiles = None
+        for s in range(stl.lpos.shape[0]):
+            value = torch.where(stl.alive[s] != 0,
+                                torch.tensor(self._charge[s], device=dev),
+                                torch.zeros((), device=dev))
+            t = tk.deposit(stl.lpos[s], value, ln, mxu_dtype=self._mxu_dtype,
+                           order=self._distr_order,
+                           vmax=abs(self._charge[s]))
+            tiles = t if tiles is None else tiles + t
+        rho = tl.fold_to_global(tiles, ln, roll_fns=self._roll_fns())
+        return rho.to(self.spec.dtype)
+
+    def _local_move_fields(self, stl: TiledState):
+        """Per shard: K2 a species (drift, margin count, deposit), the fold
+        with the neighbours' halo planes."""
+        ln = self.ts_local
+        tiles, lposs, n_out = None, [], None
+        for s in range(stl.lpos.shape[0]):
+            t, nxyz, n_o = tk.deposit_move(
+                stl.lpos[s], stl.vel[s], stl.alive[s], self._charge[s], ln,
+                mxu_dtype=self._mxu_dtype, order=self._distr_order)
+            tiles = t if tiles is None else tiles + t
+            lposs.append(nxyz)
+            n_out = n_o if n_out is None else n_out + n_o
+        st2 = TiledState(lpos=torch.stack(lposs), vel=stl.vel,
+                         alive=stl.alive)
+        rho = tl.fold_to_global(tiles, ln, roll_fns=self._roll_fns())
+        return st2, rho.to(self.spec.dtype), n_out
+
+    def _local_kick(self, stl: TiledState, E_local: torch.Tensor,
+                    half: bool):
+        """Per shard: the padded E tiles (the neighbours' halo planes), then
+        K4 a species for a full kick on the pallas route, else K3 and the
+        kick of tk.kick_planes (Boris, external E); the KE summed over the
+        mesh."""
+        ln = self.ts_local
+        E_pad = tl.pad_tiles(E_local, ln,
+                             roll_fns=self._roll_fns()).float().contiguous()
+        e_scale = 0.5 if half else 1.0
+        if half:
+            E_pad = 0.5 * E_pad
+        S, D = stl.lpos.shape[:2]
+        vels, kes = [], []
+        for s in range(S):
+            if self._backend == "pallas" and not half:
+                nv, vdot = tk.gather_kick(
+                    E_pad, stl.lpos[s], stl.vel[s], stl.alive[s],
+                    self._qm[s], ln, mxu_dtype=self._mxu_dtype,
+                    order=self._acc_order, e_ext=self._e_ext,
+                    boris=self._boris(s))
+                vels.append(nv)
+                kes.append(0.5 * self._mass[s] * vdot)
+                continue
+            Ep = tk.gather(E_pad, stl.lpos[s], ln, mxu_dtype=self._mxu_dtype,
+                           order=self._acc_order)
+            Ecs = [Ep[c] if self._e_ext is None
+                   else Ep[c] + e_scale * self._e_ext[c] for c in range(D)]
+            v = stl.vel[s]
+            outs, v_dot = tk.kick_planes([v[c] for c in range(D)], Ecs,
+                                         self._qm[s], self._boris(s))
+            alive = stl.alive[s] != 0
+            v_dot = torch.where(alive, v_dot, torch.zeros_like(v_dot))
+            kes.append(0.5 * self._mass[s] * torch.sum(v_dot))
+            vels.append(torch.where(alive[None], torch.stack(outs), v))
+        st2 = TiledState(lpos=stl.lpos, vel=torch.stack(vels),
+                         alive=stl.alive)
+        return st2, self.ctx.psum(torch.stack(kes))
+
+    def _local_reflect(self, stl: TiledState) -> TiledState:
+        """Specular reflection at the bounded global walls on a shard's
+        tile-local planes: TiledSimulation._reflect_walls with the shard's
+        global origin added.  The fold keeps every position in [0, L-1] and
+        CIC hat weights vanish one cell out, so the periodic tile wraps
+        carry only zeros at bounded walls."""
+        ln = self.ts_local
+        dev = stl.lpos.device
+        origins = tl.tile_origins(ln, dev)                   # (NTl, D) local
+        off = [c * t for c, t in zip(self.ctx.coords(), self.ctx.true_size)]
+        lpos, vel = stl.lpos.clone(), stl.vel.clone()
+        for d, bounded in enumerate(self._bounded_dims):
+            if not bounded:
+                continue
+            hi = float(self.ts.grid[d] - 1)
+            org = origins[:, d][None, :, None] + float(off[d])
+            g = lpos[:, d] + org
+            period = 2.0 * hi
+            g_m = torch.remainder(g, period)
+            g_r = torch.where(g_m > hi, period - g_m, g_m)
+            flip = torch.remainder(torch.floor(g / hi).to(torch.int32),
+                                   2) != 0
+            lpos[:, d] = g_r - org
+            vel[:, d] = torch.where(flip, -vel[:, d], vel[:, d])
+        return TiledState(lpos=lpos, vel=vel, alive=stl.alive)
+
+    def _local_rebucket(self, stl: TiledState, species):
+        """Per shard: the exchange re-bucket of the listed species on the
+        local tile grid, in place; only the buffer wraps cross shards.
+        Returns (state, the drops summed over the mesh)."""
+        rolls = self._roll_fns()
+        dropped = torch.zeros((), dtype=torch.int64, device=stl.lpos.device)
+        for s in species:
+            dropped = dropped + self._rebucket_one(
+                stl.lpos[s], stl.vel[s], stl.alive[s],
+                ntiles=self.ts_local.ntiles, roll_fns=rolls)
+        return stl, self.ctx.psum(dropped)
+
+    # ------------------------------------------------------------ the step
+    def _pipeline(self, st: List[TiledState], do_move: bool, half: bool):
+        ctx = self.ctx
+
+        def dep(stl):
+            if do_move and self._backend == "pallas" and self.spec.periodic:
+                stl, rho, n_out = self._local_move_fields(stl)
+            else:
+                if do_move:
+                    stl = TiledState(lpos=stl.lpos + stl.vel, vel=stl.vel,
+                                     alive=stl.alive)
+                    if not self.spec.periodic:
+                        stl = self._local_reflect(stl)
+                rho = self._local_fields(stl)
+                n_out = self._out_of_margin(stl)
+            return stl, rho, ctx.psum(n_out)
+
+        res = ctx.shard_map(dep, st)
+        st, rho = [r[0] for r in res], [r[1] for r in res]
+        n_out = res[0][2].to(torch.int32)
+        phi, E, pe = solve_fields(self, rho)
+        res = ctx.shard_map(partial(self._local_kick, half=half), st, E)
+        return [r[0] for r in res], rho, phi, E, Diagnostics(
+            kin_energy=res[0][1], pot_energy=pe, n_lost=n_out)
+
+    def _tiled_half_kick(self, st):
+        return self._pipeline(st, do_move=False, half=True)
+
+    def _tiled_step(self, st):
+        return self._pipeline(st, do_move=True, half=False)
+
+    def _rebucket(self, st, species=None):
+        species = range(len(self._charge)) if species is None else species
+        return st, int(self._rebucket_event(st, species))
+
+    def _rebucket_event(self, st, species) -> torch.Tensor:
+        res = self.ctx.shard_map(
+            partial(self._local_rebucket, species=tuple(species)), st)
+        return res[0][1]
+
+    @staticmethod
+    def _owned(st, donate: bool):
+        return [TiledSimulation._owned(s, donate) for s in st]
+
+    # ---------------------------- the global views of the base class's run
+    def _retune_sample(self, st):
+        """retune()'s sample, every (NT // 64)-th tile of the global tile
+        grid, taken from the shards that hold those tiles (its host
+        percentiles see every shard)."""
+        gnt, lnt = self.ts.ntiles, self.ts_local.ntiles
+        gc = np.unravel_index(np.arange(0, self.ts.NT,
+                                        max(1, self.ts.NT // 64)), gnt)
+        shard = np.ravel_multi_index(tuple(c // n for c, n in zip(gc, lnt)),
+                                     self.ctx.n_subdomains)
+        local = np.ravel_multi_index(tuple(c % n for c, n in zip(gc, lnt)),
+                                     lnt)
+        S, D, _, B = st[0].vel.shape
+        vel = np.empty((S, D, len(local), B), np.float32)
+        alive = np.empty((S, len(local), B), np.float32)
+        for i, s in enumerate(st):
+            sel = np.flatnonzero(shard == i)
+            if sel.size:
+                idx = torch.as_tensor(local[sel], device=s.vel.device)
+                vel[:, :, sel] = s.vel.index_select(2, idx).abs().cpu()
+                alive[:, sel] = s.alive.index_select(1, idx).cpu()
+        return vel, alive > 0.5
+
+    def to_particles(self, st):
+        return super().to_particles(self._flat_state(st))
+
+    def _assert_invariants_tiled(self, st, rho, n: int,
+                                 max_vel: float) -> None:
+        super()._assert_invariants_tiled(self._flat_state(st),
+                                         self.ctx.gather(rho), n, max_vel)
+
+    def _write(self, writer, n: int, st, fields, diag, ke, pe,
+               rho_obj=None, obj_phi=None):
+        if writer.writes(n):
+            fields = tuple(self.ctx.gather(f) for f in fields)
+        super()._write(writer, n, st, fields, diag, ke, pe)
+
+    def _sync(self) -> None:
+        self.ctx.synchronize()
+
+    # --------------------------------------------------------------- scan
+    def _make_scan_steps_mega(self, n: int, donate: bool = False,
+                              fresh: bool = False):
+        """The sharded mega window: per shard one K5 pic_step a step (kick
+        with the previous field, drift, deposit of every species), the fold
+        with halo planes, the solve, and the E tiles padded with halo
+        planes (pad_tiles_cmajor), which ride the carry.  fresh is accepted
+        for the API: as in pinc_tpu, the sharded body runs no margin
+        schedule."""
+        del fresh
+        ctx = self.ctx
+        ln = self.ts_local
+        NTl, P3 = ln.NT, ln.P
+        plan = self._plan_generic(n)
+
+        def particles_part(stl, ep5l):
+            tiles, _, _, vdot, _ = tk.pic_step(
+                ep5l, stl.lpos, stl.vel, stl.alive, self._charge, self._qm,
+                ln, mxu_dtype=self._mxu_dtype, order_acc=self._acc_order,
+                order_distr=self._distr_order, e_ext=self._e_ext,
+                boris_T=self._boris_T, boris_S=self._boris_S, inplace=True)
+            rho = tl.fold_to_global(tiles, ln, roll_fns=self._roll_fns())
+            mass = torch.tensor(self._mass, dtype=torch.float32,
+                                device=vdot.device)
+            return rho.to(self.spec.dtype), ctx.psum(0.5 * mass * vdot)
+
+        def pad_part(El):
+            return tl.pad_tiles_cmajor(
+                El, ln, roll_fns=self._roll_fns()).reshape(
+                    NTl, 3 * P3, P3 * P3).contiguous()
+
+        def fields(rho):
+            _, E, pe = solve_fields(self, rho)
+            return ctx.shard_map(pad_part, E), pe
+
+        def body(carry, margins):
+            st, ep5, pe_prev = carry
+            res = ctx.shard_map(particles_part, st, ep5)
+            return (st,) + fields([r[0] for r in res]), (res[0][1], pe_prev)
+
+        def run_n(st):
+            st = self._owned(st, donate)
+            carry = (st,) + fields(ctx.shard_map(self._local_fields, st))
+            carry, outs, dropped = self._run_plan(plan, body, carry)
+            return carry[0], _stack_outs(outs, dropped)
+        run_n.plan = plan
+        return run_n

@@ -8,9 +8,11 @@ initialization (src/main.c:141-186) and the production time loop
 on tensors that live on ``Simulation.device``.
 
 Embedded objects (``objects.py``) run the reference's object sequence in
-the step.  The one deck feature not ported yet, ``grid:nSubdomains`` > 1
-(the multi-device layer, ``parallel/``), raises ``NotImplementedError``
-(``check_supported``) rather than run something else.
+the step.  Decks with ``grid:nSubdomains`` > 1 run on the device mesh of
+``parallel/`` (``parallel/pic.make_simulation``), except object decks:
+the sharded object branches are not ported yet and raise
+``NotImplementedError`` (``check_supported``) rather than run something
+else.
 """
 
 from __future__ import annotations
@@ -38,18 +40,22 @@ _TODO = "not ported to pinc_tpu_torch yet (ROADMAP.md, 'Still to port')"
 
 
 def check_single_device(cfg: PincConfig, what: str) -> None:
-    """Decomposed decks (grid:nSubdomains > 1) need the multi-device layer
-    (parallel/), which is not ported: raise."""
+    """Decomposed decks (grid:nSubdomains > 1) run on the device mesh of
+    parallel/, but its object branches are not ported: raise for an object
+    deck with more than one subdomain."""
     from .config import required_np
-    if required_np(cfg) > 1:
+    names_objects = any(n.endswith(".h5") for key in
+                        ("objects:objects", "files:objects") if key in cfg
+                        for n in cfg.get_str_arr(key))
+    if required_np(cfg) > 1 and names_objects:
         raise NotImplementedError(
-            f"{what} with grid:nSubdomains > 1 (the multi-device layer, "
-            f"parallel/) is {_TODO}")
+            f"{what} with embedded objects and grid:nSubdomains > 1 (the "
+            f"sharded object branches of parallel/) is {_TODO}")
 
 
 def check_supported(cfg: PincConfig) -> None:
-    """Raise for the deck features the port cannot run yet: a decomposed
-    grid."""
+    """Raise for the deck features the port cannot run yet: embedded
+    objects on a decomposed grid."""
     check_single_device(cfg, "a run")
 
 
@@ -286,6 +292,33 @@ class Simulation:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _output(self, out: StepOutput) -> StepOutput:
+        """The step's output as the writer and the debug guards read it
+        (the sharded class gathers its shards)."""
+        return out
+
+    def _global_particles(self, particles: Particles) -> Particles:
+        """The particles as a checkpoint holds them."""
+        return particles
+
+    # ---------------------------------------------------------------- scan
+    def make_scan_steps(self, n: int):
+        """An n-step window without output: returns run_n((particles,
+        rho_obj=None)) -> ((particles, rho_obj), (ke (n, S), pe (n,))),
+        every number left on the device (pinc_tpu's lax.scan of _step,
+        for benchmarking and IO-free runs).  The input particles are not
+        modified."""
+        def run_n(particles, rho_obj=None):
+            kes, pes = [], []
+            for _ in range(n):
+                out = self._step(particles, rho_obj)
+                particles, rho_obj = out.particles, out.rho_obj
+                kes.append(out.diag.kin_energy)
+                pes.append(out.diag.pot_energy)
+            return (particles, rho_obj), (torch.stack(kes),
+                                          torch.stack(pes))
+        return run_n
+
     # ----------------------------------------------------------------- run
     def run(self, writer=None,
             progress_every: int = 10) -> Dict[str, np.ndarray]:
@@ -309,7 +342,7 @@ class Simulation:
             ke_hist.append(out.diag.kin_energy.cpu().numpy())
             pe_hist.append(float(out.diag.pot_energy))
             if writer is not None:
-                writer.write_step(0, out)
+                writer.write_step(0, self._output(out))
                 writer.write_energy(0, ke_hist[0], pe_hist[0])
             particles = out.particles
             rho_obj = out.rho_obj
@@ -323,13 +356,14 @@ class Simulation:
             ke_hist.append(ke)
             pe_hist.append(pe)
             if writer is not None:
-                writer.write_step(n, out)
+                writer.write_step(n, self._output(out))
                 writer.write_energy(n, ke, pe)
             if debug:
-                self._assert_invariants(out, n, max_vel)
+                self._assert_invariants(self._output(out), n, max_vel)
             if self.checkpoint_every and n % self.checkpoint_every == 0:
                 from . import checkpoint as _ckpt
-                _ckpt.save(self.cfg, n, particles, rho_obj)
+                _ckpt.save(self.cfg, n, self._global_particles(particles),
+                           rho_obj)
             if progress_every and n % progress_every == 0:
                 msg(STATUS, "Computing time-step %i (KE=%g PE=%g)",
                     n, ke.sum(), pe)
@@ -349,7 +383,8 @@ class Simulation:
             else out.obj_potential.cpu().numpy())
         if self.checkpoint_every:
             from . import checkpoint as _ckpt
-            _ckpt.save(self.cfg, self.n_time_steps, particles, rho_obj)
+            _ckpt.save(self.cfg, self.n_time_steps,
+                       self._global_particles(particles), rho_obj)
         return {"kinetic": _stack(ke_hist, self.params.charge.shape[0]),
                 "potential": np.asarray(pe_hist), "wall_time": wall}
 
@@ -405,13 +440,23 @@ def _mg_mode_factory(cfg: PincConfig):
         from .grid import fill_sin
         from .solvers.multigrid import make_from_config
         from .utils.timer import DeviceTimer
-        check_single_device(cfg, "methods:mode=mgMode")
         device = device or default_device()
         alloc_and_normalize(cfg)
         spec = GridSpec.from_config(cfg)
         solver = make_from_config(cfg)
+        ctx = None
+        if any(n > 1 for n in spec.n_subdomains):
+            # decomposed deck: the sharded solver on the device mesh, as
+            # the reference's mgMode runs on the decomposed grid
+            # (src/multigrid.c:1856-2014)
+            ctx, solver = _sharded_mg(cfg, spec, solver, spec.true_size,
+                                      device)
+            msg(STATUS, "mgMode: sharded solver on %s mesh, %d levels",
+                ctx.n_subdomains, solver.n_levels)
         rho_np, phi_exact = fill_sin(spec)
         rho = torch.as_tensor(rho_np, dtype=spec.dtype, device=device)
+        if ctx is not None:
+            rho = ctx.split(rho)
         solver.solve_with_stats(rho)                 # warm-up, untimed
         run_number = int(cfg.get_double("multigrid:runnumber", 0.0))
         reps = max(1, cfg.get_int("multigrid:nrepetitions", 5))
@@ -421,7 +466,7 @@ def _mg_mode_factory(cfg: PincConfig):
             phi, n_cycles, resid = solver.solve_with_stats(rho)
         t.stop()
         seconds = t.total / 1e9 / reps
-        phi_np = phi.cpu().numpy()
+        phi_np = (phi if ctx is None else ctx.gather(phi)).cpu().numpy()
         err = np.sqrt(np.mean((phi_np - (phi_exact - phi_exact.mean())) ** 2))
         msg(STATUS, "mgMode: %.6f s/solve, %d cycles to tol (residual %g), "
             "rms error vs analytic %g", seconds, n_cycles, float(resid), err)
@@ -449,7 +494,6 @@ def _mg_error_scaling_factory(cfg: PincConfig):
     def run(device=None):
         from .grid import FILL_FIXTURES
         from .solvers.multigrid import MultigridSolver
-        check_single_device(cfg, "methods:mode=mgModeErrorScaling")
         device = device or default_device()
         alloc_and_normalize(cfg)
         spec = GridSpec.from_config(cfg)
@@ -474,8 +518,30 @@ def _mg_error_scaling_factory(cfg: PincConfig):
                 n_coarse=cfg.get_int("multigrid:ncoarsesolve", 10),
                 max_cycles=cfg.get_int("multigrid:mgcycles", 15),
                 tol=1e-7, bc=None if periodic else bc, dtype=spec.dtype)
-            phi = mg(torch.as_tensor(rho_np, dtype=spec.dtype,
-                                     device=device)).cpu().numpy()
+            if any(n > 1 for n in spec.n_subdomains):
+                # both resolutions on the decomposed grid, like the
+                # reference's study (src/multigrid.c:1734-1851): every
+                # study resolution must decompose evenly (the
+                # mgAllocSubGrids constraint, src/multigrid.c:317-329)
+                bad = [d for d, (s, n) in enumerate(
+                    zip(shape, spec.n_subdomains)) if s % n]
+                if bad:
+                    raise ValueError(
+                        f"mgModeErrorScaling: scaled grid {shape} is not "
+                        f"divisible by grid:nSubdomains="
+                        f"{spec.n_subdomains} along dims {bad} — every "
+                        f"study resolution must decompose evenly (the "
+                        f"mgAllocSubGrids constraint, src/multigrid.c:"
+                        f"317-329); pick trueSize divisible by "
+                        f"2*nSubdomains")
+                local = tuple(s // n for s, n
+                              in zip(shape, spec.n_subdomains))
+                ctx, mg_sh = _sharded_mg(cfg, spec, mg, local, device)
+                rho = torch.as_tensor(rho_np, dtype=spec.dtype, device=device)
+                phi = ctx.gather(mg_sh(ctx.split(rho))).cpu().numpy()
+            else:
+                phi = mg(torch.as_tensor(rho_np, dtype=spec.dtype,
+                                         device=device)).cpu().numpy()
             if mg._has_nullspace:
                 pe = phi_exact - phi_exact.mean()
                 phi = phi - phi.mean()
@@ -492,6 +558,17 @@ def _mg_error_scaling_factory(cfg: PincConfig):
         return {"errors": errs, "sizes": sizes, "order": order,
                 "fixture": fixture}
     return run
+
+
+def _sharded_mg(cfg: PincConfig, spec: GridSpec, solver, local, device):
+    """(mesh, the sharded multigrid of ``solver``) for a decomposed deck's
+    run mode on ``device`` (a CPU run meshes n CPU devices, a card run the
+    visible cards)."""
+    from .parallel.mesh import make_mesh, mesh_devices
+    from .parallel.mg import from_single
+    ctx = make_mesh(spec.n_subdomains, local, devices=mesh_devices(
+        device, int(np.prod(spec.n_subdomains))))
+    return ctx, from_single(solver, ctx, cfg, spec.dtype)
 
 
 @RUN_MODES.register("sMode")

@@ -303,10 +303,8 @@ class TiledSimulation(Simulation):
         face cap 1.5x, and the per-row gate is evaluated again under the
         new cap.  Returns True if anything changed."""
         st = self.state if st is None else st
-        S, D, NT, B = st.vel.shape
-        stride = max(1, NT // 64)
-        vel_np = st.vel[:, :, ::stride].abs().cpu().numpy()
-        alive_np = st.alive[:, ::stride].cpu().numpy() > 0.5
+        vel_np, alive_np = self._retune_sample(st)
+        S, D = vel_np.shape[:2]
         M = self.ts.M
         v_s = [0.0] * S
         R_s = list(self.rebucket_every_s)
@@ -352,6 +350,13 @@ class TiledSimulation(Simulation):
                     "enabled" if rows else "disabled (cap outgrew rows)")
                 self._exchange_rows = rows
         return changed
+
+    def _retune_sample(self, st: TiledState):
+        """retune()'s sample of the state: |vel| (S, D, n, B) and alive
+        (S, n, B) of every (NT // 64)-th tile, numpy."""
+        stride = max(1, st.vel.shape[2] // 64)
+        return (st.vel[:, :, ::stride].abs().cpu().numpy(),
+                st.alive[:, ::stride].cpu().numpy() > 0.5)
 
     def _rows_default(self, B: int, ppt: float) -> bool:
         """Default of tiles:exchangeRows.  The gather exchange spills a
@@ -414,15 +419,19 @@ class TiledSimulation(Simulation):
             del v, tid
         return st
 
-    def _rebucket_one(self, lpos_s, vel_s, alive_s) -> torch.Tensor:
+    def _rebucket_one(self, lpos_s, vel_s, alive_s, ntiles=None,
+                      roll_fns=None) -> torch.Tensor:
         """Re-bucket one species in place: lpos_s, vel_s (D, NT, B) and
         alive_s (NT, B) are views of the state.  Returns the drop count,
-        a 0-d integer tensor on the state's device (no host sync)."""
+        a 0-d integer tensor on the state's device (no host sync).
+        ntiles, roll_fns: a shard's tile grid and its tile-axis rolls (the
+        sharded exchange; default this layout's grid, periodic)."""
         if self._rebucket_mode == "exchange":
             cfg = self.cfg
             _, al, d_n = ex.rebucket_exchange_planes(
-                tuple(lpos_s) + tuple(vel_s), alive_s, self.ts.ntiles,
-                self.ts.T, K=self._exchange_cap, rows=self._exchange_rows,
+                tuple(lpos_s) + tuple(vel_s), alive_s,
+                ntiles or self.ts.ntiles, self.ts.T, K=self._exchange_cap,
+                roll_fns=roll_fns, rows=self._exchange_rows,
                 fused=cfg.get_bool("tiles:exchangefused", True),
                 impl=cfg.get_str("tiles:exchangeimpl", "auto"),
                 ku=(cfg.get_int("tiles:exchangetotalcap")
@@ -449,6 +458,20 @@ class TiledSimulation(Simulation):
             dropped += int(self._rebucket_one(st.lpos[s], st.vel[s],
                                               st.alive[s]))
         return st, dropped
+
+    def _rebucket_event(self, st: TiledState, species) -> torch.Tensor:
+        """A window's re-bucket event: the listed species in place; the
+        drops as a 0-d tensor on the device."""
+        dropped = torch.zeros((), dtype=torch.int64, device=self.device)
+        for s in species:
+            dropped = dropped + self._rebucket_one(st.lpos[s], st.vel[s],
+                                                   st.alive[s])
+        return dropped
+
+    def _flat_state(self, st: TiledState) -> TiledState:
+        """The state as one (S, D, NT, B) layout over the global tile grid
+        (the sharded class gathers its shards)."""
+        return st
 
     def to_particles(self, st: TiledState) -> Particles:
         """Convert back to the (cell, frac) layout for IO/diagnostics."""
@@ -934,7 +957,7 @@ class TiledSimulation(Simulation):
             if lost:
                 msg(WARNING, "step %d: %d particle(s) reached the tile "
                     "margin; re-bucketing early", n, lost)
-                due = list(range(st.lpos.shape[0]))
+                due = list(range(len(self._charge)))
                 total_lost += lost
             dropped = 0
             if due:
@@ -956,7 +979,8 @@ class TiledSimulation(Simulation):
                 self._assert_invariants_tiled(st, rho, n, max_vel)
             if self.checkpoint_every and n % self.checkpoint_every == 0:
                 from . import checkpoint as _ckpt
-                _ckpt.save_tiled(self.cfg, n, st, self.tuning(), rho_obj)
+                _ckpt.save_tiled(self.cfg, n, self._flat_state(st),
+                                 self.tuning(), rho_obj)
             step_seconds.append(time.monotonic() - t0)
             if progress_every and n % progress_every == 0:
                 msg(STATUS, "Computing time-step %i (KE=%g PE=%g)",
@@ -965,7 +989,8 @@ class TiledSimulation(Simulation):
         wall = time.monotonic() - t_start
         msg(TIMER, "Time spent: %f s (%d steps)", wall, self.n_time_steps)
         self.state = st
-        if self._capacity * st.lpos.shape[0] <= 32_000_000:
+        S = len(self._charge)
+        if self._capacity * S <= 32_000_000:
             self.particles = self.to_particles(st)
         if objects:
             self.rho_obj = rho_obj
@@ -974,9 +999,9 @@ class TiledSimulation(Simulation):
                                        else obj_phi.cpu().numpy())
         if self.checkpoint_every:
             from . import checkpoint as _ckpt
-            _ckpt.save_tiled(self.cfg, self.n_time_steps, st, self.tuning(),
-                             rho_obj)
-        return {"kinetic": _stack(ke_hist, st.lpos.shape[0]),
+            _ckpt.save_tiled(self.cfg, self.n_time_steps,
+                             self._flat_state(st), self.tuning(), rho_obj)
+        return {"kinetic": _stack(ke_hist, S),
                 "potential": np.asarray(pe_hist),
                 "wall_time": wall, "step_seconds": np.asarray(step_seconds),
                 "dropped": total_dropped, "n_lost": total_lost}
@@ -1145,10 +1170,7 @@ class TiledSimulation(Simulation):
                 carry, out = body(carry, arg)
                 outs.append(out)
                 continue
-            st = carry[0]
-            for s in arg:
-                dropped = dropped + self._rebucket_one(st.lpos[s], st.vel[s],
-                                                       st.alive[s])
+            dropped = dropped + self._rebucket_event(carry[0], arg)
         return carry, outs, dropped
 
     @staticmethod

@@ -1497,3 +1497,45 @@ def test_tiled_object_step_on_the_card(cuda):
         np.sum(rho_g, dtype=np.float64))
     gross = float((q.abs() * a0).sum())
     assert abs(total - float((q * a0).sum())) <= 1e-5 * gross
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["tiled", "flat"])
+def test_sharded_step_on_one_card_matches_single(cuda, layout):
+    """The slice deck split over a mesh of [cuda:0, cuda:0] (each shard's
+    kernels under its device's scope, the planes copied between the
+    shards' tensors), against the single-device run on the card: 6 steps
+    with the default exchange re-bucket every 2 (the tiled layout) or the
+    migration (flat), energies rtol 1e-4, no drop, particles conserved."""
+    from pinc_tpu_torch.parallel.pic import ShardedSimulation
+    from pinc_tpu_torch.parallel.tiled_pic import ShardedTiledSimulation
+    from pinc_tpu_torch.simulation import Simulation
+    from pinc_tpu_torch.tiled_sim import TiledSimulation
+    deck = (DECK.replace("rebucket = sort\n", "")
+            .replace("layout = tiled", f"layout = {layout}"))
+    if layout == "flat":     # room in each shard's slab for its half
+        deck = deck.replace("nAlloc = 8 pc", "nAlloc = 16 pc")
+    split = (deck.replace("nSubdomains = 1,1,1", "nSubdomains = 2,1,1")
+             .replace("trueSize = 16,16,16", "trueSize = 8,16,16"))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if layout == "tiled":
+        one = TiledSimulation(PincConfig.from_string(deck), seed=3,
+                              device=dev)
+        sim = ShardedTiledSimulation(PincConfig.from_string(split), seed=3,
+                                     devices=[dev, dev])
+    else:
+        one = Simulation(PincConfig.from_string(deck), seed=3, device=dev)
+        sim = ShardedSimulation(PincConfig.from_string(split), seed=3,
+                                devices=[dev, dev])
+    h1 = one.run(progress_every=0)
+    hN = sim.run(progress_every=0)
+    np.testing.assert_allclose(hN["kinetic"], h1["kinetic"], rtol=1e-4)
+    np.testing.assert_allclose(hN["potential"], h1["potential"], rtol=1e-4,
+                               atol=1e-7)
+    if layout == "tiled":
+        assert hN["dropped"] == h1["dropped"] == 0
+        assert int(sim._flat_state(sim.state).alive.sum()) == \
+            int(one.state.alive.sum())
+    else:
+        assert torch.equal(sim.gather_particles().counts().cpu(),
+                           one.particles.counts().cpu())

@@ -276,10 +276,16 @@ def test_mg_error_scaling_matches_pinc_tpu(tmp_path, monkeypatch, bounds):
     assert abs(mine["order"] - ref["order"]) < 1e-3
 
 
-def test_mg_modes_refuse_decomposed_decks(tmp_path):
+def test_mg_modes_refuse_decomposed_decks(tmp_path, monkeypatch):
+    """A decomposed deck's mg modes run the sharded solver on a mesh; on a
+    card host with fewer cards than subdomains they raise pinc_tpu's
+    "deck wants N devices" and do not fall back to the CPU."""
     deck = tmp_path / "mg.ini"
     deck.write_text(MG_DECK.format(mode="mgMode", bounds="PERIODIC"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: "a card")
     for mode in ("mgMode", "mgModeErrorScaling"):
-        with pytest.raises(NotImplementedError, match="nSubdomains"):
+        with pytest.raises(ValueError, match="deck wants 2 devices"):
             main([str(deck), f"methods:mode={mode}",
-                  "grid:nSubdomains=2,1,1"], device="cpu")
+                  "grid:nSubdomains=2,1,1"], device="cuda")
