@@ -190,6 +190,33 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    pencil FFT, the sharded against the single V-cycle, ms of each.  10.5:
    the CLI on maxwellian.ini: with fewer than four cards pinc_tpu's "deck
    wants 4 devices", never the CPU.
+11. Decomposed object decks on meshes that name the one card several
+   times, the object grids built in memory with make_sphere and given as
+   domain=.  11.1: input/bench_scaleout.ini as shipped (256 x 128 x 128,
+   2,1,1) with a sphere of radius 16 at (128, 64, 64), across the shard
+   boundary (its 4,784 surface nodes and its near-object tiles on both
+   shards), absorb,absorb, through make_simulation(cfg, devices=[cuda:0,
+   cuda:0], domain=...): the set-up timed, 20 steps of run(), then an
+   untimed and a timed 20-step make_scan_steps window, the kernels
+   counted a shard (K1 a species a step and in the half kick, K3 a
+   species in the half kick, K4 a species a step: the sharded tiled
+   _local_kick's full kick on the pallas route, as pinc_tpu's; the gather
+   exchange at each species event; never K2, K5, K6 or K7), each with
+   phase 9.1's checks (nothing dropped, every number finite, the
+   particles' charge plus rho_obj conserved from the cull on within 1e-5
+   of the gross charge, the object's charge and potential negative); one
+   object step and its object work by CUDA events; ms a step beside phase
+   9.1's single-card object deck and phase 10.1's sharded deck without
+   objects.  11.2: reflect,secondary at 11.1's size for 10 steps with the
+   same checks, the emitted secondaries and those with no free slot
+   summed over the shards.  11.3: the CPU tests' 16^3 sphere decks, the
+   flat class over [cuda:0] * 8 and the tiled over [cuda:0] * 2, against
+   the same global deck on cuda:0: equal alive counts, energies, rho_obj
+   and phi_c within the CPU tests' tolerances.  11.4:
+   input/sphereObject.ini (flat, mgSolve, 32^3) with grid:nSubdomains =
+   1,2,2 over [cuda:0] * 4 against its 1,1,1 deck, 5 steps: equal alive
+   counts, rho_obj and phi_c within tolerance, the same multigrid cycles
+   each solve.
 
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
@@ -197,7 +224,8 @@ JSON object with each kernel's numbers (launches on the path that runs
 it: phase 3's exchange run, its one-hot runs for the one-hot kernels (the
 row kernels the B = 7680 run, the per-tile ones the B = 6528 run), for
 pic_step, efield_tiles and fold_global the headline scan window of phase
-5, for the kbench kernels (one row a mode) and the four primitives phase
+5, plus phase 11.1's launches (both shards, run() and its two windows)
+for deposit, gather, gather_kick and the gather exchange's kernels, for the kbench kernels (one row a mode) and the four primitives phase
 6's benchmark run; max error against the plain version; kernel and plain
 ms; bound_ms: the bytes the call must move at 3.35 TB/s, or its
 operations at the card's peak rate, from this run's inputs; and
@@ -2640,24 +2668,32 @@ def obj_deck(ctypes: str, extra: str = "") -> str:
 
 def obj_charge_total(sim, st, rho_obj, cull: bool = False):
     """(sum_s q_s alive_s + sum(rho_obj), sum_s |q_s| alive_s) in float64
-    from a tiled state on the card; cull=True counts only the particles
-    the initial cull keeps (floor cell outside the object)."""
+    from a tiled state on the card, or a sharded one (a list of the
+    shards' states); cull=True counts only the particles the initial cull
+    keeps (floor cell outside the object)."""
     import torch
     from pinc_tpu_torch.objects import _at, _cell_of
     from pinc_tpu_torch.ops.tiled import tile_origins
-    org = tile_origins(sim.ts, st.lpos.device)
+    sharded = isinstance(st, list)
     q = [float(v) for v in sim.params.charge]
     total = gross = 0.0
-    for s in range(st.alive.shape[0]):
-        alive = st.alive[s] > 0.5
-        if cull:
-            g = (st.lpos[s] + org.T[:, :, None]).movedim(0, -1)
-            alive = alive & (_at(sim.objects.interior_id,
-                                 _cell_of(g, sim.ts.grid)) == 0)
-            del g
-        n = int(alive.sum())
-        total += q[s] * n
-        gross += abs(q[s]) * n
+    for i, sti in enumerate(st if sharded else [st]):
+        org = tile_origins(sim.ts_local if sharded else sim.ts,
+                           sti.lpos.device)
+        if sharded:
+            from pinc_tpu_torch.parallel.mesh import subdomain_offset
+            org = org + torch.tensor(subdomain_offset(sim.ctx, i),
+                                     dtype=org.dtype, device=org.device)
+        for s in range(sti.alive.shape[0]):
+            alive = sti.alive[s] > 0.5
+            if cull:
+                g = (sti.lpos[s] + org.T[:, :, None]).movedim(0, -1)
+                alive = alive & (_at(sim.objects.interior_id,
+                                     _cell_of(g, sim.ts.grid)) == 0)
+                del g
+            n = int(alive.sum())
+            total += q[s] * n
+            gross += abs(q[s]) * n
     if rho_obj is not None:
         total += float(rho_obj.double().sum())
     return total, gross
@@ -2684,9 +2720,9 @@ def obj_setup_text(sim, seconds: float) -> str:
             f"{su['invert_s']:.3f} s)")
 
 
-def make_obj_sim(deck: str, dom, device, overrides=()):
+def make_obj_sim(deck: str, dom, device, overrides=(), devices=None):
     """The factory (parallel/pic.py) on a deck text, the object grid given
-    as domain=; returns (sim, host seconds)."""
+    as domain= (and a mesh's devices); returns (sim, host seconds)."""
     import torch
     from pinc_tpu_torch.config import PincConfig
     from pinc_tpu_torch.parallel.pic import make_simulation
@@ -2695,7 +2731,7 @@ def make_obj_sim(deck: str, dom, device, overrides=()):
         k, v = o.split("=", 1)
         cfg.set_str(k, v)
     t0 = time.monotonic()
-    sim = make_simulation(cfg, device=device, domain=dom)
+    sim = make_simulation(cfg, device=device, domain=dom, devices=devices)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return sim, time.monotonic() - t0
@@ -2965,8 +3001,9 @@ def check_walled_object_deck(modules, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def check_objects(modules, card: str, walled_ms: dict) -> None:
-    """Phase 9: embedded objects on the card (see the module docstring)."""
+def check_objects(modules, card: str, walled_ms: dict) -> float:
+    """Phase 9: embedded objects on the card (see the module docstring);
+    returns 9.1's ms a run() step."""
     import torch
     from pinc_tpu_torch.objects import make_sphere
     t_phase = time.monotonic()
@@ -3015,6 +3052,7 @@ def check_objects(modules, card: str, walled_ms: dict) -> None:
     check_shipped_deck(card)
     check_walled_object_deck(modules, card)
     print(f"phase 9: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return run_ms
 
 
 # -- phase 10: the multi-device layer on a mesh of the one card ------------
@@ -3131,7 +3169,7 @@ def scaleout_breakdown(sim, card: str, steps: int = 2) -> None:
 
 
 def check_scaleout(modules, card: str, prod, run_ms: float,
-                   window_ms: float) -> None:
+                   window_ms: float) -> float:
     """Phase 10.1: input/bench_scaleout.ini as shipped (256 x 128 x 128,
     2 x 32 a cell: each shard carries phase 3's per-card deck) through
     make_simulation(cfg, devices=[cuda:0, cuda:0])."""
@@ -3270,6 +3308,7 @@ def check_scaleout(modules, card: str, prod, run_ms: float,
           f"their cats {copies:.4f} ms", flush=True)
     del sim, carry, run_n
     torch.cuda.empty_cache()
+    return median_ms
 
 
 def check_mesh_parity(card: str) -> None:
@@ -3517,16 +3556,452 @@ def check_cli_cards(cli_main, card: str) -> None:
 
 
 def check_parallel(cli_main, modules, prod, card: str, run_ms: float,
-                   window_ms: float) -> None:
+                   window_ms: float) -> float:
     """Phase 10: the multi-device layer (parallel/) on meshes of the one
-    card (see the module docstring)."""
+    card (see the module docstring); returns 10.1's median ms a run()
+    step."""
     t_phase = time.monotonic()
-    check_scaleout(modules, card, prod, run_ms, window_ms)
+    scaleout_ms = check_scaleout(modules, card, prod, run_ms, window_ms)
     check_mesh_parity(card)
     check_mg_decks(card)
     check_sharded_solvers(card)
     check_cli_cards(cli_main, card)
     print(f"phase 10: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return scaleout_ms
+
+
+# -- phase 11: decomposed object decks on meshes of the one card -----------
+
+SHARDED_SPHERE = ((256, 128, 128), (128, 64, 64), 16)  # across x = 128
+SHARDED_OBJ_STEPS = 20      # 11.1's run() and each window
+SHARDED_RESP_STEPS = 10     # 11.2
+OBJ_PARITY_STEPS = 6        # 11.3, the CPU tests' decks
+SHIPPED_SHARDED_STEPS = 5   # 11.4
+# 11.3's decks: tests/test_torch_sharded_objects.py's (flat, 2,2,2) and
+# tests/test_torch_tiled_sharded_objects.py's (tiled, 2,1,1), 16^3 with a
+# sphere of radius 2.5 at the centre
+OBJ_PARITY_FLAT = """
+[objects]
+objects = sphere16.grid.h5
+[time]
+nTimeSteps = 6
+timeStep = 0.2
+[grid]
+nDims = 3
+nSubdomains = {nsub}
+trueSize = {ts}
+stepSize = 1
+boundaries = PERIODIC
+[population]
+nSpecies = 2
+nParticles = 8 pc
+nAlloc = 16 pc
+charge = -1,1
+mass = 1,100
+multiplicity = auto
+thermalVelocity = 0.2,0.02
+[methods]
+mode = regular
+poisson = sSolve
+acc = puAcc3D1KE
+distr = puDistr3D1
+migrate = puExtractEmigrantsND
+"""
+OBJ_PARITY_TILED = OBJ_PARITY_FLAT.replace("16 pc", "8 pc").replace(
+    "0.2,0.02", "0.1,0.02") + "layout = tiled\n[tiles]\ntileSize = 4\n" \
+    "margin = 2\nrebucketEvery = 4\n"
+
+
+def sharded_obj_sim(ctypes: str, extra=(), steps: int = SHARDED_OBJ_STEPS):
+    """input/bench_scaleout.ini as shipped with the straddling sphere
+    (domain=) and the responses, through make_simulation over
+    [cuda:0, cuda:0]; returns (sim, host seconds of the set-up)."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.objects import make_sphere
+    from pinc_tpu_torch.parallel.pic import make_simulation
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PincConfig.from_file(deck_path("bench_scaleout.ini", tmp), [
+            f"time:nTimeSteps={steps}",
+            "objects:objects=sphere_scaleout.grid.h5",
+            f"objects:collisionType={ctypes}", *extra])
+    dom = make_sphere(*SHARDED_SPHERE)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    sim = make_simulation(cfg, devices=[dev, dev], domain=dom)
+    torch.cuda.synchronize()
+    return sim, time.monotonic() - t0
+
+
+def sharded_obj_checks(label: str, sim, st, rho_obj, q0: float,
+                       gross: float, ke, pe, phi_c, dropped: int,
+                       negative: bool) -> str:
+    """Phase 9.1's checks on a sharded object run or window: nothing
+    dropped, every number finite and on the card, the charge of the
+    particles plus rho_obj conserved within 1e-5 of the gross charge,
+    the object's charge and potential negative (negative=True)."""
+    import numpy as np
+    import torch
+    check(all(s.lpos.is_cuda for s in st) and rho_obj.is_cuda,
+          f"{label}: a tensor of the run left the card")
+    check(dropped == 0, f"{label}: {dropped} dropped")
+    finite = (np_finite(ke) and np_finite(pe) and np_finite(phi_c)
+              and bool(torch.isfinite(rho_obj).all()))
+    check(finite, f"{label}: non-finite numbers")
+    total, _ = obj_charge_total(sim, st, rho_obj)
+    check(abs(total - q0) <= OBJ_CHARGE_RTOL * gross,
+          f"{label}: charge {q0:.9g} -> {total:.9g} (gross {gross:.6g})")
+    q_obj = float(sim.objects.object_charge(rho_obj)[0])
+    phi = float(np.asarray(phi_c).reshape(-1)[-1])
+    if negative:
+        check(q_obj < 0.0 and phi < 0.0,
+              f"{label}: object charge {q_obj:.6g}, potential {phi:.6g}")
+    return (f"charge {q0:.9g} -> {total:.9g} (|d| / gross "
+            f"{abs(total - q0) / gross:.2e}); object charge {q_obj:.6g}, "
+            f"potential {phi:.6g}")
+
+
+def sharded_obj_run(label: str, sim, modules, steps: int, card: str,
+                    negative: bool) -> tuple:
+    """run() of a sharded object deck with the launch counts per shard
+    (K1 per species a step and in the half kick, K3 per species in the
+    half kick, K4 per species a step: _local_kick's full kick on the
+    pallas route, the gather exchange at each species event; never K2,
+    K5, K6, K7) and the checks; returns (mean ms a step of steps 2-n,
+    the median, the launches of both shards)."""
+    import numpy as np
+    import torch
+    from pinc_tpu_torch.parallel import mesh
+    S = len(sim._charge)
+    q0, gross = obj_charge_total(sim, sim.state, None, cull=True)
+    for m in modules:
+        m.reset_launches()
+    mesh.reset_shard_launches()
+    hist = sim.run(progress_every=0)
+    torch.cuda.synchronize()
+    launches = {k: v for m in modules for k, v in m.LAUNCHES.items() if v}
+    per_shard = shard_counts(mesh, launches)
+    events = per_shard.get(0, {}).get("extract", 0)
+    scheduled = sum(steps // R for R in sim.rebucket_every_s)
+    want = {"deposit": S * (steps + 1), "gather": S,
+            "gather_kick": S * steps}
+    want.update({k: n * events for k, n in ROUTE_CALLS["gather"].items()
+                 if events})
+    check(per_shard == {0: want, 1: want}
+          and launches == {k: 2 * v for k, v in want.items()}
+          and (events == scheduled
+               or (events > scheduled and hist["n_lost"] > 0)),
+          f"{label}: launches per shard {per_shard}, expected {want} "
+          f"({events} species events, {scheduled} scheduled), all "
+          f"{launches}")
+    text = sharded_obj_checks(
+        label, sim, sim.state, sim.rho_obj, q0, gross,
+        hist["kinetic"], hist["potential"], sim.last_obj_potential,
+        hist["dropped"], negative)
+    steps_s = hist["step_seconds"][1:]
+    mean_ms = float(np.mean(steps_s)) * 1e3
+    median_ms = float(np.median(steps_s)) * 1e3
+    n_alive = sum(int((s.alive > 0.5).sum()) for s in sim.state)
+    print(f"phase 11 {label}: {steps} steps of run(); launches per shard "
+          f"{per_shard} ({events} species re-bucket events, "
+          f"{hist['n_lost']} margin hits); {n_alive} alive, 0 dropped; "
+          f"{text}; {mean_ms:.3f} ms a step (mean of steps 2-{steps}, "
+          f"re-buckets included; median {median_ms:.3f}) ({card})",
+          flush=True)
+    return mean_ms, median_ms, launches
+
+
+def sharded_obj_window(label: str, sim, modules, steps: int,
+                       card: str) -> tuple:
+    """An untimed, then a timed make_scan_steps(steps, donate=True) window
+    from the run's final state and rho_obj (K1 and K4 per species a step
+    a shard, the gather exchange at each event), with the checks;
+    returns (ms a step of the timed window, its launches)."""
+    import torch
+    from pinc_tpu_torch.parallel import mesh
+    S = len(sim._charge)
+    run_n = sim.make_scan_steps(steps, donate=True)
+    events = sum(len(a) for kind, a in run_n.plan if kind == "rebucket")
+    want = {"deposit": S * steps, "gather_kick": S * steps}
+    want.update({k: n * events for k, n in ROUTE_CALLS["gather"].items()
+                 if events})
+    carry, rho_obj = sim.state, sim.rho_obj
+    sim.state = None
+    for window in ("warm", "timed"):
+        q0, gross = obj_charge_total(sim, carry, rho_obj)
+        for m in modules:
+            m.reset_launches()
+        mesh.reset_shard_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        (carry, rho_obj), (ke, pe, dropped, phi_c) = run_n(carry, rho_obj)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: v for m in modules for k, v in m.LAUNCHES.items()
+                    if v}
+        per_shard = shard_counts(mesh, launches)
+        check(per_shard == {0: want, 1: want}
+              and launches == {k: 2 * v for k, v in want.items()}
+              and tuple(ke.shape) == (steps, S),
+              f"{label} {window} window: launches per shard {per_shard}, "
+              f"expected {want}, all {launches}")
+        text = sharded_obj_checks(f"{label} {window} window", sim, carry,
+                                  rho_obj, q0, gross, ke.cpu().numpy(),
+                                  pe.cpu().numpy(), phi_c.cpu().numpy(),
+                                  int(dropped), True)
+    sim.state, sim.rho_obj = carry, rho_obj
+    ms = wall / steps * 1e3
+    print(f"phase 11 {label}: make_scan_steps({steps}, donate=True), a "
+          f"warm and a timed window: launches per shard {per_shard} "
+          f"({events} species re-bucket events); 0 dropped; {text}; "
+          f"{ms:.3f} ms a step ({card})", flush=True)
+    return ms, launches
+
+
+def sharded_obj_share(sim, card: str) -> tuple:
+    """CUDA events around one object step of the mesh on the final state
+    (no re-bucket) and around its object work: the absorb on both shards'
+    near-object tiles (after the drift), the spread into rho_obj, and the
+    object solve (rho += rho_obj, solve, the capacitance on the gathered
+    fields, the second solve, E) less the plain solve; returns (the
+    step's ms, the object work's ms)."""
+    import torch
+    from pinc_tpu_torch.parallel.pic import (solve_fields,
+                                             solve_object_fields)
+    from pinc_tpu_torch.tiled_sim import TiledState
+    ctx, st, rho_obj = sim.ctx, sim.state, sim.rho_obj
+
+    def fresh(drift: bool):
+        return ([TiledState(lpos=s.lpos + s.vel if drift else s.lpos.clone(),
+                            vel=s.vel.clone(), alive=s.alive.clone())
+                 for s in st],)
+    res = ctx.shard_map(lambda s: sim._local_absorb_tiled(s)[1],
+                        fresh(True)[0])
+    counter = res[0]
+    rho = ctx.shard_map(sim._local_fields, st)
+    parts = {
+        "step": cuda_ms_fresh(lambda: fresh(False) + (rho_obj,),
+                              sim._tiled_step_obj, reps=2),
+        "absorb": cuda_ms_fresh(
+            lambda: fresh(True), lambda s: ctx.shard_map(
+                sim._local_absorb_tiled, s), reps=2),
+        "spread": cuda_ms(lambda: sim._spread_obj_charge(rho_obj, counter),
+                          reps=3, warmup=1),
+        "object solve": cuda_ms(lambda: solve_object_fields(sim, rho,
+                                                            rho_obj),
+                                reps=3, warmup=1),
+        "plain solve": cuda_ms(lambda: solve_fields(sim, rho), reps=3,
+                               warmup=1)}
+    obj_ms = (parts["absorb"] + parts["spread"] + parts["object solve"]
+              - parts["plain solve"])
+    print("phase 11.1 one object step of the mesh by CUDA events (" + card
+          + "): " + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f"; the object work {obj_ms:.3f} ms, "
+          f"{obj_ms / parts['step']:.1%} of the step", flush=True)
+    del rho, res
+    torch.cuda.empty_cache()
+    return parts["step"], obj_ms
+
+
+def check_scaleout_objects(modules, card: str, single_ms: float,
+                           scaleout_ms: float) -> dict:
+    """Phases 11.1 and 11.2: input/bench_scaleout.ini with a sphere across
+    the shard boundary; returns 11.1's launches (both shards, run() and
+    the two windows)."""
+    import torch
+    from pinc_tpu_torch.parallel.tiled_pic import ShardedTiledSimulation
+    sim, setup_s = sharded_obj_sim("absorb,absorb")
+    obj = sim.objects
+    near = [int(t[0].numel()) for t in sim._shard_obj_tiles]
+    n_int = int((obj.interior_id > 0).sum())
+    n_surf = len(obj.surface_idx[0])
+    check(isinstance(sim, ShardedTiledSimulation)
+          and sim.ctx.devices == [torch.device("cuda", 0)] * 2
+          and (n_int, n_surf) == OBJ_NODES and min(near) > 0
+          and sum(near) == sim._obj_tiles.numel()
+          and not sim._use_fused and obj.interior_id.is_cuda,
+          f"phase 11.1: {type(sim).__name__} on {sim.ctx.devices}, "
+          f"{n_int} interior and {n_surf} surface nodes, near-object tiles "
+          f"per shard {near} of {sim._obj_tiles.numel()}")
+    print(f"phase 11.1 bench_scaleout.ini with a sphere of radius "
+          f"{SHARDED_SPHERE[2]} at {SHARDED_SPHERE[1]} (across the shard "
+          f"boundary; {n_int} interior and {n_surf} surface nodes, "
+          f"near-object tiles per shard {near} of {sim.ts_local.NT}), "
+          f"absorb,absorb: set-up {setup_s:.2f} s (the factory, "
+          f"population and object set-up; of it the solves "
+          f"{obj.setup['solve_s']:.3f} s, building A "
+          f"{obj.setup['matrix_s']:.3f} s, the float64 inversion "
+          f"{obj.setup['invert_s']:.3f} s) ({card})", flush=True)
+    mean_ms, median_ms, launches = sharded_obj_run(
+        "11.1 absorb,absorb", sim, modules, SHARDED_OBJ_STEPS, card, True)
+    step_ms, obj_ms = sharded_obj_share(sim, card)
+    win_ms, win = sharded_obj_window("11.1 absorb,absorb window", sim,
+                                     modules, SHARDED_OBJ_STEPS, card)
+    for k, v in win.items():
+        launches[k] = launches.get(k, 0) + 2 * v      # warm and timed
+    print(f"phase 11.1 ms a step ({card}): the sharded object deck run() "
+          f"{mean_ms:.3f} (median {median_ms:.3f}), window {win_ms:.3f}; "
+          f"one object step {step_ms:.3f} by CUDA events, of which the "
+          f"object work {obj_ms:.3f} ({obj_ms / step_ms:.1%}); phase "
+          f"9.1's single-card object deck run() {single_ms:.3f}; phase "
+          f"10.1's sharded deck without objects run() median "
+          f"{scaleout_ms:.3f}", flush=True)
+    del sim, obj
+    torch.cuda.empty_cache()
+    # 11.2: reflecting electrons, ions emitting secondary electrons
+    sim, setup_s = sharded_obj_sim("reflect,secondary",
+                                   ["objects:seeSpecies=0"],
+                                   SHARDED_RESP_STEPS)
+    sharded_obj_run("11.2 reflect,secondary", sim, modules,
+                    SHARDED_RESP_STEPS, card, False)
+    print(f"phase 11.2 secondaries emitted {int(sim.see_emitted)}, found "
+          f"no free slot {int(sim.see_overflow)}, over both shards; set-up "
+          f"{setup_s:.2f} s ({card})", flush=True)
+    del sim
+    torch.cuda.empty_cache()
+    return launches
+
+
+def obj_parity(label: str, one, sim, hists, ke_rtol: float,
+               pe_rtol: float, rho_rtol: float, phi_rtol: float,
+               rho_by_sum: bool = False) -> str:
+    """Equal alive counts, then the energies (relative to their maxima),
+    rho_obj (its largest difference relative to its maximum, or with
+    rho_by_sum its sum's relative difference) and phi_c (relative to its
+    maximum) of the mesh's run against the one device's; returns a
+    summary."""
+    import numpy as np
+    h1, h = hists
+    if hasattr(sim, "ts"):
+        n1 = one.state.alive.sum(dim=(1, 2)).cpu().numpy()
+        n = sum(s.alive.sum(dim=(1, 2)).cpu().numpy() for s in sim.state)
+    else:
+        n1 = one.particles.counts().cpu().numpy()
+        n = sim.gather_particles().counts().cpu().numpy()
+    dke = float(np.abs(h["kinetic"] - h1["kinetic"]).max()
+                / np.abs(h1["kinetic"]).max())
+    dpe = float(np.abs(h["potential"] - h1["potential"]).max()
+                / np.abs(h1["potential"]).max())
+    r1, r = one.last_rho_obj, sim.last_rho_obj
+    drho = float(np.abs(r - r1).max() / np.abs(r1).max())
+    dsum = abs(float(r.sum(dtype=np.float64) - r1.sum(dtype=np.float64))) \
+        / abs(float(r1.sum(dtype=np.float64)))
+    p1, p = one.last_obj_potential, sim.last_obj_potential
+    dphi = float(np.abs(p - p1).max() / np.abs(p1).max())
+    check((n == n1).all() and dke <= ke_rtol and dpe <= pe_rtol
+          and (dsum if rho_by_sum else drho) <= rho_rtol
+          and dphi <= phi_rtol,
+          f"{label}: alive {n} vs {n1} on one device, KE {dke:.3e} (tol "
+          f"{ke_rtol}), PE {dpe:.3e} ({pe_rtol}), rho_obj {drho:.3e} / sum "
+          f"{dsum:.3e} ({rho_rtol}), phi_c {dphi:.3e} ({phi_rtol})")
+    return (f"alive {n.tolist()} on both, KE within {dke:.2e} and PE "
+            f"within {dpe:.2e} of their maxima, rho_obj within {drho:.2e} "
+            f"of its maximum (sum {dsum:.2e}), phi_c within {dphi:.2e}")
+
+
+def check_object_mesh_parity(card: str) -> None:
+    """Phase 11.3: the CPU tests' 16^3 object decks, the flat class over
+    [cuda:0] * 8 (2,2,2) and the tiled over [cuda:0] * 2 (2,1,1), against
+    the same global deck on cuda:0 (the same seed), 6 steps of run():
+    equal alive counts; the flat within pinc_tpu's own sharded-object
+    tolerances (KE 2e-3, rho_obj's sum 1e-4, phi_c 5e-3), the tiled within
+    tests/test_torch_tiled_sharded_objects.py's (KE 1e-5, PE 1e-4, rho_obj
+    1e-5 and phi_c 1e-4 of their maxima)."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.objects import make_sphere
+    from pinc_tpu_torch.parallel.pic import make_simulation
+    dev = torch.device("cuda", 0)
+    dom = make_sphere((16,) * 3, (8, 8, 8), 2.5)
+    for label, deck, nsub, tols in (
+            ("flat", OBJ_PARITY_FLAT, (2, 2, 2), (2e-3, 1.0, 1e-4, 5e-3,
+                                                   True)),
+            ("tiled", OBJ_PARITY_TILED, (2, 1, 1), (1e-5, 1e-4, 1e-5,
+                                                    1e-4))):
+        t0 = time.monotonic()
+        ts = ",".join(str(16 // n) for n in nsub)
+        one = make_simulation(PincConfig.from_string(deck.format(
+            nsub="1,1,1", ts="16,16,16")), seed=4, device=dev, domain=dom)
+        sim = make_simulation(PincConfig.from_string(deck.format(
+            nsub=",".join(map(str, nsub)), ts=ts)), seed=4,
+            devices=[dev] * (nsub[0] * nsub[1] * nsub[2]), domain=dom)
+        hists = (one.run(progress_every=0), sim.run(progress_every=0))
+        text = obj_parity(f"phase 11.3 {label}", one, sim, hists, *tols)
+        print(f"phase 11.3 {label} {type(sim).__name__} over "
+              f"{sim.ctx.n_devices} shards of cuda:0 vs "
+              f"{type(one).__name__}: {OBJ_PARITY_STEPS} steps, {text}, "
+              f"{time.monotonic() - t0:.1f} s ({card})", flush=True)
+        del one, sim
+    torch.cuda.empty_cache()
+
+
+def check_shipped_sharded(card: str) -> None:
+    """Phase 11.4: input/sphereObject.ini (flat, mgSolve, 32^3, its
+    sphere of radius 4 as domain=) with grid:nSubdomains = 1,2,2 over
+    [cuda:0] * 4 against the 1,1,1 deck on cuda:0, 5 steps: equal alive
+    counts, rho_obj within 1e-5 of its maximum, phi_c within 1e-4 (the
+    CPU tests' multigrid tolerance), the same multigrid cycles each
+    solve."""
+    import torch
+    from pinc_tpu_torch.objects import make_sphere
+    from pinc_tpu_torch.parallel.mg import ShardedMultigridSolver
+    from pinc_tpu_torch.parallel.pic import ShardedSimulation
+    dev = torch.device("cuda", 0)
+    dom = make_sphere(*SHIPPED_SPHERE)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(deck_path("sphereObject.ini", tmp, output=False)) as f:
+            text = f.read()
+    runs = {}
+    for label, extra, devices in (
+            ("sharded", ["grid:nSubdomains=1,2,2",
+                         "grid:trueSize=32,16,16"], [dev] * 4),
+            ("single", [], None)):
+        sim, setup_s = make_obj_sim(
+            text, dom, dev, [f"time:nTimeSteps={SHIPPED_SHARDED_STEPS}",
+                             *extra], devices=devices)
+        solver = sim._solve if devices is not None else sim.solver
+        cycles = []
+        solve = solver.solve_with_stats
+
+        def counted(*a, solve=solve, cycles=cycles):
+            out = solve(*a)
+            cycles.append(int(out[1]))
+            return out
+        solver.solve_with_stats = counted
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        hist = sim.run(progress_every=0)
+        torch.cuda.synchronize()
+        runs[label] = (sim, hist, cycles, time.monotonic() - t0, setup_s)
+    (sim, h, cyc, wall, setup_s), (one, h1, cyc1, wall1, setup1) = (
+        runs["sharded"], runs["single"])
+    check(isinstance(sim, ShardedSimulation)
+          and isinstance(sim._solve, ShardedMultigridSolver)
+          and len(cyc) == 2 * SHIPPED_SHARDED_STEPS + 1 and cyc == cyc1,
+          f"phase 11.4: {type(sim).__name__} / {type(sim._solve).__name__}"
+          f", cycles a solve {cyc} sharded, {cyc1} on one device")
+    text = obj_parity("phase 11.4", one, sim, (h1, h), 1.0, 1.0, 1e-5,
+                      1e-4)
+    print(f"phase 11.4 sphereObject.ini over 1,2,2 shards of cuda:0: "
+          f"{SHIPPED_SHARDED_STEPS} steps, {text}; multigrid cycles a solve "
+          f"{cyc} (the same on one device); run {wall:.2f} s (one device "
+          f"{wall1:.2f}), set-up {setup_s:.2f} s ({setup1:.2f}) ({card})",
+          flush=True)
+    del runs, sim, one
+    torch.cuda.empty_cache()
+
+
+def check_sharded_objects(modules, card: str, single_ms: float,
+                          scaleout_ms: float) -> dict:
+    """Phase 11: decomposed object decks on meshes of the one card (see
+    the module docstring); returns 11.1's launches."""
+    t_phase = time.monotonic()
+    launches = check_scaleout_objects(modules, card, single_ms, scaleout_ms)
+    check_object_mesh_parity(card)
+    check_shipped_sharded(card)
+    print(f"phase 11: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -3863,10 +4338,18 @@ def main() -> int:
                                    aux["ms_step"])
 
     # -- phase 9: embedded objects ----------------------------------------
-    check_objects(modules, card, walled_ms)
+    obj_ms = check_objects(modules, card, walled_ms)
 
     # -- phase 10: the multi-device layer on meshes of the one card -------
-    check_parallel(cli_main, modules, prod, card, run_ms, aux["ms_step"])
+    scaleout_ms = check_parallel(cli_main, modules, prod, card, run_ms,
+                                 aux["ms_step"])
+
+    # -- phase 11: decomposed object decks on meshes of the one card ------
+    # K1, K3, K4 and the gather exchange run on its path: their rows count
+    # 11.1's launches too (both shards, run() and its two windows)
+    for name, n in check_sharded_objects(modules, card, obj_ms,
+                                         scaleout_ms).items():
+        launches[name] = launches.get(name, 0) + n
 
     rows = [{"name": name, "route": "cuda",
              "source": getattr(m, "SOURCES", {}).get(name, m.SOURCE),

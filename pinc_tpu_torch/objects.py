@@ -44,6 +44,7 @@ tensors of ``ObjectSystem.device``, as it is plain ``jnp`` in ``pinc_tpu``
 
 from __future__ import annotations
 
+import copy
 import itertools
 import time
 from dataclasses import dataclass, field
@@ -295,6 +296,22 @@ class ObjectSystem:
     @property
     def has_collisions(self) -> bool:
         return any(m != "absorb" for m in self.collision_types)
+
+    def on(self, device) -> "ObjectSystem":
+        """This system with the grids a shard reads per particle
+        (interior_id, normals, surface_id) on ``device``: itself where they
+        are there already, else a shallow copy (the surface lists and the
+        capacitance matrices, which only the global fields read, stay on
+        this system's device)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        other = copy.copy(self)
+        other.device = device
+        for name in ("interior_id", "normals", "surface_id"):
+            t = getattr(self, name)
+            setattr(other, name, None if t is None else t.to(device))
+        return other
 
     # ------------------------------------------------------------- factory
     @classmethod

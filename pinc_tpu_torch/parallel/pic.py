@@ -10,10 +10,14 @@ add the shards' values in mesh order.
 
 The step (mirrors src/main.c:197-274):
 
-    shard_map: move (unwrapped) -> reflect at walls -> migrate -> CIC
-               deposit into a (+1)-padded local block -> fold_plus
+    shard_map: move (unwrapped) -> reflect at walls -> migrate -> absorb
+               into objects -> CIC deposit into a (+1)-padded local block
+               -> fold_plus
     solve:     phi = solve(rho) on the shards (parallel/pencil_fft.py's
-               dispatch), E = -grad(phi) on the gathered field, cut back
+               dispatch), E = -grad(phi) on the gathered field, cut back;
+               on an object deck first the absorbed charge spread into
+               rho_obj, rho += rho_obj, solve, the capacitance correction
+               on the gathered rho and phi, and the second solve
     shard_map: pad_plus ghost fetch -> CIC gather -> kick -> summed KE
 
 Particles live in per-shard slabs: ``ShardedSimulation.particles`` is a
@@ -23,9 +27,15 @@ list of per-shard ``Particles`` (S, cap_local, D) holding global
 particles, gathered from the shards (``gather_particles``), the
 single-process branch of ``pinc_tpu/utils/multihost.py:44-50``.
 
-The sharded object branches (``pinc_tpu/parallel/pic.py:142-175``,
-``:225-273``) are not ported: an object deck with more than one
-subdomain raises ``NotImplementedError`` (``simulation.check_single_device``).
+Embedded objects (``pinc_tpu/parallel/pic.py:142-175``, ``:225-313``):
+each shard kills the particles whose floor node is object interior after
+its migration, and the absorbed charge per object is summed over the mesh
+(``MeshCtx.psum``).  ``rho_obj``, the persistent surface charge, is one
+global tensor on the first shard's device, as the writer and the
+checkpoints take it.  As in ``pinc_tpu``, this path only absorbs: the
+responses of ``objects:collisionType`` (reflect, backscatter, adhere,
+secondary) act as absorb here (a WARNING says so), where the single-device
+flat path and both tiled paths run them.
 """
 
 from __future__ import annotations
@@ -39,12 +49,12 @@ import torch
 
 from ..config import PincConfig, required_np
 from ..grid import GridSpec, potential_energy
+from ..objects import _at
 from ..ops import cic
 from ..ops import pusher as pu
 from ..population import Particles, SpeciesParams, capacity_of
-from ..simulation import (Diagnostics, Simulation, StepOutput,
-                          check_single_device)
-from ..utils.logging import STATUS, msg
+from ..simulation import Diagnostics, Simulation, StepOutput
+from ..utils.logging import STATUS, WARNING, msg
 from .halo import fold_plus, pad_plus
 from .mesh import make_mesh, mesh_devices, subdomain_offset
 from .migrate import migrate
@@ -62,14 +72,18 @@ def _round_up(x: int, m: int) -> int:
 class ShardedSimulation(Simulation):
     """Simulation over a device mesh.  Same deck, same physics; the
     single-block Simulation is the nSubdomains = 1 case.  devices: the
-    mesh's devices (make_mesh: None means the visible cards)."""
+    mesh's devices (make_mesh: None means the visible cards); domain:
+    Simulation's in-memory object-id grid."""
 
-    def __init__(self, cfg: PincConfig, seed: int = 1, devices=None):
+    def __init__(self, cfg: PincConfig, seed: int = 1, devices=None,
+                 domain: Optional[np.ndarray] = None):
         spec = GridSpec.from_config(cfg)
         ctx = make_mesh(spec.n_subdomains, spec.true_size, devices=devices)
         # the single-device set-up first (methods, units, the global
-        # initial conditions) on the first shard's device, then distributed
-        super().__init__(cfg, seed=seed, device=ctx.devices[0])
+        # initial conditions, the object system) on the first shard's
+        # device, then distributed
+        super().__init__(cfg, seed=seed, device=ctx.devices[0],
+                         domain=domain)
         self.ctx = ctx
         cap_global = self.particles.capacity
         self.cap_local = _round_up(math.ceil(cap_global / ctx.n_devices), 8)
@@ -83,6 +97,12 @@ class ShardedSimulation(Simulation):
         from .pencil_fft import make_sharded_solver
         self._solve = make_sharded_solver(self.solver, ctx, cfg,
                                           self.spec.dtype)
+        self._objs = object_copies(self)
+        if self.objects is not None and self.objects.has_collisions:
+            msg(WARNING, "grid:nSubdomains > 1 on the flat layout: the "
+                "objects:collisionType responses %s act as absorb (as in "
+                "pinc_tpu's sharded flat path; the tiled layout runs them)",
+                sorted(set(self.objects.collision_types) - {"absorb"}))
 
     # ------------------------------------------------------------ placement
     def _distribute(self, p: Particles) -> List[Particles]:
@@ -160,9 +180,26 @@ class ShardedSimulation(Simulation):
                                   dtype=self.spec.dtype)
         return fold_plus(rho_pad, ctx, bounded=self._bounded_dims)
 
+    def _local_absorb(self, p: Particles):
+        """Per shard: kill the particles whose floor node is object interior
+        (the particle half of oCollectObjectCharge, src/object.c:460-515);
+        returns (particles, the absorbed charge per object summed over the
+        mesh).  p.cell is in the global frame."""
+        dev = p.cell.device
+        obj = self._objs[dev]
+        cell = torch.where(p.alive[..., None], p.cell,
+                           torch.zeros_like(p.cell))
+        oid = _at(obj.interior_id, cell.long())               # (S, capL)
+        absorbed = p.alive & (oid > 0)
+        q = self._params[dev].charge[:, None].expand(p.alive.shape)
+        counter = obj.object_counter(torch.where(absorbed, oid, 0), q)
+        return (Particles(cell=p.cell, frac=p.frac, vel=p.vel,
+                          alive=p.alive & ~absorbed),
+                self.ctx.psum(counter))
+
     def _local_deposit(self, p: Particles):
-        """Per shard: move (unwrapped), reflect at walls, migrate, deposit
-        with the halo fold."""
+        """Per shard: move (unwrapped), reflect at walls, migrate, absorb
+        into the objects, deposit with the halo fold."""
         ctx = self.ctx
         offset = subdomain_offset(ctx)
         p = pu.move(p, ctx.global_size, periodic=False)
@@ -172,12 +209,20 @@ class ShardedSimulation(Simulation):
             # rings at those edges; the periodic dims of a mixed deck wrap
             p = pu.reflect(p, ctx.global_size, bounded=self._bounded_dims)
         p, lost = migrate(p, ctx, offset, self.migration_cap)
-        return p, self._deposit_local(p, offset), lost
+        counter = None
+        if self.objects is not None:
+            p, counter = self._local_absorb(p)
+        return p, self._deposit_local(p, offset), lost, counter
 
     def _local_no_move(self, p: Particles):
+        if self.objects is not None:
+            # the initial cull: particles inside objects are removed with
+            # their charge discarded (oCollectObjectCharge on a zeroed
+            # rhoObj, src/main.c:161-166)
+            p, _ = self._local_absorb(p)
         rho = self._deposit_local(p, subdomain_offset(self.ctx))
         return p, rho, torch.zeros((), dtype=torch.int32,
-                                   device=p.cell.device)
+                                   device=p.cell.device), None
 
     def _local_kick(self, p: Particles, E_local: torch.Tensor,
                     half: bool):
@@ -194,32 +239,47 @@ class ShardedSimulation(Simulation):
 
     # ------------------------------------------------------------ the step
     def _sharded_pipeline(self, particles: List[Particles], do_move: bool,
-                          half: bool) -> StepOutput:
+                          half: bool, rho_obj=None) -> StepOutput:
         ctx = self.ctx
         dep = self._local_deposit if do_move else self._local_no_move
         res = ctx.shard_map(dep, particles)
         particles = [r[0] for r in res]
         rho = [r[1] for r in res]
-        lost = res[0][2]
-        phi, E, pe = solve_fields(self, rho)
+        lost, counter = res[0][2], res[0][3]
+        obj_phi = None
+        if self.objects is not None and rho_obj is None:
+            rho_obj = self._zeros()
+        if self.objects is not None and do_move:
+            rho_obj = self.objects._spread(rho_obj.reshape(-1).clone(),
+                                           counter).reshape(rho_obj.shape)
+            rho, phi, E, pe, obj_phi = solve_object_fields(self, rho,
+                                                           rho_obj)
+        else:
+            phi, E, pe = solve_fields(self, rho)
         res = ctx.shard_map(partial(self._local_kick, half=half),
                             particles, E)
         particles = [r[0] for r in res]
         return StepOutput(particles, rho, phi, E, Diagnostics(
-            kin_energy=res[0][1], pot_energy=pe, n_lost=lost))
+            kin_energy=res[0][1], pot_energy=pe, n_lost=lost),
+            rho_obj=rho_obj, obj_potential=obj_phi)
 
     def _half_kick(self, particles: List[Particles]) -> StepOutput:
+        # no absorbed charge is kept and no capacitance applied before the
+        # first solve (Simulation._half_kick's); rho_obj comes out zero
         return self._sharded_pipeline(particles, do_move=False, half=True)
 
     def _step(self, particles: List[Particles],
               rho_obj=None) -> StepOutput:
-        return self._sharded_pipeline(particles, do_move=True, half=False)
+        return self._sharded_pipeline(particles, do_move=True, half=False,
+                                      rho_obj=rho_obj)
 
     # the gathered global state for the writer, the guards and checkpoints
     def _output(self, out: StepOutput) -> StepOutput:
         g = self.ctx.gather
         return StepOutput(self.gather_particles(out.particles), g(out.rho),
-                          g(out.phi), g(out.E), out.diag)
+                          g(out.phi), g(out.E), out.diag,
+                          rho_obj=out.rho_obj,
+                          obj_potential=out.obj_potential)
 
     def _global_particles(self, particles: List[Particles]) -> Particles:
         return self.gather_particles(particles)
@@ -240,6 +300,31 @@ def solve_fields(sim, rho: List[torch.Tensor]):
     return phi, E, pe
 
 
+def solve_object_fields(sim, rho: List[torch.Tensor],
+                        rho_obj: torch.Tensor):
+    """The object deck's field solve of both sharded classes
+    (src/main.c:222-240): rho += rho_obj (global, on the first shard's
+    device), solve on the shards, the capacitance correction on the
+    gathered rho and phi (it reads phi at global surface nodes), cut back
+    into the shards, then solve_fields.  Returns (rho, phi, E, pe, phi_c
+    per object)."""
+    ctx = sim.ctx
+    rho_g = ctx.gather(rho) + rho_obj
+    phi = sim._solve(ctx.split(rho_g))
+    rho_g, obj_phi = sim.objects.apply_capacitance(rho_g, ctx.gather(phi))
+    rho = ctx.split(rho_g)
+    phi, E, pe = solve_fields(sim, rho)          # 2nd solve (main.c:240)
+    return rho, phi, E, pe, obj_phi
+
+
+def object_copies(sim) -> Optional[dict]:
+    """{device: the object system with what a shard reads on that device},
+    one for each distinct device of the mesh; None without objects."""
+    if sim.objects is None:
+        return None
+    return {dev: sim.objects.on(dev) for dev in sim.ctx.distinct_devices()}
+
+
 def make_simulation(cfg: PincConfig, seed: int = 1, device=None,
                     domain=None, devices=None) -> Simulation:
     """Sharded when the deck asks for more than one subdomain (the mpinc.sh
@@ -254,13 +339,14 @@ def make_simulation(cfg: PincConfig, seed: int = 1, device=None,
     layout = cfg.get_str("methods:layout", "").lower()
     tiled = layout == "tiled"
     if np_needed > 1:
-        check_single_device(cfg, "a run")
         if devices is None and device is not None:
             devices = mesh_devices(device, np_needed)
         if tiled:
             from .tiled_pic import ShardedTiledSimulation
-            return ShardedTiledSimulation(cfg, seed=seed, devices=devices)
-        return ShardedSimulation(cfg, seed=seed, devices=devices)
+            return ShardedTiledSimulation(cfg, seed=seed, devices=devices,
+                                          domain=domain)
+        return ShardedSimulation(cfg, seed=seed, devices=devices,
+                                 domain=domain)
     slots = capacity_of(cfg) * cfg.get_int("population:nspecies")
     if not layout and slots > AUTO_TILED_SLOTS:
         msg(STATUS, "auto-selected methods:layout=tiled (%d particle "

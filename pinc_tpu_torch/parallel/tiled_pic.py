@@ -24,14 +24,24 @@ planes, as ``pinc_tpu``'s are XLA there: K6 and K7 stay the
 single-device path's kernels.  The solve and E = -grad(phi) are those of
 ``parallel/pic.py``.
 
-Embedded objects (``pinc_tpu/parallel/tiled_pic.py:96-128``, ``:365-530``)
-are not ported: ``simulation.check_supported`` raises for them.
+Embedded objects (``pinc_tpu/parallel/tiled_pic.py:96-128``, ``:365-530``):
+the single-device near-object tile mask is cut per mesh block, and each
+shard keeps its own tiles' local indices and global origins on its device
+(no padding to a common count).  A shard's part of the object step
+(``_pipeline_obj``) is the drift, the walls, the margin count, the
+responses and the absorption on its near-object tiles
+(``TiledSimulation._absorb_tiles``, the single-device body) and K1 per
+species with the halo fold; the absorbed charge, the adhered charge and
+the secondary counts are summed over the mesh.  Then ``rho_obj`` (one
+global tensor on the first shard's device), the two solves and the
+capacitance run on the sharded fields (``pic.solve_object_fields``), and
+``_local_kick`` kicks.  ``run()`` and the window are the base class's.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -44,18 +54,21 @@ from ..simulation import Diagnostics
 from ..tiled_sim import TiledSimulation, TiledState, _stack_outs
 from ..utils.logging import STATUS, msg
 from .halo import shifted_tiles
-from .mesh import make_mesh
-from .pic import solve_fields
+from .mesh import current_shard, make_mesh, subdomain_offset
+from .pic import object_copies, solve_fields, solve_object_fields
 
 
 class ShardedTiledSimulation(TiledSimulation):
     """Tiled layout over a grid:nSubdomains device mesh; ``state`` is the
-    list of per-shard TiledStates in mesh order."""
+    list of per-shard TiledStates in mesh order.  domain: Simulation's
+    in-memory object-id grid."""
 
-    def __init__(self, cfg: PincConfig, seed: int = 1, devices=None):
+    def __init__(self, cfg: PincConfig, seed: int = 1, devices=None,
+                 domain: Optional[np.ndarray] = None):
         spec = GridSpec.from_config(cfg)
         ctx = make_mesh(spec.n_subdomains, spec.true_size, devices=devices)
-        super().__init__(cfg, seed=seed, device=ctx.devices[0])
+        super().__init__(cfg, seed=seed, device=ctx.devices[0],
+                         domain=domain)
         if self._rebucket_mode != "exchange":
             raise ValueError(
                 "the sharded tiled path supports tiles:rebucket=exchange "
@@ -74,6 +87,23 @@ class ShardedTiledSimulation(TiledSimulation):
         from .pencil_fft import make_sharded_solver
         self._solve = make_sharded_solver(self.solver, ctx, cfg,
                                           self.spec.dtype)
+        self._objs = object_copies(self)
+        if self.objects is not None:
+            # each shard's near-object tiles: the single-device mask cut per
+            # mesh block, local tile indices and global origins on its device
+            mask = self._near_object_mask()
+            org = tl.tile_origins(self.ts_local)
+            self._shard_obj_tiles = []
+            for i, dev in enumerate(ctx.devices):
+                idx = torch.as_tensor(
+                    np.flatnonzero(mask[self._tile_block(i)]),
+                    dtype=torch.int64)
+                off = torch.tensor(subdomain_offset(ctx, i),
+                                   dtype=torch.float32)
+                self._shard_obj_tiles.append((idx.to(dev),
+                                              (org[idx] + off).to(dev)))
+            msg(STATUS, "sharded tiled objects: near-object tiles per shard "
+                "%s", [int(t[0].numel()) for t in self._shard_obj_tiles])
         msg(STATUS, "sharded tiled layout: %s device mesh over %s tiles",
             ctx.n_subdomains, self.ts.ntiles)
 
@@ -226,6 +256,23 @@ class ShardedTiledSimulation(TiledSimulation):
             vel[:, d] = torch.where(flip, -vel[:, d], vel[:, d])
         return TiledState(lpos=lpos, vel=vel, alive=stl.alive)
 
+    def _objects_on(self, device):
+        return self._objs[device]
+
+    def _local_absorb_tiled(self, stl: TiledState, collide: bool = True):
+        """Per shard: _absorb_tiles on the shard's near-object tiles;
+        the absorbed charge per object, the adhered charge (flat (V,), or
+        None) and the secondaries' (emitted, unplaced) counts (or None)
+        summed over the mesh.  Changes nothing of self."""
+        idx, origins = self._shard_obj_tiles[current_shard()]
+        stl, counter, rho_add, emitted, overflow = self._absorb_tiles(
+            stl, idx, origins, stl.lpos.device, collide)
+        psum = self.ctx.psum
+        return (stl, psum(counter),
+                None if rho_add is None else psum(rho_add),
+                None if emitted is None
+                else psum(torch.stack([emitted, overflow])))
+
     def _local_rebucket(self, stl: TiledState, species):
         """Per shard: the exchange re-bucket of the listed species on the
         local tile grid, in place; only the buffer wraps cross shards.
@@ -265,6 +312,54 @@ class ShardedTiledSimulation(TiledSimulation):
 
     def _tiled_half_kick(self, st):
         return self._pipeline(st, do_move=False, half=True)
+
+    def _pipeline_obj(self, st: List[TiledState], rho_obj, half: bool,
+                      cull_only: bool):
+        """The object step on the mesh (src/main.c:222-240): per shard the
+        drift, the walls, the margin count, the responses and absorption,
+        K1 per species and the halo fold; then rho_obj, the solves and the
+        capacitance on the sharded fields; per shard the kick.  cull_only:
+        the initialization's cull (no move, no response, the absorbed
+        charge discarded, one solve).  Returns (st, rho, phi, E, diag,
+        rho_obj, phi_c per object or None)."""
+        ctx = self.ctx
+
+        def dep(stl):
+            if not cull_only:
+                stl = TiledState(lpos=stl.lpos + stl.vel, vel=stl.vel,
+                                 alive=stl.alive)
+                if not self.spec.periodic:
+                    stl = self._local_reflect(stl)
+            n_out = self._out_of_margin(stl)
+            stl, *sums = self._local_absorb_tiled(stl,
+                                                  collide=not cull_only)
+            return (stl, self._local_fields(stl), ctx.psum(n_out), *sums)
+
+        res = ctx.shard_map(dep, st)
+        st, rho = [r[0] for r in res], [r[1] for r in res]
+        n_out, counter, rho_add, see = res[0][2:]
+        obj_phi = None
+        if cull_only:
+            phi, E, pe = solve_fields(self, rho)
+        else:
+            rho_obj = self._spread_obj_charge(rho_obj, counter)
+            if rho_add is not None:
+                rho_obj = rho_obj + rho_add.reshape(self.objects.shape)
+            rho, phi, E, pe, obj_phi = solve_object_fields(self, rho,
+                                                           rho_obj)
+            if see is not None:
+                self.see_emitted = self.see_emitted + see[0]
+                self.see_overflow = self.see_overflow + see[1]
+        res = ctx.shard_map(partial(self._local_kick, half=half), st, E)
+        return ([r[0] for r in res], rho, phi, E, Diagnostics(
+            kin_energy=res[0][1], pot_energy=pe,
+            n_lost=n_out.to(torch.int32)), rho_obj, obj_phi)
+
+    def _tiled_step_obj(self, st, rho_obj):
+        return self._pipeline_obj(st, rho_obj, half=False, cull_only=False)
+
+    def _tiled_half_kick_obj(self, st):
+        return self._pipeline_obj(st, None, half=True, cull_only=True)[:5]
 
     def _tiled_step(self, st):
         return self._pipeline(st, do_move=True, half=False)
@@ -315,9 +410,10 @@ class ShardedTiledSimulation(TiledSimulation):
 
     def _write(self, writer, n: int, st, fields, diag, ke, pe,
                rho_obj=None, obj_phi=None):
+        # rho_obj is one global tensor already
         if writer.writes(n):
             fields = tuple(self.ctx.gather(f) for f in fields)
-        super()._write(writer, n, st, fields, diag, ke, pe)
+        super()._write(writer, n, st, fields, diag, ke, pe, rho_obj, obj_phi)
 
     def _sync(self) -> None:
         self.ctx.synchronize()

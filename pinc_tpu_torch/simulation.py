@@ -8,11 +8,8 @@ initialization (src/main.c:141-186) and the production time loop
 on tensors that live on ``Simulation.device``.
 
 Embedded objects (``objects.py``) run the reference's object sequence in
-the step.  Decks with ``grid:nSubdomains`` > 1 run on the device mesh of
-``parallel/`` (``parallel/pic.make_simulation``), except object decks:
-the sharded object branches are not ported yet and raise
-``NotImplementedError`` (``check_supported``) rather than run something
-else.
+the step.  Decks with ``grid:nSubdomains`` > 1, object decks included, run
+on the device mesh of ``parallel/`` (``parallel/pic.make_simulation``).
 """
 
 from __future__ import annotations
@@ -36,27 +33,10 @@ from .solvers import spectral as _spectral      # noqa: F401 (registry)
 from .solvers import multigrid as _multigrid    # noqa: F401 (registry)
 from . import pumodes as _pumodes               # noqa: F401 (registry)
 
-_TODO = "not ported to pinc_tpu_torch yet (ROADMAP.md, 'Still to port')"
-
-
-def check_single_device(cfg: PincConfig, what: str) -> None:
-    """Decomposed decks (grid:nSubdomains > 1) run on the device mesh of
-    parallel/, but its object branches are not ported: raise for an object
-    deck with more than one subdomain."""
-    from .config import required_np
-    names_objects = any(n.endswith(".h5") for key in
-                        ("objects:objects", "files:objects") if key in cfg
-                        for n in cfg.get_str_arr(key))
-    if required_np(cfg) > 1 and names_objects:
-        raise NotImplementedError(
-            f"{what} with embedded objects and grid:nSubdomains > 1 (the "
-            f"sharded object branches of parallel/) is {_TODO}")
-
 
 def check_supported(cfg: PincConfig) -> None:
-    """Raise for the deck features the port cannot run yet: embedded
-    objects on a decomposed grid."""
-    check_single_device(cfg, "a run")
+    """The one place that raises for a deck feature of pinc_tpu the port
+    cannot run yet.  Every feature is ported: it raises for none."""
 
 
 @dataclass

@@ -663,12 +663,12 @@ class TiledSimulation(Simulation):
             n_lost=n_out.to(torch.int32))
 
     # ------------------------------------------------------------ objects
-    def _near_object_tiles(self) -> torch.Tensor:
+    def _near_object_mask(self) -> np.ndarray:
         """The static subset of tiles that can hold an absorbable
-        particle: tiles with interior nodes, dilated by one tile (a
-        particle's floor cell stays within one tile of its bucket, margin
-        M < T).  The interior lookup then runs on those tiles' slots only.
-        (NTo,) int64 tile indices on the device."""
+        particle, as a boolean mask over the global tile grid: tiles with
+        interior nodes, dilated by one tile (a particle's floor cell stays
+        within one tile of its bucket, margin M < T).  The interior lookup
+        then runs on those tiles' slots only."""
         interior = self.objects.interior_id.cpu().numpy() > 0
         T, nt = self.ts.T, self.ts.ntiles
         D = len(nt)
@@ -677,8 +677,17 @@ class TiledSimulation(Simulation):
         for ax in range(D):
             tmask = (tmask | np.roll(tmask, 1, axis=ax)
                      | np.roll(tmask, -1, axis=ax))
-        return torch.as_tensor(np.flatnonzero(tmask.ravel()),
+        return tmask
+
+    def _near_object_tiles(self) -> torch.Tensor:
+        """_near_object_mask's tiles: (NTo,) int64 indices on the device."""
+        return torch.as_tensor(np.flatnonzero(self._near_object_mask()),
                                dtype=torch.int64, device=self.device)
+
+    def _objects_on(self, device):
+        """The object system whose tensors lie on ``device`` (the sharded
+        class keeps a copy for each device of its mesh)."""
+        return self.objects
 
     def _collision_type(self, s: int) -> str:
         ct = self.objects.collision_types
@@ -687,6 +696,10 @@ class TiledSimulation(Simulation):
     def _has_adhere(self) -> bool:
         return (self.objects is not None
                 and "adhere" in self.objects.collision_types)
+
+    def _has_secondary(self) -> bool:
+        return (self.objects is not None
+                and "secondary" in self.objects.collision_types)
 
     def _global_planes(self, lp: torch.Tensor, origins: torch.Tensor):
         """Tile-local planes (D, NTo, B) -> wrapped global positions
@@ -703,7 +716,7 @@ class TiledSimulation(Simulation):
         coordinates stay near their bucket where the global position
         wrapped.  Returns (lp', vl')."""
         from .objects import collide_segments
-        obj = self.objects
+        obj = self._objects_on(lp.device)
         pos, vel, _, hit, _ = self._hits_tile_planes(lp, vl, al, origins,
                                                      valid, tunnel=False)
         pos2, vel2, _ = collide_segments(pos, vel, hit, obj.interior_id,
@@ -720,7 +733,7 @@ class TiledSimulation(Simulation):
         hits whose segment start was interior too (no crossing to bisect,
         the flat path's failure class; None when tunnel=False)."""
         from .objects import _at, _cell_of
-        obj = self.objects
+        obj = self._objects_on(lp.device)
         pos = self._global_planes(lp, origins)
         vel = vl.movedim(0, -1)
         oid = _at(obj.interior_id, _cell_of(pos, self.ts.grid))
@@ -737,7 +750,7 @@ class TiledSimulation(Simulation):
         alive for the absorb.  Returns (alive', rho_add', a flat (V,)
         localized charge)."""
         from .objects import intersect_segments
-        obj = self.objects
+        obj = self._objects_on(lp.device)
         pos, vel, _, hit, tunneled = self._hits_tile_planes(
             lp, vl, al, origins, valid)
         ok = hit & ~tunneled
@@ -762,7 +775,7 @@ class TiledSimulation(Simulation):
         secondaries that found no free slot)."""
         from .objects import (_hash_uniform, _mul32, cosine_directions,
                               intersect_segments, u32_bits)
-        obj = self.objects
+        obj = self._objects_on(lp.device)
         D = self.ts.n_dims
         dev = lp.device
         Lf = torch.tensor(self.ts.grid, dtype=torch.float32, device=dev)
@@ -811,18 +824,38 @@ class TiledSimulation(Simulation):
         return lp_t[..., :B], vl_t[..., :B], al_t[..., :B], n_emit, n_over
 
     def _absorb(self, st: TiledState, collide: bool = True):
-        """Object absorption on the near-object tiles (the particle half
-        of oCollectObjectCharge, src/object.c:460-515), after the
-        per-species collision responses the deck selects
+        """_absorb_tiles on this layout's near-object tiles, the emitted
+        and unplaced secondaries added to see_emitted and see_overflow.
+        Returns (st, the absorbed charge per object (n_objects,), the
+        adhered charge: flat (V,) or None)."""
+        st, counter, rho_add, emitted, overflow = self._absorb_tiles(
+            st, self._obj_tiles, self._obj_origins, self.device, collide)
+        if emitted is not None:
+            self.see_emitted = self.see_emitted + emitted
+            self.see_overflow = self.see_overflow + overflow
+        return st, counter, rho_add
+
+    def _absorb_tiles(self, st: TiledState, idx: torch.Tensor,
+                      origins: torch.Tensor, device: torch.device,
+                      collide: bool = True):
+        """Object absorption on the tiles idx (NTo,) of st, whose global
+        origins are origins (NTo, D), everything on ``device`` (the
+        particle half of oCollectObjectCharge, src/object.c:460-515), after
+        the per-species collision responses the deck selects
         (objects:collisionType).  collide=False is the initial cull
         (src/main.c:161-166): interior particles are removed, no response.
-        Updates st's planes in place.  Returns (st, the absorbed charge
-        per object (n_objects,), the adhered charge: flat (V,) or None)."""
-        obj = self.objects
-        idx, origins = self._obj_tiles, self._obj_origins
-        counter = torch.zeros(obj.n_objects, device=self.device)
-        rho_add = (torch.zeros(self.spec.global_volume, device=self.device)
+        Updates st's planes in place and nothing of self.  Returns (st, the
+        absorbed charge per object (n_objects,), the adhered charge: flat
+        (V,) or None, the secondaries emitted and those that found no free
+        slot: 0-d int64 tensors, or None on a deck without secondaries)."""
+        obj = self._objects_on(device)
+        counter = torch.zeros(obj.n_objects, device=device)
+        rho_add = (torch.zeros(self.spec.global_volume, device=device)
                    if collide and self._has_adhere() else None)
+        emitted = overflow = None
+        if collide and self._has_secondary():
+            emitted = torch.zeros((), dtype=torch.int64, device=device)
+            overflow = torch.zeros_like(emitted)
         lpos, vel, alive = st.lpos, st.vel, st.alive
         for s in range(lpos.shape[0]):
             lp = lpos[s][:, idx]                          # (D, NTo, B)
@@ -842,9 +875,8 @@ class TiledSimulation(Simulation):
                  n_over) = self._emit_secondaries_tiles(
                     s, lp, vel[s][:, idx], al, lpos[tgt][:, idx],
                     vel[tgt][:, idx], alive[tgt][idx], origins)
-                self.see_emitted = (self.see_emitted
-                                    + n_emit.sum().to(torch.int64))
-                self.see_overflow = self.see_overflow + n_over
+                emitted = emitted + n_emit.sum().to(torch.int64)
+                overflow = overflow + n_over
                 lpos[tgt][:, idx] = lp_t
                 vel[tgt][:, idx] = vl_t
                 alive[tgt][idx] = al_t
@@ -862,7 +894,7 @@ class TiledSimulation(Simulation):
                 torch.where(absorbed, oid, 0),
                 torch.full_like(al, self._charge[s]))
             alive[s][idx] = torch.where(absorbed, torch.zeros_like(al), al)
-        return st, counter, rho_add
+        return st, counter, rho_add, emitted, overflow
 
     def _spread_obj_charge(self, rho_obj: torch.Tensor,
                            counter: torch.Tensor) -> torch.Tensor:

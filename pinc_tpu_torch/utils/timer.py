@@ -1,10 +1,12 @@
 """Nanosecond-accumulating timer — the reference's ``Timer``
 (src/core.h:439-442; tAlloc/tStart/tStop/tMsg, src/aux.c:48-89) plus a
 device timer built on CUDA events, since PyTorch launches asynchronously
-and a host clock alone measures the enqueue."""
+and a host clock alone measures the enqueue, and ``profile_trace``, a
+torch.profiler trace of a block."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -65,3 +67,22 @@ class DeviceTimer(Timer):
         end.synchronize()
         self.total += int(begin.elapsed_time(end) * 1e6)   # ms -> ns
         self._events = None
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]):
+    """Record a torch.profiler trace (CPU and, where there is a card, CUDA
+    activities) of the block into ``log_dir``, as a TensorBoard trace file;
+    nothing when log_dir is None or empty (the rebuild's answer to the
+    reference's gprof workflow, doc/introduction/main.tex:568)."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -1539,3 +1539,51 @@ def test_sharded_step_on_one_card_matches_single(cuda, layout):
     else:
         assert torch.equal(sim.gather_particles().counts().cpu(),
                            one.particles.counts().cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["tiled", "flat"])
+def test_sharded_object_step_on_one_card(cuda, layout):
+    """The slice deck with a sphere of radius 2.5 at the grid's centre
+    (domain=, absorb) split over a mesh of [cuda:0, cuda:0], against the
+    single-device run on the card, 4 steps: on the tiled layout each shard
+    launches K1 a species a step and in the half kick, K3 a species in the
+    half kick and K4 a species a step, never K2 or K5; the same alive
+    counts, energies rtol 1e-4, rho_obj within 1e-5 of its maximum, phi_c
+    within 1e-4 of its magnitude."""
+    from pinc_tpu_torch.objects import make_sphere
+    from pinc_tpu_torch.parallel import mesh
+    from pinc_tpu_torch.parallel.pic import make_simulation
+    dom = make_sphere((16,) * 3, (8, 8, 8), 2.5)
+    deck = ("[objects]\nobjects = sphere.grid.h5\n"
+            + DECK.replace("rebucket = sort\n", "")
+            .replace("nTimeSteps = 6", "nTimeSteps = 4")
+            .replace("layout = tiled", f"layout = {layout}"))
+    if layout == "flat":     # room in each shard's slab for its half
+        deck = deck.replace("nAlloc = 8 pc", "nAlloc = 16 pc")
+    split = (deck.replace("nSubdomains = 1,1,1", "nSubdomains = 2,1,1")
+             .replace("trueSize = 16,16,16", "trueSize = 8,16,16"))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    one = make_simulation(PincConfig.from_string(deck), seed=3, device=dev,
+                          domain=dom)
+    sim = make_simulation(PincConfig.from_string(split), seed=3,
+                          devices=[dev, dev], domain=dom)
+    h1 = one.run(progress_every=0)
+    mesh.reset_shard_launches()
+    hN = sim.run(progress_every=0)
+    np.testing.assert_allclose(hN["kinetic"], h1["kinetic"], rtol=1e-4)
+    np.testing.assert_allclose(hN["potential"], h1["potential"], rtol=1e-4,
+                               atol=1e-7)
+    np.testing.assert_allclose(sim.last_rho_obj, one.last_rho_obj, rtol=0,
+                               atol=1e-5 * np.abs(one.last_rho_obj).max())
+    np.testing.assert_allclose(sim.last_obj_potential,
+                               one.last_obj_potential, rtol=1e-4)
+    if layout == "tiled":
+        assert int(sim._flat_state(sim.state).alive.sum()) == \
+            int(one.state.alive.sum())
+        for c in (mesh.SHARD_LAUNCHES[0], mesh.SHARD_LAUNCHES[1]):
+            assert (c["deposit"], c["gather"], c["gather_kick"]) == (10, 2, 8)
+            assert c["deposit_move"] == c["pic_step"] == 0
+    else:
+        assert torch.equal(sim.gather_particles().counts().cpu(),
+                           one.particles.counts().cpu())

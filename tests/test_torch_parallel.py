@@ -18,9 +18,10 @@ conftest's virtual CPU devices.
   test's own), the particles inside the walls.
 * The pencil FFT against the port's replicated solve and pinc_tpu's pencil:
   within 1e-5 of max|phi|.
-* make_simulation's routing and its raises (too few devices, an object deck
-  over more than one subdomain); the CLI on the CPU meshes n CPU devices;
-  a shard's error ends its shard_map.
+* make_simulation's routing (an object deck over more than one subdomain
+  to the sharded class with its objects) and its raise (too few devices);
+  the CLI on the CPU meshes n CPU devices; a shard's error ends its
+  shard_map.
 """
 
 import jax
@@ -415,11 +416,15 @@ def test_make_simulation_routes_and_raises(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="deck wants 2 devices"):
         make_simulation(flat, device="cuda")
     monkeypatch.undo()
-    # an object deck over more than one subdomain is not ported
+    # an object deck over more than one subdomain builds the sharded class
+    # with its objects (the grid given in memory)
+    from pinc_tpu_torch.objects import make_sphere
     obj = PincConfig.from_string(_deck("2,1,1", "8,8,8", steps=1)
                                  + "[objects]\nobjects = sphere.grid.h5\n")
-    with pytest.raises(NotImplementedError, match="nSubdomains"):
-        make_simulation(obj, device="cpu")
+    sim = make_simulation(obj, device="cpu",
+                          domain=make_sphere((16, 8, 8), (8, 4, 4), 2.5))
+    assert isinstance(sim, ShardedSimulation) and sim.objects is not None
+    assert sim.ctx.devices == [torch.device("cpu")] * 2
     # the CLI on the CPU meshes n CPU devices
     deck = tmp_path / "deck.ini"
     deck.write_text(_deck("2,1,1", "8,8,8", steps=2))

@@ -359,16 +359,27 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
     assert main([str(deck), "getnp"]) == 0
 
 
-@pytest.mark.parametrize("override, match", [
-    ("grid:nSubdomains=2,1,1", "nSubdomains"),
+@pytest.mark.parametrize("override, cls", [
+    ("grid:nSubdomains=2,1,1", "ShardedTiledSimulation"),
 ])
-def test_unported_features_raise(tmp_path, override, match):
-    """What is still not ported raises: the sharded object branches (an
-    object deck over more than one subdomain)."""
+def test_decomposed_object_deck_runs(tmp_path, override, cls):
+    """An object deck over more than one subdomain runs through the CLI
+    (the sharded object branches; the sharded tiled path re-buckets by
+    the exchange only)."""
+    pytest.importorskip("h5py")
+    from pinc_tpu_torch.objects import make_sphere, save_domain
+    grid = tmp_path / "sphere.grid.h5"
+    save_domain(str(grid), make_sphere((32, 16, 16), (16, 8, 8), 2.5))
     deck = tmp_path / "deck.ini"
-    deck.write_text(_deck("f32") + "[objects]\nobjects = sphere.grid.h5\n")
-    with pytest.raises(NotImplementedError, match=match):
-        main([str(deck), override], device="cpu")
+    deck.write_text(_deck("f32") + f"[objects]\nobjects = {grid}\n")
+    out = {}
+    assert main([str(deck), override, "tiles:rebucket=exchange",
+                 "time:nTimeSteps=2"], out=out, device="cpu") == 0
+    sim = out["sim"]
+    assert type(sim).__name__ == cls and sim.objects is not None
+    assert np.isfinite(out["kinetic"]).all()
+    assert np.isfinite(out["potential"]).all()
+    assert np.isfinite(sim.last_obj_potential).all()
 
 
 @pytest.mark.parametrize("overrides, result", [
