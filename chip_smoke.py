@@ -217,6 +217,34 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    1,2,2 over [cuda:0] * 4 against its 1,1,1 deck, 5 steps: equal alive
    counts, rho_obj and phi_c within tolerance, the same multigrid cycles
    each solve.
+12. Runs over several processes on the one card: ``python -m
+   torch.distributed.run --standalone --nproc-per-node=2 chip_smoke.py
+   --phase12 DIR`` (torchrun's environment; ``phase12_child``), after
+   12.0, the launch a user types (``torchrun --standalone
+   --nproc-per-node=2 -m pinc_tpu_torch input/bench_scaleout.ini``, 4
+   steps: rc 0, each rank's STATUS line naming cuda:0 and gloo); both
+   processes on cuda:0 over gloo (NCCL refuses two ranks on one card, so
+   its card run waits for a multi-card host), each logging its rank,
+   device and backend; any process's failure fails the phase.  12.1:
+   input/bench_scaleout.ini as shipped through the CLI's main(), one
+   shard a process, 20 run() steps, then an untimed and a timed 40-step
+   window from run()'s state, against phase 10.1 (the same deck over
+   [cuda:0] * 2 in one process; its windows from the same state):
+   equal alive counts, nothing dropped, the same launches a shard
+   (K1-K5, K8-K10), energies bit for bit where they are, else within 1e-6
+   of their maxima (the phase says which), ms a step beside 10.1's.
+   12.2: phase 10.2's tiled deck over (2, 2, 2), four shards a process
+   (B = 384: K11's per-tile sweeps), against 10.2's 8-shard mesh.  12.3:
+   input/maxwellian.ini as shipped (flat, the sharded multigrid) over
+   (1, 2, 2), two shards a process, 5 steps, against the first 5 of
+   10.3's: the same multigrid cycles every solve and alive counts; and
+   the pencil FFT of 10.4's rho at 256 x 128 x 128 over two processes
+   against 10.4's.
+   12.4: 11.1's object deck, one shard a process, 20 run() steps against
+   11.1's, the charge conserved within 1e-5 of the gross charge.  The
+   card host has no h5py: the output files and checkpoints over
+   processes are checked by the CPU tests only
+   (tests/test_torch_multiprocess.py).
 
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
@@ -225,7 +253,10 @@ it: phase 3's exchange run, its one-hot runs for the one-hot kernels (the
 row kernels the B = 7680 run, the per-tile ones the B = 6528 run), for
 pic_step, efield_tiles and fold_global the headline scan window of phase
 5, plus phase 11.1's launches (both shards, run() and its two windows)
-for deposit, gather, gather_kick and the gather exchange's kernels, for the kbench kernels (one row a mode) and the four primitives phase
+for deposit, gather, gather_kick and the gather exchange's kernels, plus
+phase 12's (both processes: 12.1's run() and windows, 12.2, 12.4) for
+K1-K5 and K8-K11, for the kbench kernels (one row a mode) and the four
+primitives phase
 6's benchmark run; max error against the plain version; kernel and plain
 ms; bound_ms: the bytes the call must move at 3.35 TB/s, or its
 operations at the card's peak rate, from this run's inputs; and
@@ -2678,6 +2709,8 @@ def obj_charge_total(sim, st, rho_obj, cull: bool = False):
     q = [float(v) for v in sim.params.charge]
     total = gross = 0.0
     for i, sti in enumerate(st if sharded else [st]):
+        if sti is None:               # another process's shard
+            continue
         org = tile_origins(sim.ts_local if sharded else sim.ts,
                            sti.lpos.device)
         if sharded:
@@ -3251,8 +3284,11 @@ def check_scaleout(modules, card: str, prod, run_ms: float,
           f"{median_ms:.3f}; slowest "
           + ", ".join(f"step {i + 2} {steps_s[i] * 1e3:.3f}" for i in slow)
           + f") ({card})", flush=True)
-    scaleout_breakdown(sim, card)
-    # the window: an untimed, then a timed one
+    REFS["12.1"] = dict(ke=hist["kinetic"], pe=hist["potential"], n0=n0,
+                        alive=alive, per_shard=per_shard[0],
+                        median_ms=median_ms, launches=launches)
+    # the window from run()'s state: an untimed, then a timed one (phase
+    # 12.1 holds both's energies)
     carry = sim.state
     sim.state = None
     run_n = sim.make_scan_steps(SCALEOUT_WINDOW, donate=True, fresh=True)
@@ -3284,6 +3320,9 @@ def check_scaleout(modules, card: str, prod, run_ms: float,
               f"phase 10.1 {window} window: per shard {per_shard}, expected "
               f"{want}, all {launches}, {int(dropped)} dropped, alive {n0} "
               f"-> {alive}, drift {drift:.3e}")
+        REFS["12.1"][window] = dict(ke=ke_np, pe=pe_np, alive=alive,
+                                    per_shard=per_shard[0],
+                                    ms=wall / SCALEOUT_WINDOW * 1e3)
     win_ms = wall / SCALEOUT_WINDOW * 1e3
     print(f"  window of {SCALEOUT_WINDOW} (K5 a shard a step, "
           f"{events} species re-bucket events): launches per shard "
@@ -3293,6 +3332,7 @@ def check_scaleout(modules, card: str, prod, run_ms: float,
           f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
           f"({card})", flush=True)
     sim.state = carry
+    scaleout_breakdown(sim, card)
     glue = glue_ms(sim, card)
     run_glue = glue["fold"] + glue["pad"]
     win_glue = glue["fold"] + glue["pad_cmajor"]
@@ -3347,6 +3387,9 @@ def check_mesh_parity(card: str) -> None:
             n1 = int(one.state.alive.sum())
             nN = sum(int(s.alive.sum()) for s in sim.state)
             dropped = h1["dropped"] + hN["dropped"]
+            REFS["12.2"] = dict(ke=hN["kinetic"], pe=hN["potential"],
+                                alive=nN, dropped=hN["dropped"],
+                                per_shard=dict(counts[0]))
             # B = 384: each shard re-buckets with K11's per-tile sweeps
             route = ROUTE_CALLS["onehot_tile"]
             S = len(sim._charge)
@@ -3447,6 +3490,10 @@ def check_mg_decks(card: str) -> None:
                   f"{len(cycles)} solves")
             runs[label] = (hist, cycles, wall, sim.particles
                            if label == "single" else None)
+            if label == "sharded" and name == "maxwellian.ini":
+                REFS["12.3"] = dict(ke=hist["kinetic"], pe=hist["potential"],
+                                    cycles=cycles, alive=n1,
+                                    ms=wall / MG_DECK_STEPS * 1e3)
             del sim
         (h, cyc, wall), (h1, cyc1, wall1) = (runs["sharded"][:3],
                                              runs["single"][:3])
@@ -3500,12 +3547,14 @@ def check_sharded_solvers(card: str) -> None:
           "phase 10.4: the solver dispatch did not take the replicated and "
           "the pencil FFT")
     phi_r, phi_p = ctx.gather(rep(blocks)), ctx.gather(pen(blocks))
+    REFS["12.3 pencil"] = phi_p.cpu().numpy()
     scale = float(phi_r.abs().max())
     d_fft = float((phi_r - phi_p).abs().max()) / scale
     one = SpectralSolver(shape)
     ms = {"replicated": cuda_ms(lambda: rep(blocks), 5, 1),
           "pencil": cuda_ms(lambda: pen(blocks), 5, 1),
           "one device": cuda_ms(lambda: one(rho), 5, 1)}
+    REFS["12.3 pencil ms"] = ms["pencil"]
     mg_args = dict(n_levels=4, n_pre=10, n_post=10, n_coarse=10,
                    max_cycles=2, tol=0.0)
     mg1 = MultigridSolver(shape, **mg_args)
@@ -3703,6 +3752,11 @@ def sharded_obj_run(label: str, sim, modules, steps: int, card: str,
     mean_ms = float(np.mean(steps_s)) * 1e3
     median_ms = float(np.median(steps_s)) * 1e3
     n_alive = sum(int((s.alive > 0.5).sum()) for s in sim.state)
+    if label.startswith("11.1"):
+        REFS["12.4"] = dict(ke=hist["kinetic"], pe=hist["potential"],
+                            alive=n_alive, per_shard=per_shard[0],
+                            phi_c=np.asarray(sim.last_obj_potential),
+                            median_ms=median_ms)
     print(f"phase 11 {label}: {steps} steps of run(); launches per shard "
           f"{per_shard} ({events} species re-bucket events, "
           f"{hist['n_lost']} margin hits); {n_alive} alive, 0 dropped; "
@@ -4001,6 +4055,469 @@ def check_sharded_objects(modules, card: str, single_ms: float,
     check_object_mesh_parity(card)
     check_shipped_sharded(card)
     print(f"phase 11: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+# -- phase 12: runs over several processes on the one card ----------------
+
+P12_WORLD = 2           # torchrun's processes, both on cuda:0 (gloo)
+P12_CLI_STEPS = 4       # 12.0's steps, the CLI as a user launches it
+P12_MG_STEPS = 5        # 12.3's run() steps (the first of 10.3's 20)
+P12_TIMEOUT_S = 420     # a torchrun of phase 12, then killed (its processes
+                        # too)
+P12_GROUP_TIMEOUT_S = 240   # a wait on the other process, then it fails
+P12_RTOL = 1e-6         # energies where the run is not bit for bit
+#: what phases 10 and 11 leave for phase 12 to hold the processes against
+REFS: dict = {}
+
+
+def p12_reset(modules) -> None:
+    from pinc_tpu_torch.parallel import mesh
+    for m in modules:
+        m.reset_launches()
+    mesh.reset_shard_launches()
+
+
+def p12_counts(modules) -> dict:
+    """This process's launches since p12_reset: all of them, and per shard
+    (the kernels of K1-K5 and K8-K11)."""
+    from pinc_tpu_torch.parallel import mesh
+    names = ("deposit", "gather", "deposit_move", "gather_kick",
+             "pic_step") + tuple(EXCHANGE_KERNELS)
+    return {"all": {k: v for m in modules for k, v in m.LAUNCHES.items()
+                    if v},
+            "shards": {str(i): c for i, c in
+                       shard_counts(mesh, names).items()}}
+
+
+def p12_alive(states) -> int:
+    return sum(int((s.alive > 0.5).sum()) for s in states if s is not None)
+
+
+def p12_scaleout(cli_main, modules) -> dict:
+    """12.1 in a process: the CLI's main() under torchrun's environment,
+    20 run() steps of input/bench_scaleout.ini as shipped; then an untimed
+    and a timed 40-step window from run()'s state."""
+    import torch
+    deck = os.path.join(os.path.dirname(os.path.abspath(__file__)), "input",
+                        "bench_scaleout.ini")
+    out: dict = {}
+    p12_reset(modules)
+    rc = cli_main([deck, f"time:nTimeSteps={SCALEOUT_STEPS}"], out=out)
+    torch.cuda.synchronize()
+    sim, res = out["sim"], {"rc": rc, "run": p12_counts(modules)}
+    res.update(held=list(sim.ctx.local), kind=type(sim).__name__,
+               ke=out["kinetic"].tolist(), pe=out["potential"].tolist(),
+               dropped=out["dropped"], n_lost=out["n_lost"],
+               step_ms=[t * 1e3 for t in out["step_seconds"]],
+               alive=p12_alive(sim.state))
+    carry = sim.state
+    sim.state = None
+    run_n = sim.make_scan_steps(SCALEOUT_WINDOW, donate=True, fresh=True)
+    for window in ("warm", "timed"):
+        p12_reset(modules)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        carry, (ke, pe, dropped) = run_n(carry)
+        torch.cuda.synchronize()
+        res[window] = dict(ms=(time.monotonic() - t0) / SCALEOUT_WINDOW
+                           * 1e3, ke=ke.cpu().numpy().tolist(),
+                           pe=pe.cpu().numpy().tolist(),
+                           dropped=int(dropped), alive=p12_alive(carry),
+                           launches=p12_counts(modules))
+    del sim, carry, run_n, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def p12_parity(modules) -> dict:
+    """12.2 in a process: phase 10.2's tiled deck over (2, 2, 2), four
+    shards a process (B = 384: K11's per-tile sweeps)."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.parallel.pic import make_simulation
+    dev = torch.device("cuda", 0)
+    sim = make_simulation(PincConfig.from_string(
+        PARITY_TILED.format(nsub="2,2,2", ts="8,8,8")), devices=[dev] * 8)
+    p12_reset(modules)
+    hist = sim.run(progress_every=0)
+    torch.cuda.synchronize()
+    res = dict(held=list(sim.ctx.local), ke=hist["kinetic"].tolist(),
+               pe=hist["potential"].tolist(), dropped=hist["dropped"],
+               alive=p12_alive(sim.state), launches=p12_counts(modules))
+    del sim
+    torch.cuda.empty_cache()
+    return res
+
+
+def p12_solvers() -> dict:
+    """12.3 in a process: input/maxwellian.ini as shipped (flat, the sharded
+    multigrid) over (1, 2, 2), two shards a process, with the cycles of
+    every solve; then the pencil FFT of 10.4's rho at 256 x 128 x 128 over
+    (2, 1, 1), one shard a process."""
+    import torch
+    from pinc_tpu_torch.config import PincConfig
+    from pinc_tpu_torch.parallel.mesh import make_mesh
+    from pinc_tpu_torch.parallel.mg import ShardedMultigridSolver
+    from pinc_tpu_torch.parallel.pencil_fft import (PencilSpectralSolver,
+                                                    make_sharded_solver)
+    from pinc_tpu_torch.parallel.pic import make_simulation
+    from pinc_tpu_torch.solvers.spectral import SpectralSolver
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PincConfig.from_file(
+            deck_path("maxwellian.ini", tmp, output=False),
+            [f"time:nTimeSteps={P12_MG_STEPS}"])
+        bench = PincConfig.from_file(deck_path("bench_scaleout.ini", tmp),
+                                     ["parallel:pencilFFT=true"])
+    sim = make_simulation(cfg, devices=[dev] * 4, device=dev)
+    solver, cycles = sim._solve, []
+    solve = solver.solve_with_stats
+
+    def counted(*a):
+        out = solve(*a)
+        cycles.append(int(out[1]))
+        return out
+    solver.solve_with_stats = counted
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    hist = sim.run(progress_every=0)
+    torch.cuda.synchronize()
+    res = dict(held=list(sim.ctx.local), cycles=cycles,
+               mg=isinstance(solver, ShardedMultigridSolver),
+               ke=hist["kinetic"].tolist(), pe=hist["potential"].tolist(),
+               ms=(time.monotonic() - t0) / P12_MG_STEPS * 1e3,
+               alive=sim.gather_particles().counts().tolist())
+    del sim
+    shape = (256, 128, 128)
+    ctx = make_mesh((2, 1, 1), (128, 128, 128), devices=[dev, dev])
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rho = torch.randn(shape, device=dev, generator=gen)
+    rho -= rho.mean()
+    blocks = ctx.split(rho)
+    pen = make_sharded_solver(SpectralSolver(shape), ctx, bench,
+                              torch.float32)
+    phi = ctx.gather(pen(blocks)).cpu().numpy()
+    res.update(pencil=isinstance(pen, PencilSpectralSolver),
+               pencil_ms=cuda_ms(lambda: pen(blocks), 5, 1))
+    del rho, blocks
+    torch.cuda.empty_cache()
+    return res, phi
+
+
+def p12_objects(modules) -> dict:
+    """12.4 in a process: 11.1's deck (bench_scaleout.ini, the sphere of
+    radius 16 across the shard boundary, absorb,absorb), one shard a
+    process, 20 run() steps; this process's share of the charge."""
+    import numpy as np
+    import torch
+    sim, setup_s = sharded_obj_sim("absorb,absorb")
+    q0, gross0 = obj_charge_total(sim, sim.state, None, cull=True)
+    p12_reset(modules)
+    hist = sim.run(progress_every=0)
+    torch.cuda.synchronize()
+    q1, _ = obj_charge_total(sim, sim.state, None)
+    res = dict(held=list(sim.ctx.local), ke=hist["kinetic"].tolist(),
+               pe=hist["potential"].tolist(), dropped=hist["dropped"],
+               alive=p12_alive(sim.state), q0=q0, gross=gross0, q1=q1,
+               rho_obj=float(sim.rho_obj.double().sum()),
+               phi_c=np.asarray(sim.last_obj_potential).tolist(),
+               median_ms=float(np.median(hist["step_seconds"][1:])) * 1e3,
+               setup_s=setup_s, launches=p12_counts(modules))
+    del sim
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase12_child(out_dir: str) -> int:
+    """One of phase 12's processes (``chip_smoke.py --phase12 DIR`` under
+    torchrun): the process group by the backend rule, 12.1-12.4 in turn,
+    its results to DIR/rank<r>.json (and 12.3's pencil phi to
+    DIR/phi<r>.npy)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pinc_tpu_torch.__main__ import main as cli_main
+    from pinc_tpu_torch.ops import _cuda_build
+    from pinc_tpu_torch.ops import field_kernels as fk
+    from pinc_tpu_torch.ops import gather_exchange as gx
+    from pinc_tpu_torch.ops import onehot_exchange as ox
+    from pinc_tpu_torch.ops import tiled_kernels as tk
+    from pinc_tpu_torch.utils import multihost as mh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _cuda_build.load()            # phase 1 built it: the cached library
+    t0 = time.monotonic()
+    mh.init(timeout_s=P12_GROUP_TIMEOUT_S)
+    rank, modules = mh.process_index(), (tk, fk, gx, ox)
+    res = dict(rank=rank, world=mh.process_count(), backend=mh.backend(),
+               device=str(mh.local_device()), init_s=time.monotonic() - t0)
+    t = time.monotonic()
+    res["12.1"] = p12_scaleout(cli_main, modules)
+    res["12.1"]["seconds"] = time.monotonic() - t
+    t = time.monotonic()
+    res["12.2"] = p12_parity(modules)
+    res["12.2"]["seconds"] = time.monotonic() - t
+    t = time.monotonic()
+    res["12.3"], phi = p12_solvers()
+    res["12.3"]["seconds"] = time.monotonic() - t
+    np.save(os.path.join(out_dir, f"phi{rank}.npy"), phi)
+    t = time.monotonic()
+    res["12.4"] = p12_objects(modules)
+    res["12.4"]["seconds"] = time.monotonic() - t
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mh.shutdown()
+    return 0
+
+
+def p12_same(label: str, ref_ke, ref_pe, got: list) -> str:
+    """Each process's energies against the single-process mesh's: bit for
+    bit, or within P12_RTOL of their maxima; fails otherwise.  Returns
+    which."""
+    import numpy as np
+    ke_r, pe_r = np.asarray(ref_ke, np.float32), np.asarray(ref_pe,
+                                                             np.float32)
+    bits = True
+    for g in got:
+        ke, pe = np.asarray(g["ke"], np.float32), np.asarray(g["pe"],
+                                                             np.float32)
+        check(ke.shape == ke_r.shape and pe.shape == pe_r.shape,
+              f"{label}: energies of shapes {ke.shape}, {pe.shape} against "
+              f"{ke_r.shape}, {pe_r.shape}")
+        if np.array_equal(ke, ke_r) and np.array_equal(pe, pe_r):
+            continue
+        bits = False
+        dke = float(np.abs(ke - ke_r).max() / np.abs(ke_r).max())
+        dpe = float(np.abs(pe - pe_r).max() / np.abs(pe_r).max())
+        check(dke <= P12_RTOL and dpe <= P12_RTOL,
+              f"{label}: KE {dke:.3e}, PE {dpe:.3e} of their maxima from "
+              f"the single-process mesh's (tolerance {P12_RTOL})")
+    return ("energies bit for bit the single-process mesh's" if bits else
+            f"energies within {P12_RTOL} of the single-process mesh's "
+            "(not bit for bit)")
+
+
+def p12_launch(cmd: list, cwd: str) -> str:
+    """Run torchrun (in a process group of its own, so that a timeout
+    kills its processes too); fails unless it exits 0.  Returns its
+    output."""
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=P12_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)            # torchrun and its processes
+        log, _ = proc.communicate()
+        fail(f"phase 12: {' '.join(cmd[2:])} passed {P12_TIMEOUT_S} s and "
+             f"was killed; its output ends:\n{log[-4000:]}")
+    check(proc.returncode == 0,
+          f"phase 12: {' '.join(cmd[2:])} exited {proc.returncode}; its "
+          f"output ends:\n{log[-6000:]}")
+    return log
+
+
+def check_multiprocess(modules, card: str) -> dict:
+    """Phase 12: runs over several processes on the one card (see the
+    module docstring); returns the processes' launches of the kernels
+    (12.1's run() and windows, 12.2, 12.4)."""
+    import numpy as np
+    import torch
+    t_phase = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()       # the processes share the card
+    here = os.path.dirname(os.path.abspath(__file__))
+    # 12.0: the launch a user types, a short run
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={P12_WORLD}", "-m", "pinc_tpu_torch",
+           os.path.join("input", "bench_scaleout.ini"),
+           f"time:nTimeSteps={P12_CLI_STEPS}"]
+    log = p12_launch(cmd, here)
+    said = [f"process {r} of {P12_WORLD} on cuda:0, backend gloo" in log
+            for r in range(P12_WORLD)]
+    check(all(said) and "PINC-TPU-torch finished" in log,
+          f"phase 12.0: the ranks' STATUS lines {said}; the output ends:\n"
+          f"{log[-4000:]}")
+    print(f"phase 12.0 torchrun --standalone --nproc-per-node={P12_WORLD} "
+          f"-m pinc_tpu_torch input/bench_scaleout.ini "
+          f"time:nTimeSteps={P12_CLI_STEPS}: rc 0, each rank on cuda:0 "
+          f"over gloo, {time.monotonic() - t_phase:.1f} s with the launch "
+          f"({card})", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc-per-node={P12_WORLD}", os.path.abspath(__file__),
+               "--phase12", tmp]
+        log = p12_launch(cmd, here)
+        lines = [ln for ln in log.splitlines()
+                 if "rank" in ln or "Time spent" in ln or "Error" in ln]
+        print("phase 12 torchrun's processes said:\n  "
+              + "\n  ".join(lines[-12:]), flush=True)
+        got = []
+        for r in range(P12_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                got.append(json.load(f))
+        phis = [np.load(os.path.join(tmp, f"phi{r}.npy"))
+                for r in range(P12_WORLD)]
+    wall = time.monotonic() - t_phase
+    check([g["rank"] for g in got] == list(range(P12_WORLD))
+          and all(g["world"] == P12_WORLD and g["backend"] == "gloo"
+                  and g["device"].startswith("cuda") for g in got),
+          "phase 12: the processes' ranks, worlds, backends, devices "
+          + str([(g["rank"], g["world"], g["backend"], g["device"])
+                 for g in got]))
+    print(f"phase 12: {P12_WORLD} processes on {got[0]['device']} "
+          f"(backend {got[0]['backend']}: NCCL refuses two ranks on one "
+          f"card), process group in "
+          f"{max(g['init_s'] for g in got):.1f} s; phase 12 took "
+          f"{wall:.1f} s ({card})", flush=True)
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts["all"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 12.1
+    ref = REFS["12.1"]
+    res = [g["12.1"] for g in got]
+    per_shard = [r["run"]["shards"] for r in res]
+    check(all(r["rc"] == 0 and r["held"] == [i] and r["kind"] ==
+              "ShardedTiledSimulation" for i, r in enumerate(res))
+          and per_shard == [{str(i): ref["per_shard"]}
+                            for i in range(P12_WORLD)]
+          and sum(r["alive"] for r in res) == ref["alive"] == ref["n0"]
+          and all(r["dropped"] == 0 for r in res),
+          f"phase 12.1: rc {[r['rc'] for r in res]}, held "
+          f"{[r['held'] for r in res]}, launches per shard {per_shard} "
+          f"(10.1's a shard {ref['per_shard']}), alive "
+          f"{[r['alive'] for r in res]} ({ref['alive']} in 10.1), dropped "
+          f"{[r['dropped'] for r in res]}")
+    text = p12_same("phase 12.1 run()", ref["ke"], ref["pe"], res)
+    for r in res:
+        add(r["run"])
+    win = []
+    for window in ("warm", "timed"):
+        w = [r[window] for r in res]
+        wps = [x["launches"]["shards"] for x in w]
+        check(wps == [{str(i): ref["warm"]["per_shard"]}
+                      for i in range(P12_WORLD)]
+              and sum(x["alive"] for x in w) == ref["n0"]
+              and all(x["dropped"] == 0 for x in w),
+              f"phase 12.1 {window} window: launches per shard {wps}, "
+              f"alive {[x['alive'] for x in w]}, dropped "
+              f"{[x['dropped'] for x in w]}")
+        for x in w:
+            add(x["launches"])
+        win.append(w)
+    wtext = p12_same("phase 12.1 window", ref["warm"]["ke"],
+                     ref["warm"]["pe"], win[0])
+    ttext = p12_same("phase 12.1 timed window", ref["timed"]["ke"],
+                     ref["timed"]["pe"], win[1])
+    med = [float(np.median(r["step_ms"][1:])) for r in res]
+    print(f"phase 12.1 bench_scaleout.ini through main() under torchrun, "
+          f"one shard a process: {SCALEOUT_STEPS} run() steps, {text}; "
+          f"alive {sum(r['alive'] for r in res)}, 0 dropped; the "
+          f"{SCALEOUT_WINDOW}-step window from its state, {wtext}; the "
+          f"timed window after it, {ttext}; "
+          f"launches per shard, run() "
+          + "; ".join(f"rank {i} {p}" for i, p in enumerate(per_shard))
+          + ", window " + "; ".join(
+              f"rank {i} {x['launches']['shards']}"
+              for i, x in enumerate(win[1]))
+          + f"; ms a step: run() median {max(med):.3f} (10.1, one process: "
+          f"{ref['median_ms']:.3f}), timed window "
+          f"{max(x['ms'] for x in win[1]):.3f} (10.1: "
+          f"{ref['timed']['ms']:.3f}) (host clock, {card})", flush=True)
+
+    # 12.2
+    ref = REFS["12.2"]
+    res = [g["12.2"] for g in got]
+    shards = [r["launches"]["shards"] for r in res]
+    check([r["held"] for r in res] == [[0, 1, 2, 3], [4, 5, 6, 7]]
+          and all(c == ref["per_shard"] for s in shards
+                  for c in s.values())
+          and sorted(int(k) for s in shards for k in s) == list(range(8))
+          and sum(r["alive"] for r in res) == ref["alive"]
+          and all(r["dropped"] == ref["dropped"] == 0 for r in res),
+          f"phase 12.2: held {[r['held'] for r in res]}, launches per "
+          f"shard {shards} (10.2's {ref['per_shard']}), alive "
+          f"{[r['alive'] for r in res]} ({ref['alive']})")
+    text = p12_same("phase 12.2", ref["ke"], ref["pe"], res)
+    for r in res:
+        add(r["launches"])
+    print(f"phase 12.2 10.2's tiled deck over (2, 2, 2), four shards a "
+          f"process: {PARITY_STEPS} steps, {text}; alive "
+          f"{ref['alive']}, 0 dropped; each shard's launches "
+          f"{ref['per_shard']} ({card})", flush=True)
+
+    # 12.3
+    ref = REFS["12.3"]
+    res = [g["12.3"] for g in got]
+    n = P12_MG_STEPS + 1
+    check([r["held"] for r in res] == [[0, 1], [2, 3]]
+          and all(r["mg"] and r["pencil"] for r in res)
+          and all(r["cycles"] == list(ref["cycles"][:n]) for r in res)
+          and all(r["alive"] == list(ref["alive"]) for r in res),
+          f"phase 12.3: held {[r['held'] for r in res]}, cycles a solve "
+          f"{[r['cycles'] for r in res]} (10.3's first {n}: "
+          f"{list(ref['cycles'][:n])}), alive {[r['alive'] for r in res]} "
+          f"(10.3's {list(ref['alive'])})")
+    text = p12_same("phase 12.3 maxwellian.ini", ref["ke"][:n],
+                    ref["pe"][:n], res)
+    pref = REFS["12.3 pencil"]
+    bits = all(np.array_equal(p, pref) for p in phis)
+    dphi = max(float(np.abs(p - pref).max()) for p in phis) / float(
+        np.abs(pref).max())
+    check(bits or dphi <= P12_RTOL,
+          f"phase 12.3 pencil: phi {dphi:.3e} of max|phi| from 10.4's")
+    print(f"phase 12.3 maxwellian.ini over (1, 2, 2), two shards a "
+          f"process: {P12_MG_STEPS} steps, multigrid cycles a solve "
+          f"{res[0]['cycles']} (10.3's the same), {text}; "
+          f"{max(r['ms'] for r in res):.1f} ms a step (10.3, one process: "
+          f"{ref['ms']:.1f}); the pencil FFT at 256 x 128 x 128 over two "
+          f"processes: phi "
+          + ("bit for bit 10.4's" if bits
+             else f"within {dphi:.3e} of max|phi| of 10.4's")
+          + f", {max(r['pencil_ms'] for r in res):.3f} ms a solve (10.4, "
+          f"one process: {REFS['12.3 pencil ms']:.3f}) ({card})",
+          flush=True)
+
+    # 12.4
+    ref = REFS["12.4"]
+    res = [g["12.4"] for g in got]
+    q0 = sum(r["q0"] for r in res)
+    gross = sum(r["gross"] for r in res)
+    q1 = sum(r["q1"] for r in res) + res[0]["rho_obj"]
+    shards = [r["launches"]["shards"] for r in res]
+    check([r["held"] for r in res] == [[0], [1]]
+          and shards == [{str(i): ref["per_shard"]}
+                         for i in range(P12_WORLD)]
+          and sum(r["alive"] for r in res) == ref["alive"]
+          and all(r["dropped"] == 0 for r in res)
+          and res[0]["rho_obj"] == res[1]["rho_obj"]
+          and abs(q1 - q0) <= OBJ_CHARGE_RTOL * gross,
+          f"phase 12.4: held {[r['held'] for r in res]}, launches per shard "
+          f"{shards} (11.1's {ref['per_shard']}), alive "
+          f"{[r['alive'] for r in res]} ({ref['alive']}), charge {q0:.9g} "
+          f"-> {q1:.9g} (gross {gross:.6g}), rho_obj sums "
+          f"{[r['rho_obj'] for r in res]}")
+    text = p12_same("phase 12.4", ref["ke"], ref["pe"], res)
+    dphi = max(float(np.abs(np.asarray(r["phi_c"]) - ref["phi_c"]).max()
+                     / np.abs(ref["phi_c"]).max()) for r in res)
+    check(dphi <= P12_RTOL, f"phase 12.4: phi_c {dphi:.3e} from 11.1's")
+    for r in res:
+        add(r["launches"])
+    print(f"phase 12.4 11.1's object deck, one shard a process: "
+          f"{SHARDED_OBJ_STEPS} run() steps, {text}; phi_c within "
+          f"{dphi:.2e}; alive {ref['alive']}, 0 dropped; charge {q0:.9g} -> "
+          f"{q1:.9g} (|d| / gross {abs(q1 - q0) / gross:.2e}); launches "
+          f"per shard {shards}; run() median "
+          f"{max(r['median_ms'] for r in res):.3f} ms a step (11.1, one "
+          f"process: {ref['median_ms']:.3f}) ({card})", flush=True)
+    print(f"phase 12: the processes' kernel launches {launches}; "
+          + ", ".join(f"{k} {g[k]['seconds']:.1f} s"
+                      for g in got[:1] for k in ("12.1", "12.2", "12.3",
+                                                 "12.4")), flush=True)
     return launches
 
 
@@ -4351,6 +4868,11 @@ def main() -> int:
                                          scaleout_ms).items():
         launches[name] = launches.get(name, 0) + n
 
+    # -- phase 12: runs over several processes on the one card ------------
+    # the processes' launches of K1-K5 and K8-K11 count on the path too
+    for name, n in check_multiprocess(modules, card).items():
+        launches[name] = launches.get(name, 0) + n
+
     rows = [{"name": name, "route": "cuda",
              "source": getattr(m, "SOURCES", {}).get(name, m.SOURCE),
              "replaces": m.REPLACES[name], "launches": launches[name],
@@ -4370,4 +4892,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase12":
+        raise SystemExit(phase12_child(sys.argv[2]))
     raise SystemExit(main())

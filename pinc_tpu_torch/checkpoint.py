@@ -31,6 +31,13 @@ Enabled by deck keys:
 
 h5py is needed (and not installed by the port).  Tensors are fetched to
 the host to be written and put on the simulation's device when read.
+
+Over several processes (``utils/multihost.py``, as
+``pinc_tpu/checkpoint.py:45-58,112-120``): the state comes gathered from
+every process, process 0 alone writes the one file, and every process
+returns its path once it is written (a shared file system, as MPI-IO
+assumes).  A resume reads the file on every process, and each keeps its
+own shards.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 from .config import PincConfig
 from .io_h5 import fetch_global, h5_path
 from .population import Particles
+from .utils import multihost as mh
 from .utils.logging import STATUS, msg
 
 try:
@@ -65,7 +73,14 @@ def checkpoint_path(cfg: PincConfig) -> Path:
 
 
 def _write(path: Path, step: int, datasets: dict, layout=None,
-           attrs: Optional[dict] = None) -> None:
+           attrs: Optional[dict] = None) -> bool:
+    """The file, on the primary only (every process fetched the datasets,
+    the collective part); every process waits until it is written.
+    Returns True where this process wrote it."""
+    _h5()                              # every process raises without h5py
+    if not mh.is_primary():
+        mh.barrier()
+        return False
     path.parent.mkdir(parents=True, exist_ok=True)
     with _h5().File(path, "w") as f:
         f.attrs["step"] = int(step)
@@ -76,6 +91,8 @@ def _write(path: Path, step: int, datasets: dict, layout=None,
             f.attrs[name] = value
         for name, data in datasets.items():
             f.create_dataset(name, data=data)
+    mh.barrier()
+    return True
 
 
 def _open_layout(cfg: PincConfig, layout: str):
@@ -109,10 +126,10 @@ def _read_rho_obj(f, device) -> Optional[torch.Tensor]:
 def save(cfg: PincConfig, step: int, particles: Particles,
          rho_obj=None) -> Path:
     path = checkpoint_path(cfg)
-    _write(path, step, _with_rho_obj(
-        {k: fetch_global(getattr(particles, k))
-         for k in ("cell", "frac", "vel", "alive")}, rho_obj))
-    msg(STATUS, "checkpoint written: %s (step %d)", path, step)
+    if _write(path, step, _with_rho_obj(
+            {k: fetch_global(getattr(particles, k))
+             for k in ("cell", "frac", "vel", "alive")}, rho_obj)):
+        msg(STATUS, "checkpoint written: %s (step %d)", path, step)
     return path
 
 
@@ -148,12 +165,12 @@ def save_tiled(cfg: PincConfig, step: int, state,
     layout would re-bucket on restore and reorder the per-tile sums.
     tuning: ``TiledSimulation.tuning()``, stored as ``tuning:<key>``."""
     path = checkpoint_path(cfg)
-    _write(path, step, _with_rho_obj({k: fetch_global(getattr(state, k))
-                                      for k in ("lpos", "vel", "alive")},
-                                     rho_obj),
-           layout="tiled",
-           attrs={f"tuning:{k}": v for k, v in (tuning or {}).items()})
-    msg(STATUS, "checkpoint written: %s (step %d, tiled)", path, step)
+    if _write(path, step, _with_rho_obj({k: fetch_global(getattr(state, k))
+                                         for k in ("lpos", "vel", "alive")},
+                                        rho_obj),
+              layout="tiled",
+              attrs={f"tuning:{k}": v for k, v in (tuning or {}).items()}):
+        msg(STATUS, "checkpoint written: %s (step %d, tiled)", path, step)
     return path
 
 

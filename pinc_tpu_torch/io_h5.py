@@ -20,10 +20,13 @@ package's output).
 
 Writes happen on the host after fetching the step's tensors
 (``tensor.detach().cpu().numpy()``), on the cadence ``files:writeFrequency``
-(default 1, the reference's every step).  The port runs one process, so
-every file is written whole by it (pinc_tpu's multi-process branches, the
-per-host population shards and ``_owned_rows``, wait for ``parallel/``).  h5py is needed and
-is not installed by the port: without it the writer raises.
+(default 1, the reference's every step).  Over several processes the
+discipline of ``pinc_tpu`` (``utils/multihost.py``): process 0 alone opens
+and writes the grid files and history.xy.h5 (the fields gathered from
+every process), and each process writes the particles of its own shards
+to ``<prefix>_pop.p<idx>.pop.h5`` (``_owned_rows``); with one process the
+file names are the reference's.  h5py is needed and is not installed by
+the port: without it the writer raises.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Optional
 import numpy as np
 
 from .config import PincConfig
+from .utils import multihost as mh
 
 try:
     import h5py
@@ -58,11 +62,9 @@ def _open(path: Path) -> "h5py.File":
     return h5py.File(path, "a")
 
 
-def fetch_global(x) -> np.ndarray:
-    """A tensor (on any device) or array as a host numpy array."""
-    if hasattr(x, "detach"):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+#: a tensor or array on the host; a process-sharded list gathered from
+#: every process
+fetch_global = mh.fetch_global
 
 
 def _grid_to_file_layout(arr: np.ndarray, n_dims: int) -> np.ndarray:
@@ -155,7 +157,11 @@ class OutputWriter:
     Deck keys: files:writeFields, files:writePop (default true),
     files:writeFrequency (default 1) and files:async (default false: the
     native spooler, converted to the .h5 layout at close; synchronous
-    writes with a WARNING where it cannot be built)."""
+    writes with a WARNING where it cannot be built).  Over several
+    processes the grids and the history are the primary's, and each
+    process writes its own population file, pop.p<idx> (its spool
+    likewise: the fields in the primary's, its particles in each
+    process's own)."""
 
     def __init__(self, cfg: PincConfig, sim) -> None:
         self.cfg = cfg
@@ -163,17 +169,27 @@ class OutputWriter:
         self.every = cfg.get_int("files:writefrequency", 1)
         self.write_fields = cfg.get_bool("files:writefields", True)
         self.write_pop = cfg.get_bool("files:writepop", True)
+        # the multi-process discipline (pinc_tpu/io_h5.py:149-246)
+        self.primary = mh.is_primary()
+        self.pidx = mh.process_index()
+        self.nproc = mh.process_count()
         u = sim.units
         self.units = u
         ns = sim.params.charge.shape[0]
         self.n_species = ns
         # history first: without h5py the writer raises before it starts
-        # the spooler's thread
-        self.history = XYFile(cfg, "history")
-        for kind in ("potential", "kinetic"):
-            self.history.create(f"/energy/{kind}/total")
-            for s in range(ns):
-                self.history.create(f"/energy/{kind}/specie {s}")
+        # the spooler's thread (a secondary, which opens none, checks)
+        self.history = XYFile(cfg, "history") if self.primary else None
+        if self.history is None and h5py is None:
+            raise RuntimeError("h5py is required for HDF5 output")
+        if self.history is not None:
+            for kind in ("potential", "kinetic"):
+                self.history.create(f"/energy/{kind}/total")
+                for s in range(ns):
+                    self.history.create(f"/energy/{kind}/specie {s}")
+        # per-process population file; the single-process name is the
+        # reference's
+        self.pop_name = "pop" if self.nproc == 1 else f"pop.p{self.pidx}"
 
         # async mode: snapshots go to the native background spooler and are
         # converted to the standard .h5 layout at close (files:async=true)
@@ -181,7 +197,8 @@ class OutputWriter:
         if cfg.get_bool("files:async", False):
             try:
                 from .spool import SpoolWriter
-                p = h5_path(cfg, "snapshots", "spool")
+                p = h5_path(cfg, "snapshots" if self.nproc == 1
+                            else f"snapshots.p{self.pidx}", "spool")
                 self.spool_path = p.with_name(p.name.replace(".spool.h5",
                                                              ".spool"))
                 self.spool = SpoolWriter(self.spool_path)
@@ -192,13 +209,13 @@ class OutputWriter:
                     "unavailable (%s); writing synchronously", e)
 
         self.grids = {}
-        if self.write_fields and self.spool is None:
+        if self.write_fields and self.spool is None and self.primary:
             for name in ("rho", "phi", "E"):
                 self.grids[name] = GridFile(cfg, name, self.n_dims,
                                             axis_denorm=u.length, denorm=1.0)
         self.pop: Optional[PopFile] = None
         if self.write_pop and self.spool is None:
-            self.pop = PopFile(cfg, "pop", ns, pos_denorm=u.length,
+            self.pop = PopFile(cfg, self.pop_name, ns, pos_denorm=u.length,
                                vel_denorm=u.velocity)
 
     def writes(self, n: int) -> bool:
@@ -207,35 +224,51 @@ class OutputWriter:
         return (self.write_fields or self.write_pop) and (
             not self.every or n % self.every == 0)
 
+    def _owned_rows(self, arr, axis: int = 1) -> np.ndarray:
+        """This process's rows of the population along ``axis``: the whole
+        array (one process, or a replicated one), or the concatenated
+        shards this process holds of a process-sharded list
+        (``multihost.fetch_local``)."""
+        return mh.fetch_local(arr, axis)
+
+    def _population(self, p):
+        """(pos, vel, alive) of the rows this process writes: p is
+        Particles, or over several processes the shards' list of them."""
+        if isinstance(p, list):
+            return tuple(self._owned_rows([None if q is None else f(q)
+                                           for q in p])
+                         for f in (lambda q: q.pos(), lambda q: q.vel,
+                                   lambda q: q.alive))
+        return tuple(self._owned_rows(x) for x in (p.pos(), p.vel, p.alive))
+
     def write_step(self, n: int, out) -> None:
         """out: the step's StepOutput (particles None unless the writer
-        writes the population)."""
+        writes the population; the fields global, gathered on every
+        process)."""
         if self.every and n % self.every != 0:
             return
         if self.spool is not None:
-            if self.write_fields:
+            if self.write_fields and self.primary:
                 self.spool.write("rho", n, fetch_global(out.rho))
                 self.spool.write("phi", n, fetch_global(out.phi))
                 self.spool.write("E", n, fetch_global(out.E))
             if self.write_pop:
-                p = out.particles
-                pos, vel, alive = (fetch_global(x)
-                                   for x in (p.pos(), p.vel, p.alive))
+                pos, vel, alive = self._population(out.particles)
                 for s in range(pos.shape[0]):
                     m = alive[s]
                     self.spool.write(f"pop/pos/{s}", n, pos[s][m])
                     self.spool.write(f"pop/vel/{s}", n - 0.5, vel[s][m])
             return
-        if self.write_fields:
+        if self.write_fields and self.primary:
             self.grids["rho"].write(n, fetch_global(out.rho))
             self.grids["phi"].write(n, fetch_global(out.phi))
             self.grids["E"].write(n, fetch_global(out.E))
         if self.pop is not None:
-            p = out.particles
-            self.pop.write(n, n - 0.5, *(fetch_global(x)
-                                         for x in (p.pos(), p.vel, p.alive)))
+            self.pop.write(n, n - 0.5, *self._population(out.particles))
 
     def write_energy(self, n: int, ke: np.ndarray, pe: float) -> None:
+        if self.history is None:
+            return
         self.history.append("/energy/kinetic/total", n, float(ke.sum()))
         self.history.append("/energy/potential/total", n, float(pe))
         for s in range(self.n_species):
@@ -249,10 +282,12 @@ class OutputWriter:
             g.close()
         if self.pop is not None:
             self.pop.close()
-        self.history.close()
+        if self.history is not None:
+            self.history.close()
         if self.spool is not None:
             from .spool import convert
             from .utils.logging import STATUS, msg
             n = self.spool.close()
             msg(STATUS, "spool closed (%d records); converting to .h5", n)
-            convert(self.spool_path, self.cfg, self.n_dims, self.units)
+            convert(self.spool_path, self.cfg, self.n_dims, self.units,
+                    pop_name=self.pop_name)

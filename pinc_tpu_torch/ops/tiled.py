@@ -22,7 +22,7 @@ from __future__ import annotations
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -149,9 +149,13 @@ def bucket_payload(tid: torch.Tensor, payload: torch.Tensor, ts: TileSpec):
     return out.float()
 
 
-def global_positions(lpos: torch.Tensor, ts: TileSpec) -> torch.Tensor:
-    """(NT, B, D) local -> global float positions (periodic wrap)."""
-    g = lpos + tile_origins(ts, lpos.device)[:, None, :]
+def global_positions(lpos: torch.Tensor, ts: TileSpec,
+                     origins: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(NT, B, D) local -> global float positions (periodic wrap).
+    origins: (NT, D) global node of each tile (default ``ts``'s tiles)."""
+    if origins is None:
+        origins = tile_origins(ts, lpos.device)
+    g = lpos + origins[:, None, :]
     return torch.remainder(g, torch.tensor(ts.grid, dtype=g.dtype,
                                            device=g.device))
 

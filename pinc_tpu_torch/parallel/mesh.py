@@ -36,6 +36,22 @@ collectives:
   device.
 * ``lax.all_gather`` -> ``gather``: the blocks concatenated in mesh-block
   order.
+
+Over several processes (``utils/multihost.py``; torchrun), each process
+holds a contiguous block of ``n_shards / P`` shards in mixed-radix order,
+as JAX orders a mesh's devices by process, on its own device
+(``multihost.local_device``).  A sharded list then holds this process's
+shards and None where another process holds one; the mesh lists another
+process's shard on this process's first device, where its data lands when
+it arrives.  Local shards keep the turn-taking threads, and
+``_Spmd.exchange`` stays the one point where shards meet: the local posts,
+then, in the thread that holds the last local turn (so one thread at a
+time talks to the process group), one exchange across processes of the
+posts a remote shard needs: point to point (``multihost.exchange``) for
+``ppermute``, an all-gather (``multihost.all_gather``) for ``psum``.
+``psum``, ``sum``, ``gather`` and ``replicated`` gather the values and
+work on them in mesh order, so a run over P processes is the
+single-process mesh bit for bit.
 """
 
 from __future__ import annotations
@@ -50,6 +66,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import multihost as mh
 
 AXIS_NAMES = ("x", "y", "z", "w", "v", "u")
 
@@ -104,18 +122,22 @@ class _Aborted(Exception):
 
 
 class _Spmd:
-    """The meeting point of one mesh's shard threads.  The threads take
-    turns (shard 0, 1, ..., n-1, 0, ...): one runs at a time, up to its
-    next collective, where it posts its value and hands the turn on, so
-    the shards never contend for the interpreter lock.  When shard 0 has
-    the turn again every shard has posted; round r posts to board r % 2,
-    so a shard still reading round r is never overwritten."""
+    """The meeting point of one mesh's local shard threads.  The threads
+    take turns (local shard 0, 1, ..., m-1, 0, ...): one runs at a time, up
+    to its next collective, where it posts its value and hands the turn
+    on, so the shards never contend for the interpreter lock.  When the
+    first local shard has the turn again every local shard has posted;
+    round r posts to board r % 2, so a shard still reading round r is
+    never overwritten.  Over several processes the last local shard,
+    holding the turn, fetches the remote posts into the board
+    (``cross``)."""
 
-    def __init__(self, n: int):
-        self.n = n
-        self.turns = [threading.Event() for _ in range(n)]
-        self.boards = ([None] * n, [None] * n)
-        self.rounds = [0] * n
+    def __init__(self, shards: Sequence[int], n_all: int):
+        self.n = len(shards)
+        self.pos = {i: k for k, i in enumerate(shards)}
+        self.turns = [threading.Event() for _ in range(self.n)]
+        self.boards = ([None] * n_all, [None] * n_all)
+        self.rounds = [0] * self.n
         self.aborted = False
 
     def reset(self) -> None:
@@ -125,34 +147,40 @@ class _Spmd:
         self.rounds = [0] * self.n
         self.aborted = False
 
-    def wait_turn(self, i: int) -> None:
-        if not self.turns[i].wait(_TURN_TIMEOUT_S):
+    def wait_turn(self, k: int) -> None:
+        if not self.turns[k].wait(_TURN_TIMEOUT_S):
             self.abort()
             raise RuntimeError(
-                f"shard {i} waited {_TURN_TIMEOUT_S} s for its turn: the "
-                "shards' collectives do not match")
-        self.turns[i].clear()
+                f"local shard {k} waited {_TURN_TIMEOUT_S} s for its turn: "
+                "the shards' collectives do not match")
+        self.turns[k].clear()
         if self.aborted:
             raise _Aborted()
 
-    def pass_turn(self, i: int) -> None:
-        self.turns[(i + 1) % self.n].set()
+    def pass_turn(self, k: int) -> None:
+        self.turns[(k + 1) % self.n].set()
 
     def abort(self) -> None:
         self.aborted = True
         for e in self.turns:
             e.set()
 
-    def exchange(self, value) -> list:
-        """Every shard posts ``value``; each gets all n posts."""
-        if self.n == 1:
+    def exchange(self, value, cross=None) -> list:
+        """Every shard posts ``value``; each gets the board of all posts,
+        indexed by shard (cross(board) fills in the remote ones a shard
+        reads)."""
+        if self.n == 1 and cross is None:
             return [value]
         i = current_shard()
-        board = self.boards[self.rounds[i] % 2]
-        self.rounds[i] += 1
+        k = self.pos[i]
+        board = self.boards[self.rounds[k] % 2]
+        self.rounds[k] += 1
         board[i] = value
-        self.pass_turn(i)
-        self.wait_turn(i)
+        if cross is not None and k == self.n - 1:
+            cross(board)
+        if self.n > 1:
+            self.pass_turn(k)
+            self.wait_turn(k)
         return list(board)
 
 
@@ -169,14 +197,34 @@ class MeshCtx:
     axes: Tuple[str, ...]           # one name per spatial dim
     n_subdomains: Tuple[int, ...]   # mesh extent per spatial dim
     true_size: Tuple[int, ...]      # local grid nodes per subdomain
+    rank: int = 0                   # this process, of world
+    world: int = 1
     _spmd: _Spmd = field(init=False, repr=False)
 
     def __post_init__(self):
-        object.__setattr__(self, "_spmd", _Spmd(self.n_devices))
+        object.__setattr__(self, "_spmd", _Spmd(self.local, self.n_devices))
 
     @property
     def n_devices(self) -> int:
         return math.prod(self.n_subdomains)
+
+    @property
+    def local(self) -> Tuple[int, ...]:
+        """This process's shards: a contiguous block in mesh order."""
+        per = self.n_devices // self.world
+        return tuple(range(self.rank * per, (self.rank + 1) * per))
+
+    def is_local(self, i: int) -> bool:
+        return self.owner(i) == self.rank
+
+    def owner(self, i: int) -> int:
+        """The process that holds shard i."""
+        return i // (self.n_devices // self.world)
+
+    def first(self, values: Sequence):
+        """This process's first shard's entry of a per-shard list (a value
+        summed over the mesh is the same on every shard)."""
+        return values[self.local[0]]
 
     @property
     def global_size(self) -> Tuple[int, ...]:
@@ -188,11 +236,12 @@ class MeshCtx:
         return list(self.mesh.ravel())
 
     def distinct_devices(self) -> List[torch.device]:
-        """Each device of the mesh once, in order of its first shard."""
+        """Each device of this process's shards once, in order of its first
+        shard."""
         out: List[torch.device] = []
-        for dev in self.devices:
-            if dev not in out:
-                out.append(dev)
+        for i in self.local:
+            if self.devices[i] not in out:
+                out.append(self.devices[i])
         return out
 
     def coords(self, i: Optional[int] = None) -> Tuple[int, ...]:
@@ -223,31 +272,33 @@ class MeshCtx:
 
     # ------------------------------------------------------------ running
     def map(self, fn, *lists) -> list:
-        """fn on each shard's items in turn, under the shard's scope."""
-        out = []
-        for i in range(self.n_devices):
+        """fn on each local shard's items in turn, under the shard's scope;
+        None for another process's shards."""
+        out: list = [None] * self.n_devices
+        for i in self.local:
             with self.scope(i):
-                out.append(fn(*(a[i] for a in lists)))
+                out[i] = fn(*(a[i] for a in lists))
         return out
 
     def shard_map(self, fn, *lists) -> list:
-        """``shard_map``: one thread a shard runs fn on its items (under its
-        scope); the collectives inside fn meet across the threads.
-        Returns the per-shard results in mesh order."""
-        n = self.n_devices
+        """``shard_map``: one thread a local shard runs fn on its items
+        (under its scope); the collectives inside fn meet across the
+        threads and the processes.  Returns the per-shard results in mesh
+        order (None for another process's shards)."""
         if current_shard() is not None:
             raise RuntimeError("shard_map inside a shard's work")
-        if n == 1:
+        local = self.local
+        if len(local) == 1:
             return self.map(fn, *lists)
         spmd = self._spmd
         spmd.reset()
         n_threads = torch.get_num_threads()
-        cpu = any(dev.type == "cpu" for dev in self.devices)
+        cpu = any(self.devices[i].type == "cpu" for i in local)
         fresh = []
 
-        def run(i):
+        def run(k, i):
             try:
-                spmd.wait_turn(i)
+                spmd.wait_turn(k)
                 if cpu and not getattr(_LOCAL, "one_thread", False):
                     # one intra-op thread a shard thread: an OpenMP team
                     # a thread would spin on the cores between the turns
@@ -259,19 +310,21 @@ class MeshCtx:
             except BaseException:
                 spmd.abort()
                 raise
-            spmd.pass_turn(i)
+            spmd.pass_turn(k)
             return out
 
+        n = len(local)
         with _LOCK:
             pool = _POOLS.get(n)
             if pool is None:
                 pool = _POOLS[n] = ThreadPoolExecutor(
                     max_workers=n, thread_name_prefix=f"shard{n}")
-        futures = [pool.submit(run, i) for i in range(n)]
-        results, errors = [], []
-        for f in futures:
+        futures = [pool.submit(run, k, i) for k, i in enumerate(local)]
+        results: list = [None] * self.n_devices
+        errors = []
+        for i, f in zip(local, futures):
             try:
-                results.append(f.result())
+                results[i] = f.result()
             except BaseException as e:       # noqa: BLE001 (re-raised)
                 errors.append(e)
         if fresh:      # set_num_threads is process-wide for new threads
@@ -281,34 +334,93 @@ class MeshCtx:
             raise (first or errors)[0]
         return results
 
+    # ------------------------------------------- across processes (P > 1)
+    def complete(self, values: Sequence) -> list:
+        """A per-shard list with every shard's entry: another process's
+        fetched from it (one all-gather).  Every process calls it."""
+        values = list(values)
+        if self.world == 1:
+            return values
+        got = mh.all_gather_values([values[i] for i in self.local])
+        per = len(self.local)
+        for q, vals in enumerate(got):
+            if q != self.rank:
+                values[q * per:(q + 1) * per] = vals
+        return values
+
+    def fetch(self, *requests) -> List[Dict[int, object]]:
+        """Each request (board, src_of): {local shard j: board[src_of(j)]}
+        for the j whose source is another process's shard, all fetched in
+        one point-to-point exchange; this process sends its posts that
+        another process's shards read.  src_of must be the same function
+        on every process."""
+        sends: Dict[int, list] = defaultdict(list)
+        recvs: Dict[int, list] = defaultdict(list)
+        order: Dict[int, list] = defaultdict(list)
+        for r, (board, src_of) in enumerate(requests):
+            for j in range(self.n_devices):      # the receivers, in order
+                s = src_of(j)
+                if self.is_local(s) == self.is_local(j):
+                    continue
+                if self.is_local(s):
+                    sends[self.owner(j)].extend(mh.leaves(board[s]))
+                else:
+                    recvs[self.owner(s)].extend(mh.leaves(board[j]))
+                    order[self.owner(s)].append((r, j))
+        got = mh.exchange(sends, recvs)
+        out: List[Dict[int, object]] = [{} for _ in requests]
+        for q, rjs in order.items():
+            it = iter(got[q])
+            for r, j in rjs:
+                # the shapes of a shard's post are its neighbours'
+                out[r][j] = mh.rebuild(requests[r][0][j], it)
+        return out
+
     # -------------------------------------- collectives (inside shard_map)
     def ppermute(self, x, d: int, shift: int):
         """``lax.ppermute(x, axis d, _perm(n, shift))``: x (a tensor or a
         tuple of them) moves ``shift`` shards along mesh axis d; returns
         what this shard receives, copied onto its device."""
         i = current_shard()
-        posts = self._spmd.exchange(x)
-        src = self.neighbor(i, d, -shift)
-        return _copy_to(posts[src], self.devices[i])
+
+        def src_of(j):
+            return self.neighbor(j, d, -shift)
+
+        def cross(board):
+            for j, v in self.fetch((board, src_of))[0].items():
+                board[src_of(j)] = v
+        posts = self._spmd.exchange(x, None if self.world == 1 else cross)
+        return _copy_to(posts[src_of(i)], self.devices[i])
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """``lax.psum`` over every mesh axis: the shards' values summed in
-        mesh order on the first shard's device, returned on this shard's
-        device."""
-        posts = self._spmd.exchange(x)
-        dev0 = self.devices[0]
-        s = posts[0].to(dev0)
-        for v in posts[1:]:
-            s = s + v.to(dev0)
+        mesh order on this process's first device, returned on this
+        shard's device."""
+        def cross(board):
+            board[:] = self.complete(board)
+        posts = self._spmd.exchange(x, None if self.world == 1 else cross)
+        s = self._sum(posts)
         own = self.devices[current_shard()]
-        return s if own == dev0 else s.to(own)
+        return s if own == s.device else s.to(own)
+
+    def _sum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
+        dev0 = self.devices[self.local[0]]
+        s = values[0].to(dev0)
+        for v in values[1:]:
+            s = s + v.to(dev0)
+        return s
 
     # ----------------------------------------- layout (between the maps)
-    def gather(self, blocks: Sequence[torch.Tensor],
+    def gather(self, blocks: Sequence[Optional[torch.Tensor]],
                device: Optional[torch.device] = None) -> torch.Tensor:
         """The global field of per-shard blocks (each (*true_size, ...)),
-        on ``device`` (default the first shard's)."""
-        dev = self.devices[0] if device is None else device
+        on ``device`` (default this process's first shard's), on every
+        process."""
+        return self._assemble(self.complete(blocks), device)
+
+    def _assemble(self, blocks: Sequence[torch.Tensor],
+                  device: Optional[torch.device] = None) -> torch.Tensor:
+        dev = self.devices[self.local[0]] if device is None else device
         b0 = blocks[0]
         tail = tuple(b0.shape[len(self.true_size):])
         out = torch.empty(self.global_size + tail, dtype=b0.dtype,
@@ -317,41 +429,45 @@ class MeshCtx:
             out[self.block_slices(i)].copy_(b)
         return out
 
-    def split(self, g: torch.Tensor, shards=None) -> List[torch.Tensor]:
+    def split(self, g: torch.Tensor, shards=None) -> list:
         """Per-shard blocks of a global field, each a contiguous copy on
-        its shard's device (shards: the indices to cut, default all)."""
-        idx = range(self.n_devices) if shards is None else shards
-        return [g[self.block_slices(i)].to(self.devices[i], copy=True)
-                .contiguous() for i in idx]
+        its shard's device: shards None gives the per-shard list (None for
+        another process's shards), else the listed shards' blocks."""
+        def cut(i):
+            return g[self.block_slices(i)].to(self.devices[i], copy=True) \
+                .contiguous()
+        if shards is not None:
+            return [cut(i) for i in shards]
+        out: list = [None] * self.n_devices
+        for i in self.local:
+            out[i] = cut(i)
+        return out
 
-    def replicated(self, fn, blocks: Sequence[torch.Tensor]
-                   ) -> List[torch.Tensor]:
+    def replicated(self, fn, blocks: Sequence[Optional[torch.Tensor]]
+                   ) -> list:
         """fn on the gathered global field, once for each distinct device
-        of the mesh; its global result cut into the shards on that
-        device."""
-        out: List[Optional[torch.Tensor]] = [None] * self.n_devices
+        of this process's shards; its global result cut into the shards on
+        that device."""
+        full = self.complete(blocks)
+        out: list = [None] * self.n_devices
         for dev in self.distinct_devices():
-            mine = [i for i, d in enumerate(self.devices) if d == dev]
+            mine = [i for i in self.local if self.devices[i] == dev]
             with self.scope(mine[0]):
-                g = fn(self.gather(blocks, dev))
+                g = fn(self._assemble(full, dev))
                 for i, b in zip(mine, self.split(g, mine)):
                     out[i] = b
         return out
 
     def synchronize(self) -> None:
-        """Wait for every card of the mesh."""
+        """Wait for every card of this process's shards."""
         for dev in self.distinct_devices():
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
-    def sum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
+    def sum(self, values: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
         """``psum`` of per-shard values, outside shard_map: summed in mesh
-        order on the first shard's device."""
-        dev0 = self.devices[0]
-        s = values[0].to(dev0)
-        for v in values[1:]:
-            s = s + v.to(dev0)
-        return s
+        order on this process's first device."""
+        return self._sum(self.complete(values))
 
 
 class _ShardScope:
@@ -373,33 +489,50 @@ class _ShardScope:
 
 def make_mesh(n_subdomains: Sequence[int], true_size: Sequence[int],
               devices=None) -> MeshCtx:
-    """The mesh of a deck's decomposition.  devices: a list of devices (a
-    device may repeat); None means the visible cards, cuda:0..N-1.  Raises
-    ValueError when there are fewer than the deck needs."""
+    """The mesh of a deck's decomposition over this run's processes.
+    devices: a list of devices, one a shard (a device may repeat); None
+    means the visible cards, cuda:0..N-1, with one process, and this
+    process's card (``multihost.local_device``) for each of its shards
+    with several.  Raises ValueError when there are fewer devices than the
+    deck needs, or when the process count does not divide the shards."""
     nsub = tuple(int(n) for n in n_subdomains)
     need = math.prod(nsub)
+    world, rank = mh.process_count(), mh.process_index()
+    if need % world:
+        raise ValueError(f"{world} processes do not divide the deck's "
+                         f"{need} shards (grid:nSubdomains={nsub})")
     if devices is None:
-        devices = ([torch.device("cuda", k)
-                    for k in range(torch.cuda.device_count())]
-                   if torch.cuda.is_available() else [])
+        if world > 1:
+            devices = [mh.local_device()] * need
+        else:
+            devices = ([torch.device("cuda", k)
+                        for k in range(torch.cuda.device_count())]
+                       if torch.cuda.is_available() else [])
     devices = [_normalize(d) for d in devices]
     if len(devices) < need:
         raise ValueError(f"deck wants {need} devices "
                          f"(grid:nSubdomains={nsub}) but only "
                          f"{len(devices)} available")
+    per = need // world
+    first = devices[rank * per]
     arr = np.empty(need, dtype=object)
-    for k, dev in enumerate(devices[:need]):
-        arr[k] = dev
+    for k in range(need):
+        # another process's shard: where its data lands on this process
+        arr[k] = devices[k] if k // per == rank else first
     return MeshCtx(mesh=arr.reshape(nsub), axes=AXIS_NAMES[:len(nsub)],
                    n_subdomains=nsub,
-                   true_size=tuple(int(t) for t in true_size))
+                   true_size=tuple(int(t) for t in true_size),
+                   rank=rank, world=world)
 
 
 def mesh_devices(device, n: int):
     """``make_mesh``'s devices for an entry point run on ``device``: n times
-    the CPU for a CPU run, else None (the visible cards)."""
-    return [torch.device("cpu")] * n if torch.device(device).type == "cpu" \
-        else None
+    the CPU for a CPU run, n times this process's device over several
+    processes, else None (the visible cards)."""
+    dev = torch.device(device)
+    if dev.type == "cpu" or mh.process_count() > 1:
+        return [dev] * n
+    return None
 
 
 def subdomain_offset(ctx: MeshCtx, i: Optional[int] = None

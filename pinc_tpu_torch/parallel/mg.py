@@ -10,8 +10,9 @@ The communication mirrors the reference's distributed multigrid:
 * the halo refreshes of restriction and prolongation (mgHalfRestrict3D,
   mgBilinProl3D, src/multigrid.c:844-911, 1127-1238): one plane around
   the stencil;
-* ``gNeutralizeGrid``'s MPI_Allreduce (src/grid.c:730-752): the shards'
-  sums added in mesh order (``MeshCtx.sum``).
+* ``gNeutralizeGrid``'s MPI_Allreduce (src/grid.c:730-752): each shard's
+  sum, added in mesh order (``MeshCtx.sum``), as ``pinc_tpu``'s psum of
+  the shards' sums.
 
 The shards advance in lockstep in the calling thread: the blocks of the
 shards on one device are stacked along a leading axis, so every stage is
@@ -20,7 +21,9 @@ count), and a neighbour's plane is an index select inside a device or a
 copy (``Tensor.to``) between devices.  Ghost planes come from the
 neighbours in the interior and from the BC formulas (Dirichlet mirror,
 Neumann offset ghost) at the global edges, so each stencil is the
-single-device one on the padded block.
+single-device one on the padded block.  Over several processes a process
+steps its own shards, grouped by device, and a neighbour's plane that
+another process holds arrives point to point (``MeshCtx.fetch``).
 
 Below the per-subdomain divisibility clamp the coarse grid is gathered
 (``_gather_global``) and the hierarchy continues with the single-device
@@ -118,13 +121,13 @@ class ShardedMultigridSolver:
 
     # ------------------------------------------------------------ groups
     def _group_layout(self):
-        """The shards of each distinct device, stacked along a leading axis
-        (a field is one (n_g, *local) tensor a device): on one card every
-        shard's stage is one launch."""
+        """This process's shards, grouped by device and stacked along a
+        leading axis (a field is one (n_g, *local) tensor a device): on one
+        card every shard's stage is one launch."""
         ctx = self.ctx
         devs = ctx.devices
         self._devs = ctx.distinct_devices()
-        self._groups = [[i for i, d in enumerate(devs) if d == dev]
+        self._groups = [[i for i in ctx.local if devs[i] == dev]
                         for dev in self._devs]
         self._where = {}
         for g, idx in enumerate(self._groups):
@@ -145,7 +148,11 @@ class ShardedMultigridSolver:
     def _from(self, planes: Fields, d: int, shift: int) -> Fields:
         """Each shard's copy of the plane that the shard ``shift`` away
         along mesh axis d holds (the receive side of a ppermute): an index
-        select inside a device, copies between devices."""
+        select inside a device, copies between devices, and over several
+        processes a point-to-point exchange of the planes that cross
+        them."""
+        if self.ctx.world > 1:
+            return self._from_processes((planes, d, shift))[0]
         key = ("from", d, shift)
         if key not in self._cache:
             plan = []
@@ -165,6 +172,27 @@ class ShardedMultigridSolver:
                 out.append(torch.cat([planes[gg][k:k + 1].to(
                     self._devs[g], copy=True) for gg, k in src]))
         return out
+
+    def _from_both(self, last: Fields, first: Fields, d: int):
+        """(_from(last, d, -1), _from(first, d, 1)): over several
+        processes in one exchange."""
+        if self.ctx.world > 1:
+            return self._from_processes((last, d, -1), (first, d, 1))
+        return self._from(last, d, -1), self._from(first, d, 1)
+
+    def _from_processes(self, *requests) -> List[Fields]:
+        """_from of each (planes, d, shift) request, the planes that cross
+        processes sent and received in one exchange."""
+        ctx = self.ctx
+        boards = [self._unstack(planes) for planes, _, _ in requests]
+        srcs = [(lambda j, d=d, shift=shift: ctx.neighbor(j, d, shift))
+                for _, d, shift in requests]
+        got = ctx.fetch(*zip(boards, srcs))
+        return [[torch.stack([g[i] if i in g
+                              else board[src(i)].to(dev, copy=True)
+                              for i in idx])
+                 for idx, dev in zip(self._groups, self._devs)]
+                for board, src, g in zip(boards, srcs, got)]
 
     def _edge(self, d: int, top: bool) -> List[torch.Tensor]:
         """Per group, (n_g, 1, ..) booleans: the shards at the global bottom
@@ -191,8 +219,8 @@ class ShardedMultigridSolver:
             t = xs[0].shape[a]
             first = [x.narrow(a, 0, 1) for x in xs]
             last = [x.narrow(a, t - 1, 1) for x in xs]
-            lo = self._from(last, d, -1) if n > 1 else last
-            hi = self._from(first, d, 1) if n > 1 else first
+            lo, hi = (self._from_both(last, first, d) if n > 1
+                      else (last, first))
             if bc is not None:
                 if bc.lower[d] is not BndType.PERIODIC:
                     v = bc.lower_value[d]
@@ -226,8 +254,8 @@ class ShardedMultigridSolver:
             t = xs[0].shape[a]
             first = [x.narrow(a, 0, 1) for x in xs]
             last = [x.narrow(a, t - 1, 1) for x in xs]
-            lo = self._from(last, d, -1) if n > 1 else last
-            hi = self._from(first, d, 1) if n > 1 else first
+            lo, hi = (self._from_both(last, first, d) if n > 1
+                      else (last, first))
             if bc is not None and not (bc.lower[d] is BndType.PERIODIC
                                        and bc.upper[d] is BndType.PERIODIC):
                 lo = [torch.where(m, torch.zeros_like(l), l) for m, l in
@@ -307,8 +335,17 @@ class ShardedMultigridSolver:
         return [x if val is None else torch.where(inter, x, val.to(x.dtype))
                 for x, (inter, _, val) in zip(xs, self._masks(level))]
 
+    def _mesh_sum(self, per_shard: Fields) -> torch.Tensor:
+        """Each shard's sum of its block, added in mesh order on every
+        process (the same numbers whatever the grouping: a group's one
+        row reduction, ``x.flatten(1).sum(1)``, is not its rows' sums bit
+        for bit, on the card or a multithreaded CPU)."""
+        sums = self._unstack([torch.stack([v.sum() for v in x])
+                              for x in per_shard])
+        return self.ctx.sum(sums)
+
     def _gmean(self, xs: Fields, level: int) -> torch.Tensor:
-        s = self.ctx.sum([x.float().sum() for x in xs])
+        s = self._mesh_sum([x.float() for x in xs])
         return s / self._n_global[level]
 
     def _neutral(self, xs: Fields, level: int) -> Fields:
@@ -392,17 +429,17 @@ class ShardedMultigridSolver:
             fine = out
         return fine
 
-    def _gather_global(self, xs: Fields, device) -> torch.Tensor:
-        """The full (tiny) bottom-level grid on ``device``: the blocks
-        concatenated in mesh-block order (``lax.all_gather``)."""
-        shape = xs[0].shape[1:]
+    def _gather_global(self, blocks: Blocks, device) -> torch.Tensor:
+        """The full (tiny) bottom-level grid on ``device``: every shard's
+        block (``MeshCtx.complete``: over several processes gathered
+        first) concatenated in mesh-block order (``lax.all_gather``)."""
+        shape = blocks[0].shape
         g = torch.empty(tuple(s * n for s, n in
                               zip(shape, self.ctx.n_subdomains)),
-                        dtype=xs[0].dtype, device=device)
-        for idx, x in zip(self._groups, xs):
-            for k, i in enumerate(idx):
-                g[tuple(slice(c * s, (c + 1) * s) for c, s in
-                        zip(self.ctx.coords(i), shape))].copy_(x[k])
+                        dtype=blocks[0].dtype, device=device)
+        for i, b in enumerate(blocks):
+            g[tuple(slice(c * s, (c + 1) * s) for c, s in
+                    zip(self.ctx.coords(i), shape))].copy_(b)
         return g
 
     def _slice_local(self, g: torch.Tensor, level: int, idx, device
@@ -422,12 +459,13 @@ class ShardedMultigridSolver:
                 # the single-device recursion on each distinct device, cut
                 # back
                 out = []
-                for g, (idx, dev) in enumerate(zip(self._groups,
-                                                   self._devs)):
+                phi_b, rho_b = (self.ctx.complete(self._unstack(x))
+                                for x in (phi, rho))
+                for idx, dev in zip(self._groups, self._devs):
                     with self.ctx.scope(idx[0]):
                         gl = self._bottom._vcycle(
-                            0, self._gather_global(phi, dev),
-                            self._gather_global(rho, dev))
+                            0, self._gather_global(phi_b, dev),
+                            self._gather_global(rho_b, dev))
                         out.append(self._slice_local(gl, level, idx, dev))
                 return out
             return self._smooth(phi, rho, level, self.n_coarse)
@@ -457,14 +495,14 @@ class ShardedMultigridSolver:
         return phi
 
     def _rms2(self, phi: Fields, rho: Fields) -> torch.Tensor:
-        sums = []
+        sq = []
         for r, l, (inter, _, _) in zip(rho, self._lap(phi, 0),
                                        self._masks(0)):
             res = r + l
             if inter is not None:
                 res = torch.where(inter, res, torch.zeros_like(res))
-            sums.append(torch.sum(torch.square(res.float())))
-        return self.ctx.sum(sums) / self._n_global[0]
+            sq.append(torch.square(res.float()))
+        return self._mesh_sum(sq) / self._n_global[0]
 
     # --------------------------------------------------------------- solve
     def __call__(self, rho: Blocks) -> Blocks:
@@ -475,7 +513,8 @@ class ShardedMultigridSolver:
         cycle count, as MultigridSolver.solve_with_stats, so mgMode writes
         the same timer.xy.h5 stats on the decomposed grid
         (src/multigrid.c:1998-2004).  One host sync a cycle."""
-        rho = self._stack([r.to(self.dtype) for r in rho])
+        rho = self._stack([None if r is None else r.to(self.dtype)
+                           for r in rho])
         if self._has_nullspace:
             rho = self._neutral(rho, 0)
         phi = self._clamp([r.new_zeros(r.shape) for r in rho], 0)

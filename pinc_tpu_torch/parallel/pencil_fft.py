@@ -17,44 +17,77 @@ per-shard lists of ``parallel/mesh.py``:
 The pencil solve keeps the field distributed: x-slabs (axis 0 split over
 all shards in mesh order), ``rfft2`` over axes (1, 2), a slab-to-slab
 all-to-all onto y-slabs, ``fft`` over axis 0, 1/k^2 (``_inv_k2``'s
-numbers, DC zeroed), and back.  The reference's FFTW solver is 1-D and
-single-rank only (src/spectral.c:80-90).
+numbers, DC zeroed), and back.  Over several processes a slab is
+transformed by the process that holds its shard, and the all-to-alls send
+the pieces that cross processes point to point.  The reference's FFTW
+solver is 1-D and single-rank only (src/spectral.c:80-90).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from collections import defaultdict
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..solvers.spectral import _inv_k2
+from ..utils import multihost as mh
 from .mesh import MeshCtx
 
 Box = Tuple[Tuple[int, int], ...]
 
 
-def _reshard(src: Sequence[torch.Tensor], src_boxes: Sequence[Box],
-             dst_boxes: Sequence[Box], dst_devices) -> List[torch.Tensor]:
-    """Move the pieces of a global field from one decomposition to another:
-    each destination box is filled from every source block it meets
-    (``copy_`` across devices).  Boxes cover the leading dims."""
-    out = []
-    for box, dev in zip(dst_boxes, dst_devices):
-        shape = tuple(hi - lo for lo, hi in box) + tuple(
-            src[0].shape[len(box):])
-        o = torch.empty(shape, dtype=src[0].dtype, device=dev)
-        for s, sbox in zip(src, src_boxes):
-            lo = [max(a[0], b[0]) for a, b in zip(box, sbox)]
-            hi = [min(a[1], b[1]) for a, b in zip(box, sbox)]
-            if any(h <= l for l, h in zip(lo, hi)):
+def _reshard(ctx: MeshCtx, src: Sequence[Optional[torch.Tensor]],
+             src_boxes: Sequence[Box], dst_boxes: Sequence[Box],
+             dst_devices) -> List[Optional[torch.Tensor]]:
+    """Move the pieces of a global field from one decomposition to another
+    (piece k of each held by shard k): each of this process's destination
+    boxes is filled from every source piece it meets, ``copy_`` across
+    devices, and the pieces another process holds sent and received point
+    to point (``multihost.exchange``).  Boxes cover the leading
+    dims."""
+    def meet(box, sbox):
+        lo = [max(a[0], b[0]) for a, b in zip(box, sbox)]
+        hi = [min(a[1], b[1]) for a, b in zip(box, sbox)]
+        if any(h <= l for l, h in zip(lo, hi)):
+            return None
+        return (tuple(slice(l - b[0], h - b[0]) for l, h, b in
+                      zip(lo, hi, box)),
+                tuple(slice(l - b[0], h - b[0]) for l, h, b in
+                      zip(lo, hi, sbox)))
+
+    n = len(dst_boxes)
+    like = next(s for s in src if s is not None)
+    tail = tuple(like.shape[len(dst_boxes[0]):])
+    sends, recvs = defaultdict(list), defaultdict(list)
+    # the pieces that cross processes, in (destination, source) order on
+    # both sides
+    for k in range(n):
+        for s in range(n):
+            m = meet(dst_boxes[k], src_boxes[s])
+            if m is None or ctx.is_local(k) == ctx.is_local(s):
                 continue
-            o[tuple(slice(l - b[0], h - b[0]) for l, h, b in
-                    zip(lo, hi, box))].copy_(
-                s[tuple(slice(l - b[0], h - b[0]) for l, h, b in
-                        zip(lo, hi, sbox))])
-        out.append(o)
+            if ctx.is_local(s):
+                sends[ctx.owner(k)].append(src[s][m[1]].contiguous())
+            else:
+                shape = tuple(sl.stop - sl.start for sl in m[0]) + tail
+                recvs[ctx.owner(s)].append(torch.empty(
+                    shape, dtype=like.dtype, device=dst_devices[k]))
+    got = {q: iter(v) for q, v in mh.exchange(sends, recvs).items()}
+    out: List[Optional[torch.Tensor]] = [None] * n
+    for k in ctx.local:
+        box = dst_boxes[k]
+        shape = tuple(hi - lo for lo, hi in box) + tail
+        o = torch.empty(shape, dtype=like.dtype, device=dst_devices[k])
+        for s in range(n):
+            m = meet(box, src_boxes[s])
+            if m is None:
+                continue
+            o[m[0]].copy_(src[s][m[1]] if ctx.is_local(s)
+                          else next(got[ctx.owner(s)]))
+        out[k] = o
     return out
 
 
@@ -122,23 +155,24 @@ class PencilSpectralSolver:
         self._cy = _slab_boxes(half, n, 1)
         inv = _inv_k2(self.shape, fd, np.float32)
         w = half[1] // n
-        # each y-slab's part of the 1/k^2 table, on its device
+        # each local y-slab's part of the 1/k^2 table, on its device
         self._inv_k2 = [torch.from_numpy(np.ascontiguousarray(
-            inv[:, k * w:(k + 1) * w])).to(dev)
+            inv[:, k * w:(k + 1) * w])).to(dev) if ctx.is_local(k) else None
             for k, dev in enumerate(ctx.devices)]
 
     def __call__(self, rho_blocks: Sequence[torch.Tensor]
                  ) -> List[torch.Tensor]:
         ctx = self.ctx
         devs = ctx.devices
-        x = _reshard([r.float() for r in rho_blocks], self._mesh,
-                     self._xslab, devs)
+        x = _reshard(ctx, [None if r is None else r.float()
+                           for r in rho_blocks], self._mesh, self._xslab,
+                     devs)
         c = ctx.map(lambda s: torch.fft.rfft2(s, dim=(1, 2)), x)
-        c = _reshard(c, self._cx, self._cy, devs)
+        c = _reshard(ctx, c, self._cx, self._cy, devs)
         c = ctx.map(lambda s, k: torch.fft.ifft(
             torch.fft.fft(s, dim=0) * k, dim=0), c, self._inv_k2)
-        c = _reshard(c, self._cy, self._cx, devs)
+        c = _reshard(ctx, c, self._cy, self._cx, devs)
         phi = ctx.map(lambda s: torch.fft.irfft2(
             s, s=self.shape[1:], dim=(1, 2)), c)
-        phi = _reshard(phi, self._xslab, self._mesh, devs)
-        return [p.to(self.dtype) for p in phi]
+        phi = _reshard(ctx, phi, self._xslab, self._mesh, devs)
+        return [None if p is None else p.to(self.dtype) for p in phi]

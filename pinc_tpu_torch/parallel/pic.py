@@ -24,14 +24,21 @@ Particles live in per-shard slabs: ``ShardedSimulation.particles`` is a
 list of per-shard ``Particles`` (S, cap_local, D) holding global
 (unwrapped during the exchange) cell coordinates.  The writer, the
 ``methods:debug`` guards and the checkpoints get the global fields and
-particles, gathered from the shards (``gather_particles``), the
-single-process branch of ``pinc_tpu/utils/multihost.py:44-50``.
+particles, gathered from the shards (``gather_particles``), as
+``pinc_tpu/utils/multihost.py:40-56`` fetches them.  Over several
+processes (``utils/multihost.py``) a process holds its own shards' slabs
+(None for the others): every process initializes the global population
+(the same seeded numbers), keeps its shards' particles and drops the
+rest; the fields and checkpoints are gathered on every process, and the
+writer gets this process's slabs, which it writes to its own
+``pop.p<idx>`` file.
 
 Embedded objects (``pinc_tpu/parallel/pic.py:142-175``, ``:225-313``):
 each shard kills the particles whose floor node is object interior after
 its migration, and the absorbed charge per object is summed over the mesh
 (``MeshCtx.psum``).  ``rho_obj``, the persistent surface charge, is one
-global tensor on the first shard's device, as the writer and the
+global tensor on this process's first device, replicated on every
+process as a replicated array is in JAX, as the writer and the
 checkpoints take it.  As in ``pinc_tpu``, this path only absorbs: the
 responses of ``objects:collisionType`` (reflect, backscatter, adhere,
 secondary) act as absorb here (a WARNING says so), where the single-device
@@ -54,6 +61,7 @@ from ..ops import cic
 from ..ops import pusher as pu
 from ..population import Particles, SpeciesParams, capacity_of
 from ..simulation import Diagnostics, Simulation, StepOutput
+from ..utils import multihost as mh
 from ..utils.logging import STATUS, WARNING, msg
 from .halo import fold_plus, pad_plus
 from .mesh import make_mesh, mesh_devices, subdomain_offset
@@ -80,9 +88,9 @@ class ShardedSimulation(Simulation):
         spec = GridSpec.from_config(cfg)
         ctx = make_mesh(spec.n_subdomains, spec.true_size, devices=devices)
         # the single-device set-up first (methods, units, the global
-        # initial conditions, the object system) on the first shard's
-        # device, then distributed
-        super().__init__(cfg, seed=seed, device=ctx.devices[0],
+        # initial conditions, the object system) on this process's first
+        # shard's device, then distributed
+        super().__init__(cfg, seed=seed, device=ctx.devices[ctx.local[0]],
                          domain=domain)
         self.ctx = ctx
         cap_global = self.particles.capacity
@@ -108,7 +116,8 @@ class ShardedSimulation(Simulation):
     def _distribute(self, p: Particles) -> List[Particles]:
         """Host side: partition the globally initialized population into
         per-shard slabs in mesh order (the reference's subdomain filtering
-        in pPosUniform/pPosLattice, src/population.c:139-160)."""
+        in pPosUniform/pPosLattice, src/population.c:139-160); this
+        process's shards only, None for the others."""
         ctx = self.ctx
         S, cap, D = p.cell.shape
         capL = self.cap_local
@@ -123,8 +132,9 @@ class ShardedSimulation(Simulation):
         lin = np.zeros((S, cap), dtype=np.int64)
         for d in range(D):
             lin = lin * nsub[d] + coords[..., d]
-        out = []
-        for dev_i, dev in enumerate(ctx.devices):
+        out: List[Optional[Particles]] = [None] * ctx.n_devices
+        for dev_i in ctx.local:
+            dev = ctx.devices[dev_i]
             o_cell = np.zeros((S, capL, D), cell.dtype)
             o_frac = np.zeros((S, capL, D), frac.dtype)
             o_vel = np.zeros((S, capL, D), vel.dtype)
@@ -141,16 +151,18 @@ class ShardedSimulation(Simulation):
                 o_frac[s, :n] = frac[s][sel]
                 o_vel[s, :n] = vel[s][sel]
                 o_alive[s, :n] = True
-            out.append(Particles(*(torch.from_numpy(a).to(dev) for a in
-                                   (o_cell, o_frac, o_vel, o_alive))))
+            out[dev_i] = Particles(*(torch.from_numpy(a).to(dev) for a in
+                                     (o_cell, o_frac, o_vel, o_alive)))
         return out
 
     def gather_particles(self, parts: Optional[List[Particles]] = None
                          ) -> Particles:
         """The global (S, n_shards * cap_local, D) population, the shards'
-        slabs in mesh order, on the first shard's device."""
-        parts = self.particles if parts is None else parts
-        dev = self.ctx.devices[0]
+        slabs in mesh order, on this process's first device (on every
+        process)."""
+        ctx = self.ctx
+        parts = ctx.complete(self.particles if parts is None else parts)
+        dev = ctx.devices[ctx.local[0]]
         return Particles(*(torch.cat([getattr(p, k).to(dev) for p in parts],
                                      dim=1)
                            for k in ("cell", "frac", "vel", "alive")))
@@ -243,9 +255,8 @@ class ShardedSimulation(Simulation):
         ctx = self.ctx
         dep = self._local_deposit if do_move else self._local_no_move
         res = ctx.shard_map(dep, particles)
-        particles = [r[0] for r in res]
-        rho = [r[1] for r in res]
-        lost, counter = res[0][2], res[0][3]
+        particles, rho = _column(res, 0), _column(res, 1)
+        lost, counter = ctx.first(res)[2], ctx.first(res)[3]
         obj_phi = None
         if self.objects is not None and rho_obj is None:
             rho_obj = self._zeros()
@@ -258,9 +269,9 @@ class ShardedSimulation(Simulation):
             phi, E, pe = solve_fields(self, rho)
         res = ctx.shard_map(partial(self._local_kick, half=half),
                             particles, E)
-        particles = [r[0] for r in res]
+        particles = _column(res, 0)
         return StepOutput(particles, rho, phi, E, Diagnostics(
-            kin_energy=res[0][1], pot_energy=pe, n_lost=lost),
+            kin_energy=ctx.first(res)[1], pot_energy=pe, n_lost=lost),
             rho_obj=rho_obj, obj_potential=obj_phi)
 
     def _half_kick(self, particles: List[Particles]) -> StepOutput:
@@ -275,11 +286,25 @@ class ShardedSimulation(Simulation):
 
     # the gathered global state for the writer, the guards and checkpoints
     def _output(self, out: StepOutput) -> StepOutput:
+        """The global fields, and the global population; over several
+        processes the shards' slab list instead, of which the writer
+        writes this process's slabs (io_h5.OutputWriter._owned_rows)."""
         g = self.ctx.gather
-        return StepOutput(self.gather_particles(out.particles), g(out.rho),
-                          g(out.phi), g(out.E), out.diag,
-                          rho_obj=out.rho_obj,
+        parts = (out.particles if self.ctx.world > 1
+                 else self.gather_particles(out.particles))
+        return StepOutput(parts, g(out.rho), g(out.phi), g(out.E),
+                          out.diag, rho_obj=out.rho_obj,
                           obj_potential=out.obj_potential)
+
+    def _assert_invariants(self, out: StepOutput, n: int,
+                           max_vel: float) -> None:
+        # the guards decide on the global population, the same on every
+        # process
+        if isinstance(out.particles, list):
+            out = StepOutput(self.gather_particles(out.particles), out.rho,
+                             out.phi, out.E, out.diag, rho_obj=out.rho_obj,
+                             obj_potential=out.obj_potential)
+        super()._assert_invariants(out, n, max_vel)
 
     def _global_particles(self, particles: List[Particles]) -> Particles:
         return self.gather_particles(particles)
@@ -296,15 +321,15 @@ def solve_fields(sim, rho: List[torch.Tensor]):
     ctx = sim.ctx
     phi = sim._solve(rho)
     E = ctx.replicated(sim._efield, phi)
-    pe = ctx.sum([potential_energy(r, p) for r, p in zip(rho, phi)])
+    pe = ctx.sum(ctx.map(potential_energy, rho, phi))
     return phi, E, pe
 
 
 def solve_object_fields(sim, rho: List[torch.Tensor],
                         rho_obj: torch.Tensor):
     """The object deck's field solve of both sharded classes
-    (src/main.c:222-240): rho += rho_obj (global, on the first shard's
-    device), solve on the shards, the capacitance correction on the
+    (src/main.c:222-240): rho += rho_obj (global, replicated on every
+    process), solve on the shards, the capacitance correction on the
     gathered rho and phi (it reads phi at global surface nodes), cut back
     into the shards, then solve_fields.  Returns (rho, phi, E, pe, phi_c
     per object)."""
@@ -317,9 +342,16 @@ def solve_object_fields(sim, rho: List[torch.Tensor],
     return rho, phi, E, pe, obj_phi
 
 
+def _column(res: list, k: int) -> list:
+    """Item k of each shard's result tuple (None for another process's
+    shards)."""
+    return [None if r is None else r[k] for r in res]
+
+
 def object_copies(sim) -> Optional[dict]:
     """{device: the object system with what a shard reads on that device},
-    one for each distinct device of the mesh; None without objects."""
+    one for each distinct device of this process's shards; None without
+    objects."""
     if sim.objects is None:
         return None
     return {dev: sim.objects.on(dev) for dev in sim.ctx.distinct_devices()}
@@ -338,6 +370,10 @@ def make_simulation(cfg: PincConfig, seed: int = 1, device=None,
     np_needed = required_np(cfg)
     layout = cfg.get_str("methods:layout", "").lower()
     tiled = layout == "tiled"
+    world = mh.process_count()
+    if np_needed % world:
+        raise ValueError(f"{world} processes do not divide the deck's "
+                         f"{np_needed} shards (grid:nSubdomains)")
     if np_needed > 1:
         if devices is None and device is not None:
             devices = mesh_devices(device, np_needed)

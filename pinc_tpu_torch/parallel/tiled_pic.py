@@ -26,16 +26,25 @@ single-device path's kernels.  The solve and E = -grad(phi) are those of
 
 Embedded objects (``pinc_tpu/parallel/tiled_pic.py:96-128``, ``:365-530``):
 the single-device near-object tile mask is cut per mesh block, and each
-shard keeps its own tiles' local indices and global origins on its device
-(no padding to a common count).  A shard's part of the object step
+local shard keeps its own tiles' local indices and global origins on its
+device (no padding to a common count).  A shard's part of the object step
 (``_pipeline_obj``) is the drift, the walls, the margin count, the
 responses and the absorption on its near-object tiles
 (``TiledSimulation._absorb_tiles``, the single-device body) and K1 per
 species with the halo fold; the absorbed charge, the adhered charge and
 the secondary counts are summed over the mesh.  Then ``rho_obj`` (one
-global tensor on the first shard's device), the two solves and the
+global tensor, replicated on every process), the two solves and the
 capacitance run on the sharded fields (``pic.solve_object_fields``), and
 ``_local_kick`` kicks.  ``run()`` and the window are the base class's.
+
+Over several processes (``utils/multihost.py``) ``state`` holds this
+process's shards (None for the others).  Every host decision of the base
+class's run reads a value summed or gathered over the mesh, the same on
+every process: the margin count and the drops (``psum``), ``retune()``'s
+sample (``_retune_sample``, from every process), the guards
+(``_flat_state``, gathered).  The writer gets this process's shards'
+particles (``_writer_particles``) and the gathered fields; a checkpoint
+the gathered state.
 """
 
 from __future__ import annotations
@@ -52,10 +61,11 @@ from ..ops import tiled as tl
 from ..ops import tiled_kernels as tk
 from ..simulation import Diagnostics
 from ..tiled_sim import TiledSimulation, TiledState, _stack_outs
+from ..utils import multihost as mh
 from ..utils.logging import STATUS, msg
 from .halo import shifted_tiles
 from .mesh import current_shard, make_mesh, subdomain_offset
-from .pic import object_copies, solve_fields, solve_object_fields
+from .pic import _column, object_copies, solve_fields, solve_object_fields
 
 
 class ShardedTiledSimulation(TiledSimulation):
@@ -67,7 +77,7 @@ class ShardedTiledSimulation(TiledSimulation):
                  domain: Optional[np.ndarray] = None):
         spec = GridSpec.from_config(cfg)
         ctx = make_mesh(spec.n_subdomains, spec.true_size, devices=devices)
-        super().__init__(cfg, seed=seed, device=ctx.devices[0],
+        super().__init__(cfg, seed=seed, device=ctx.devices[ctx.local[0]],
                          domain=domain)
         if self._rebucket_mode != "exchange":
             raise ValueError(
@@ -93,17 +103,19 @@ class ShardedTiledSimulation(TiledSimulation):
             # mesh block, local tile indices and global origins on its device
             mask = self._near_object_mask()
             org = tl.tile_origins(self.ts_local)
-            self._shard_obj_tiles = []
-            for i, dev in enumerate(ctx.devices):
+            self._shard_obj_tiles = [None] * ctx.n_devices
+            for i in ctx.local:
+                dev = ctx.devices[i]
                 idx = torch.as_tensor(
                     np.flatnonzero(mask[self._tile_block(i)]),
                     dtype=torch.int64)
                 off = torch.tensor(subdomain_offset(ctx, i),
                                    dtype=torch.float32)
-                self._shard_obj_tiles.append((idx.to(dev),
-                                              (org[idx] + off).to(dev)))
+                self._shard_obj_tiles[i] = (idx.to(dev),
+                                            (org[idx] + off).to(dev))
             msg(STATUS, "sharded tiled objects: near-object tiles per shard "
-                "%s", [int(t[0].numel()) for t in self._shard_obj_tiles])
+                "%s", [int(mask[self._tile_block(i)].sum())
+                       for i in range(ctx.n_devices)])
         msg(STATUS, "sharded tiled layout: %s device mesh over %s tiles",
             ctx.n_subdomains, self.ts.ntiles)
 
@@ -115,12 +127,14 @@ class ShardedTiledSimulation(TiledSimulation):
                      for c, n in zip(self.ctx.coords(i), lnt))
 
     def _shard_state(self, st: TiledState) -> List[TiledState]:
-        """(S, D, NT, B) global state -> the shards' states: each shard's
-        cuboid of the (x-major) tile grid, copied onto its device."""
+        """(S, D, NT, B) global state -> the shards' states: each of this
+        process's shards' cuboid of the (x-major) tile grid, copied onto
+        its device (None for another process's shards)."""
         S, D, _, B = st.lpos.shape
         gnt, NTl = self.ts.ntiles, self.ts_local.NT
-        out = []
-        for i, dev in enumerate(self.ctx.devices):
+        out: List[Optional[TiledState]] = [None] * self.ctx.n_devices
+        for i in self.ctx.local:
+            dev = self.ctx.devices[i]
             blk = self._tile_block(i)
 
             def cut(a, lead):
@@ -128,17 +142,19 @@ class ShardedTiledSimulation(TiledSimulation):
                 sl = (slice(None),) * len(lead) + blk
                 return g[sl].reshape(lead + (NTl, B)).to(
                     dev, copy=True).contiguous()
-            out.append(TiledState(lpos=cut(st.lpos, (S, D)),
-                                  vel=cut(st.vel, (S, D)),
-                                  alive=cut(st.alive, (S,))))
+            out[i] = TiledState(lpos=cut(st.lpos, (S, D)),
+                                vel=cut(st.vel, (S, D)),
+                                alive=cut(st.alive, (S,)))
         return out
 
     def _flat_state(self, st: List[TiledState]) -> TiledState:
-        """The shards' states as one global (S, D, NT, B) state on the first
-        shard's device (the inverse of _shard_state)."""
+        """The shards' states as one global (S, D, NT, B) state on this
+        process's first device, on every process (the inverse of
+        _shard_state)."""
+        st = self.ctx.complete(st)
         S, D, _, B = st[0].lpos.shape
         gnt, lnt = self.ts.ntiles, self.ts_local.ntiles
-        dev = self.ctx.devices[0]
+        dev = self.ctx.devices[self.ctx.local[0]]
 
         def put(name, lead):
             g = torch.empty(lead + gnt + (B,), dtype=torch.float32,
@@ -303,12 +319,12 @@ class ShardedTiledSimulation(TiledSimulation):
             return stl, rho, ctx.psum(n_out)
 
         res = ctx.shard_map(dep, st)
-        st, rho = [r[0] for r in res], [r[1] for r in res]
-        n_out = res[0][2].to(torch.int32)
+        st, rho = _column(res, 0), _column(res, 1)
+        n_out = ctx.first(res)[2].to(torch.int32)
         phi, E, pe = solve_fields(self, rho)
         res = ctx.shard_map(partial(self._local_kick, half=half), st, E)
-        return [r[0] for r in res], rho, phi, E, Diagnostics(
-            kin_energy=res[0][1], pot_energy=pe, n_lost=n_out)
+        return _column(res, 0), rho, phi, E, Diagnostics(
+            kin_energy=ctx.first(res)[1], pot_energy=pe, n_lost=n_out)
 
     def _tiled_half_kick(self, st):
         return self._pipeline(st, do_move=False, half=True)
@@ -336,8 +352,8 @@ class ShardedTiledSimulation(TiledSimulation):
             return (stl, self._local_fields(stl), ctx.psum(n_out), *sums)
 
         res = ctx.shard_map(dep, st)
-        st, rho = [r[0] for r in res], [r[1] for r in res]
-        n_out, counter, rho_add, see = res[0][2:]
+        st, rho = _column(res, 0), _column(res, 1)
+        n_out, counter, rho_add, see = ctx.first(res)[2:]
         obj_phi = None
         if cull_only:
             phi, E, pe = solve_fields(self, rho)
@@ -351,8 +367,8 @@ class ShardedTiledSimulation(TiledSimulation):
                 self.see_emitted = self.see_emitted + see[0]
                 self.see_overflow = self.see_overflow + see[1]
         res = ctx.shard_map(partial(self._local_kick, half=half), st, E)
-        return ([r[0] for r in res], rho, phi, E, Diagnostics(
-            kin_energy=res[0][1], pot_energy=pe,
+        return (_column(res, 0), rho, phi, E, Diagnostics(
+            kin_energy=ctx.first(res)[1], pot_energy=pe,
             n_lost=n_out.to(torch.int32)), rho_obj, obj_phi)
 
     def _tiled_step_obj(self, st, rho_obj):
@@ -371,17 +387,20 @@ class ShardedTiledSimulation(TiledSimulation):
     def _rebucket_event(self, st, species) -> torch.Tensor:
         res = self.ctx.shard_map(
             partial(self._local_rebucket, species=tuple(species)), st)
-        return res[0][1]
+        return self.ctx.first(res)[1]
 
     @staticmethod
     def _owned(st, donate: bool):
-        return [TiledSimulation._owned(s, donate) for s in st]
+        return [None if s is None else TiledSimulation._owned(s, donate)
+                for s in st]
 
     # ---------------------------- the global views of the base class's run
     def _retune_sample(self, st):
         """retune()'s sample, every (NT // 64)-th tile of the global tile
         grid, taken from the shards that hold those tiles (its host
-        percentiles see every shard)."""
+        percentiles see every shard; over several processes each fills
+        its shards' tiles and the samples are gathered, so every process
+        derives the same cadences)."""
         gnt, lnt = self.ts.ntiles, self.ts_local.ntiles
         gc = np.unravel_index(np.arange(0, self.ts.NT,
                                         max(1, self.ts.NT // 64)), gnt)
@@ -389,19 +408,44 @@ class ShardedTiledSimulation(TiledSimulation):
                                      self.ctx.n_subdomains)
         local = np.ravel_multi_index(tuple(c % n for c, n in zip(gc, lnt)),
                                      lnt)
-        S, D, _, B = st[0].vel.shape
+        S, D, _, B = self.ctx.first(st).vel.shape
         vel = np.empty((S, D, len(local), B), np.float32)
         alive = np.empty((S, len(local), B), np.float32)
-        for i, s in enumerate(st):
+        for i in self.ctx.local:
+            s = st[i]
             sel = np.flatnonzero(shard == i)
             if sel.size:
                 idx = torch.as_tensor(local[sel], device=s.vel.device)
                 vel[:, :, sel] = s.vel.index_select(2, idx).abs().cpu()
                 alive[:, sel] = s.alive.index_select(1, idx).cpu()
+        if self.ctx.world > 1:
+            owner = np.asarray([self.ctx.owner(int(i)) for i in shard])
+            got = mh.all_gather([torch.from_numpy(vel),
+                                 torch.from_numpy(alive)])
+            for q, (v, a) in enumerate(got):
+                sel = np.flatnonzero(owner == q)
+                vel[:, :, sel] = v.numpy()[:, :, sel]
+                alive[:, sel] = a.numpy()[:, sel]
         return vel, alive > 0.5
 
     def to_particles(self, st):
         return super().to_particles(self._flat_state(st))
+
+    def _writer_particles(self, st):
+        """The population the writer gets: the global one; over several
+        processes the shards' particles (None for another process's),
+        each shard's converted with its tiles' global origins, of which
+        the writer writes this process's."""
+        if self.ctx.world == 1:
+            return self.to_particles(st)
+        org = tl.tile_origins(self.ts_local)
+
+        def convert(stl):
+            off = torch.tensor(subdomain_offset(self.ctx),
+                               dtype=torch.float32)
+            return TiledSimulation.to_particles(
+                self, stl, (org + off).to(stl.lpos.device))   # exact sums
+        return self.ctx.map(convert, st)
 
     def _assert_invariants_tiled(self, st, rho, n: int,
                                  max_vel: float) -> None:
@@ -456,7 +500,8 @@ class ShardedTiledSimulation(TiledSimulation):
         def body(carry, margins):
             st, ep5, pe_prev = carry
             res = ctx.shard_map(particles_part, st, ep5)
-            return (st,) + fields([r[0] for r in res]), (res[0][1], pe_prev)
+            return (st,) + fields(_column(res, 0)), (ctx.first(res)[1],
+                                                      pe_prev)
 
         def run_n(st):
             st = self._owned(st, donate)

@@ -375,13 +375,10 @@ class Simulation:
 
 def default_device() -> torch.device:
     """The CUDA card, where the port's entry points run unless the caller
-    passes ``device="cpu"``.  Raises when there is no card."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA card (torch.cuda.is_available() is false): "
-            "pinc_tpu_torch runs on the card; pass device=\"cpu\" to run "
-            "the kernels' plain PyTorch versions on the CPU")
-    return torch.device("cuda")
+    passes ``device="cpu"`` (under a launcher the card of ``LOCAL_RANK``,
+    ``multihost.local_device``).  Raises when there is no card."""
+    from .utils.multihost import local_device
+    return local_device()
 
 
 def _stack(ke_hist: List[np.ndarray], n_species: int) -> np.ndarray:
@@ -451,7 +448,9 @@ def _mg_mode_factory(cfg: PincConfig):
         msg(STATUS, "mgMode: %.6f s/solve, %d cycles to tol (residual %g), "
             "rms error vs analytic %g", seconds, n_cycles, float(resid), err)
         t.msg()
-        if "files:output" in cfg:
+        from .utils.multihost import is_primary
+        if "files:output" in cfg and is_primary():
+            # the timer file is the primary's (pinc_tpu/simulation.py:436)
             from .io_h5 import XYFile
             timer_xy = XYFile(cfg, "timer")
             timer_xy.create("time")

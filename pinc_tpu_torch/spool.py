@@ -79,9 +79,10 @@ def read_spool(path: str | Path) -> Iterator[Tuple[str, float, np.ndarray]]:
 
 
 def convert(spool_path: str | Path, cfg, n_dims: int,
-            units=None) -> Dict[str, int]:
+            units=None, pop_name: str = "pop") -> Dict[str, int]:
     """Convert a spool file into the standard PINC .h5 layout
-    (grid files per field + pop file)."""
+    (grid files per field + pop file; pop_name: the population file's
+    name, pop.p<idx> for one process of several)."""
     from .io_h5 import GridFile, PopFile
 
     grids: Dict[str, GridFile] = {}
@@ -96,7 +97,7 @@ def convert(spool_path: str | Path, cfg, n_dims: int,
             _, kind, s = name.split("/")
             if pop is None:
                 ns = int(cfg.get_int("population:nspecies"))
-                pop = PopFile(cfg, "pop", ns, pos_denorm=length,
+                pop = PopFile(cfg, pop_name, ns, pos_denorm=length,
                               vel_denorm=velocity)
             ds = f"{kind}/specie {s}/n={float(step):.1f}"
             if ds in pop.f:

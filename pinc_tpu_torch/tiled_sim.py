@@ -473,11 +473,18 @@ class TiledSimulation(Simulation):
         (the sharded class gathers its shards)."""
         return st
 
-    def to_particles(self, st: TiledState) -> Particles:
-        """Convert back to the (cell, frac) layout for IO/diagnostics."""
+    def _writer_particles(self, st: TiledState) -> Particles:
+        """The population as the writer takes it."""
+        return self.to_particles(st)
+
+    def to_particles(self, st: TiledState, origins=None) -> Particles:
+        """Convert back to the (cell, frac) layout for IO/diagnostics.
+        origins: (NT, D) global node of each of st's tiles (default this
+        layout's tile grid)."""
         S, D, NT, B = st.lpos.shape
         gp = torch.stack([tl.global_positions(st.lpos[s].permute(1, 2, 0),
-                                              self.ts) for s in range(S)])
+                                              self.ts, origins)
+                          for s in range(S)])
         gp = gp.reshape(S, NT * B, D)
         cell = torch.floor(gp)
         frac = gp - cell
@@ -941,7 +948,7 @@ class TiledSimulation(Simulation):
         writes."""
         if writer.writes(n):
             writer.write_step(n, StepOutput(
-                self.to_particles(st) if writer.write_pop else None,
+                self._writer_particles(st) if writer.write_pop else None,
                 *fields, diag, rho_obj=rho_obj, obj_potential=obj_phi))
         writer.write_energy(n, ke, pe)
 

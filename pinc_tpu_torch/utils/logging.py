@@ -1,9 +1,9 @@
-"""Logging — the equivalent of PINC's ``msg()``/``fMsg()``
-(``src/io.c:170-248``); a copy of ``pinc_tpu/utils/logging.py`` for one
-process (the port has no multi-process runs yet, so the rank is 0).
+"""Rank-aware logging — the equivalent of PINC's ``msg()``/``fMsg()``
+(``src/io.c:170-248``); a copy of ``pinc_tpu/utils/logging.py``.
 
 Message kinds STATUS/WARNING/ERROR/TIMER; ERROR raises (instead of the
-reference's ``exit(EXIT_FAILURE)``).
+reference's ``exit(EXIT_FAILURE)``).  Over several processes
+(``utils/multihost.py``) only process 0 prints unless ``all_ranks=True``.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ _t0 = time.monotonic()
 
 
 def _proc_index() -> int:
-    return 0
+    from . import multihost
+    return multihost.process_index()
 
 
 class PincError(RuntimeError):

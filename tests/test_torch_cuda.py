@@ -1587,3 +1587,44 @@ def test_sharded_object_step_on_one_card(cuda, layout):
     else:
         assert torch.equal(sim.gather_particles().counts().cpu(),
                            one.particles.counts().cpu())
+
+
+@pytest.mark.cuda
+def test_two_processes_on_one_card_match_one_process(cuda, tmp_path):
+    """Two processes on cuda:0 over gloo (torchrun's environment, a
+    FileStore), one shard each, on input/bench_scaleout.ini at 32^3 a
+    shard: run() and a window from its state equal the single-process
+    mesh over [cuda:0] * 2 (alive and drop counts exactly, the energies
+    and the state within 1e-6 of their maxima)."""
+    import multiprocess_cases as mc
+    procs = mc.spawn(tmp_path / "multi", ["scaleout_card"], device="cuda")
+    ref = mc.scaleout_card_case(tmp_path / "ref")
+    assert mc.join(procs, 600) == [0, 0], [
+        p.read_text() for p in (tmp_path / "multi").glob("error.r*.txt")]
+    assert ref["proc_held"] == 2
+    for r in range(mc.WORLD):
+        got = mc.load(tmp_path / "multi", "scaleout_card", r)
+        assert int(got["proc_held"]) == 1
+        assert int(got["dropped"]) == int(ref["dropped"]) == 0
+        assert int(got["wdropped"]) == int(ref["wdropped"]) == 0
+        np.testing.assert_array_equal(got["alive"], ref["alive"])
+        for k in ("ke", "pe", "wke", "wpe", "lpos", "vel"):
+            want = np.asarray(ref[k])
+            np.testing.assert_allclose(got[k], want, rtol=0,
+                                       atol=1e-6 * np.abs(want).max(),
+                                       err_msg=k)
+
+
+@pytest.mark.cuda
+def test_nccl_on_a_shared_card_raises(cuda, monkeypatch):
+    """More ranks on a host than cards: asking for nccl raises, naming
+    gloo, before any process group is made."""
+    from pinc_tpu_torch.utils import multihost as mh
+    n = torch.cuda.device_count()
+    monkeypatch.setenv("WORLD_SIZE", str(n + 1))
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(n + 1))
+    with pytest.raises(ValueError, match="gloo"):
+        mh.init(backend="nccl")
+    assert mh.process_count() == 1 and mh.backend() is None
