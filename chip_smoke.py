@@ -245,6 +245,21 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    card host has no h5py: the output files and checkpoints over
    processes are checked by the CPU tests only
    (tests/test_torch_multiprocess.py).
+13. The repo's framework and verification tools, ported
+   (check_verification): 13.1 verification.dispersion at its defaults
+   (600 steps; modes 1-2 within 15% of Bohm-Gross), 13.2
+   verification.pumode all (the tool's orders), 13.3 script.validate at
+   200 steps (VALIDATION PASS: its exchange check's five combinations, each
+   on its route by the launch counts, then the 128^3 deck at 16 per cell),
+   13.4 cbaseline.drift, 4 chunks of 50 steps with retune() between
+   (nothing lost or dropped, E(1) within 0.2% of the C reference's
+   7.66067e8, |total drift| <= 0.2%; the 10k-step run is the tool's own),
+   13.5 verification.sweep dt --inproc (every drift finite), 13.6
+   script.framework.mg_optimizing on maxwellian.ini at 32^3 on one shard,
+   one round (the best setting solved to the tolerance, its rms error
+   within 2.5 times the deck's own setting's), 13.7
+   Pinc(langmuirCold1D.ini).getnp() and .run() and pinc_tpu_torch/mpinc.sh
+   on the same deck, in child processes (rc 0).
 
 Every phase that fails exits non-zero.  Without a CUDA card the script
 exits non-zero before printing any result.  The line before the last is a
@@ -255,7 +270,8 @@ pic_step, efield_tiles and fold_global the headline scan window of phase
 5, plus phase 11.1's launches (both shards, run() and its two windows)
 for deposit, gather, gather_kick and the gather exchange's kernels, plus
 phase 12's (both processes: 12.1's run() and windows, 12.2, 12.4) for
-K1-K5 and K8-K11, for the kbench kernels (one row a mode) and the four
+K1-K5 and K8-K11, plus phase 13's (13.3, 13.4) for K1, K5-K11, for the
+kbench kernels (one row a mode) and the four
 primitives phase
 6's benchmark run; max error against the plain version; kernel and plain
 ms; bound_ms: the bytes the call must move at 3.35 TB/s, or its
@@ -4521,6 +4537,221 @@ def check_multiprocess(modules, card: str) -> dict:
     return launches
 
 
+# -- phase 13: the framework and verification tools on the card ---------------
+
+C_E1 = 7.66067e8            # the C reference's E(1), PARITY.md:51
+DRIFT_E1_RTOL = 0.002       # E(1) within 0.2% of it (4.19 M particles)
+DRIFT_TOTAL = 0.002         # |total drift| over 13.4's steps
+# 13.4's depth: the deck solves by multigrid (langmuirCold.ini's mgSolver),
+# which runs its 15-cycle cap every step, eager and host-bound: ~0.3 s a
+# step on the card, so the protocol's 10k steps (and 2,000) do not fit the
+# run's time; 13.4 takes 4 chunks of 50 with retune() between, and the
+# 10k-step run is the tool's own (python -m pinc_tpu_torch.cbaseline.drift)
+DRIFT_STEPS = 200
+DRIFT_CHUNK = 50
+VALIDATE_STEPS = 200        # script/validate_tpu.py's default
+SWEEP_STEPS = 100           # verification/sweep.py's default
+# 13.6: maxwellian.ini's tolerance is on the residual (the multigrid's
+# default, 5e-6; a solve that meets it stops before the 15-cycle cap), none
+# on the error against the analytic phi, which a solve to the tolerance
+# takes to the discretization error (9.8e-3 of an rms phi of 3.06).  The
+# gate: the best setting solved to the tolerance (fewer cycles than the
+# cap), its error within MG_OPT_FACTOR times the deck's own setting's
+MG_OPT_FACTOR = 2.5
+FRAMEWORK_STEPS = 20        # 13.7
+
+
+def p13_counts(modules, launches: dict) -> dict:
+    """This sub-phase's launches (since the last reset) added into
+    ``launches``; returns them."""
+    got = {k: v for m in modules for k, v in m.LAUNCHES.items() if v}
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    return got
+
+
+def p13_reset(modules) -> None:
+    for m in modules:
+        m.reset_launches()
+
+
+def check_verification(modules, card: str) -> dict:
+    """Phase 13: the repo's framework and verification tools, ported
+    (pinc_tpu_torch/verification, script, cbaseline, mpinc.sh), each run
+    on the card through its Python entry as its CLI runs it, each with its
+    own PASS/FAIL rule.  Returns the kernels' launches over the phase."""
+    import numpy as np
+    import torch
+    from pinc_tpu_torch.cbaseline import drift
+    from pinc_tpu_torch.script import validate
+    from pinc_tpu_torch.script.framework import mg_optimizing
+    from pinc_tpu_torch.script.framework.pinc import Pinc
+    from pinc_tpu_torch.verification import dispersion, pumode, sweep
+
+    dev = torch.device("cuda", 0)
+    here = os.path.dirname(os.path.abspath(__file__))
+    launches: dict = {}
+    t_phase = time.monotonic()
+
+    # 13.1: the warm 1-D deck's dispersion at its defaults (600 steps)
+    t0 = time.monotonic()
+    errs = dispersion.main([], device=dev)
+    wall = time.monotonic() - t0
+    check(dispersion.passed(errs),
+          f"phase 13.1 dispersion: modes 1-2 off Bohm-Gross by {errs[:2]} "
+          f"(limit {dispersion.TOLERANCE})")
+    print(f"phase 13.1 dispersion (600 steps, phi fetched every step): "
+          f"PASS, relative errors of modes 1-4 "
+          f"{[round(float(e), 6) for e in errs]}; {wall:.1f} s ({card})",
+          flush=True)
+
+    # 13.2: the convergence orders
+    t0 = time.monotonic()
+    check(pumode.main(["all"], device=dev) == 0,
+          "phase 13.2 pumode all: FAIL")
+    print(f"phase 13.2 pumode all: PASS; {time.monotonic() - t0:.1f} s "
+          f"({card})", flush=True)
+
+    # 13.3: the validation run: the exchange check, then 200 steps of the
+    # 128^3 deck at 16 per cell
+    p13_reset(modules)
+    res = validate.validate(VALIDATE_STEPS, device=dev)
+    torch.cuda.synchronize()
+    got = p13_counts(modules, launches)
+    k11 = sum(got.get(k, 0) for k in ("onehot_extract_rows",
+                                      "onehot_extract_tile",
+                                      "onehot_cleanup", "onehot_merge_rows",
+                                      "onehot_merge_tile"))
+    check(res["ok"], f"phase 13.3 validate: VALIDATION FAIL {res}")
+    check(all(got.get(k, 0) > 0 for k in ("extract", "cleanup", "merge",
+                                          "onehot_extract_tile",
+                                          "onehot_extract_rows",
+                                          "onehot_cleanup",
+                                          "onehot_merge_rows",
+                                          "onehot_merge_tile", "pic_step",
+                                          "efield_tiles", "fold_global",
+                                          "deposit"))
+          and got.get("pic_step", 0) >= VALIDATE_STEPS,
+          f"phase 13.3 validate: launches {got}")
+    print(f"phase 13.3 validate: VALIDATION PASS; the exchange check's five "
+          f"combinations each on its route; {res['n0']:,} particles, "
+          f"{res['steps']} steps in {res['wall']:.2f} s "
+          f"({res['psteps']:.4e} particle-steps/s; set-up "
+          f"{res['setup']:.1f} s), cadences {res['cadences']}, dropped "
+          f"{res['dropped']}, mean |dE/E| re-bucket steps "
+          f"{res['rb_mean']:.4e} vs others {res['other_mean']:.4e}; "
+          f"launches K8-K10 {got.get('extract', 0)}/{got.get('cleanup', 0)}"
+          f"/{got.get('merge', 0)}, K11 {k11}, K5 {got.get('pic_step', 0)}; "
+          f"{got} ({card})", flush=True)
+    torch.cuda.empty_cache()
+
+    # 13.4: the drift protocol on the C reference's deck
+    p13_reset(modules)
+    t0 = time.monotonic()
+    sim = drift.make_sim(DRIFT_STEPS, device=dev)
+    setup = time.monotonic() - t0
+    res = drift.run_chunks(sim, DRIFT_STEPS, DRIFT_CHUNK,
+                           log=lambda text: None)
+    torch.cuda.synchronize()
+    got = p13_counts(modules, launches)
+    e1_rel = res["e1"] / C_E1 - 1.0
+    print(f"phase 13.4 drift ({DRIFT_STEPS} steps in chunks of "
+          f"{DRIFT_CHUNK}, retune between): E(1) {res['e1']:.6e} "
+          f"({e1_rel * 100:+.4f}% of the C reference's {C_E1:.5e}), total "
+          f"drift {res['total'] * 100:+.5f}%, plateau "
+          f"{res['plateau_per_1k'] * 100:+.5f}%/1k steps over the last "
+          f"{res['plateau_steps']}; particles {res['n0']:,} -> "
+          f"{res['n1']:,}, dropped {res['dropped']}; {res['wall']:.1f} s "
+          f"({res['psteps']:.4e} particle-steps/s; set-up {setup:.1f} s), "
+          f"cadences {sim.rebucket_every_s}; launches {got} ({card})",
+          flush=True)
+    check(res["n1"] == res["n0"] and res["dropped"] == 0,
+          "phase 13.4 drift: particles lost or dropped")
+    check(abs(e1_rel) <= DRIFT_E1_RTOL and abs(res["total"]) <= DRIFT_TOTAL
+          and np.isfinite(res["tot"]).all(),
+          f"phase 13.4 drift: E(1) off by {e1_rel:+.3e} (limit "
+          f"{DRIFT_E1_RTOL}) or total drift {res['total']:+.3e} (limit "
+          f"{DRIFT_TOTAL})")
+    del sim
+    torch.cuda.empty_cache()
+
+    # 13.5: the energy sweep over timeStep, in process
+    t0 = time.monotonic()
+    values, drifts = sweep.main(["dt", "--inproc", "--steps",
+                                 str(SWEEP_STEPS)], device=dev)
+    check(len(drifts) == 4 and all(np.isfinite(drifts)),
+          f"phase 13.5 sweep: drifts {drifts}")
+    print(f"phase 13.5 sweep dt --inproc ({SWEEP_STEPS} steps): "
+          + ", ".join(f"dt={v}: {d:.4e}" for v, d in zip(values, drifts))
+          + f"; {time.monotonic() - t0:.1f} s ({card})", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 13.6: the multigrid search on maxwellian.ini at 32^3, one shard
+        deck = deck_path("maxwellian.ini", tmp, output=False)
+        out = os.path.join(tmp, "mg.json")
+        t0 = time.monotonic()
+        check(mg_optimizing.main([deck, "--rounds", "1", "--json", out,
+                                  "grid:nSubdomains=1,1,1",
+                                  "grid:trueSize=32,32,32"],
+                                 device=dev) == 0,
+              "phase 13.6 mg_optimizing failed")
+        with open(out) as f:
+            mg = json.load(f)
+        hist = mg["history"]
+        best = next(h for h in hist if all(h[k] == v for k, v in
+                                           mg["best"].items()))
+        base_err = hist[0]["rms_error"]
+        cap = 15                                 # maxwellian.ini mgCycles
+        check(all(np.isfinite(h["rms_error"]) and 1 <= h["cycles"] <= cap
+                  for h in hist)
+              and best["cycles"] < cap
+              and best["rms_error"] <= base_err * MG_OPT_FACTOR,
+              f"phase 13.6 mg_optimizing: the best setting's {best['cycles']}"
+              f" cycles (cap {cap}) and rms error {best['rms_error']} "
+              f"against the deck's setting's {base_err} (limit "
+              f"{MG_OPT_FACTOR} times), or a setting's error or cycles out "
+              f"of range: {hist}")
+        ladder = sorted(hist, key=lambda h: h["seconds"])
+        capped = sum(h["cycles"] >= cap for h in hist)
+        print(f"phase 13.6 mg_optimizing (maxwellian.ini, 32^3, one shard, "
+              f"1 round, {len(hist)} settings): best {mg['best']} "
+              f"{mg['seconds'] * 1e3:.4f} ms/solve, {best['cycles']} "
+              f"cycles, "
+              f"rms error {best['rms_error']:.5e} (the deck's "
+              f"setting {hist[0]['seconds'] * 1e3:.4f} ms, "
+              f"{hist[0]['cycles']} cycles, {base_err:.5e}); {capped} "
+              f"settings ran to the cycle cap; fastest five "
+              + "; ".join(f"{h['n_pre']}/{h['n_post']}/{h['n_coarse']}/"
+                          f"{h['levels']} {h['seconds'] * 1e3:.4f} ms"
+                          for h in ladder[:5])
+              + f"; {time.monotonic() - t0:.1f} s ({card})", flush=True)
+
+        # 13.7: the Pinc framework and the launcher, subprocesses on the
+        # card
+        deck = deck_path("langmuirCold1D.ini", tmp, output=False)
+        t0 = time.monotonic()
+        run = Pinc(deck, {"time:nTimeSteps": FRAMEWORK_STEPS})
+        n_dev = run.getnp()
+        rc = run.run(check=False).returncode
+        check(n_dev == 1 and rc == 0,
+              f"phase 13.7 Pinc: getnp {n_dev}, run rc {rc}")
+        proc = subprocess.run(
+            ["bash", os.path.join(here, "pinc_tpu_torch", "mpinc.sh"), deck,
+             f"time:nTimeSteps={FRAMEWORK_STEPS}"],
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0
+              and "deck requests 1 device(s)" in proc.stderr
+              and "PINC-TPU-torch finished" in proc.stderr + proc.stdout,
+              f"phase 13.7 mpinc.sh: rc {proc.returncode}; "
+              f"{proc.stderr[-2000:]}")
+        print(f"phase 13.7 Pinc(langmuirCold1D.ini, {FRAMEWORK_STEPS} steps)"
+              f".getnp() {n_dev}, .run() rc {rc}; pinc_tpu_torch/mpinc.sh "
+              f"rc {proc.returncode} ('deck requests 1 device(s)'); "
+              f"{time.monotonic() - t0:.1f} s ({card})", flush=True)
+    print(f"phase 13: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4871,6 +5102,12 @@ def main() -> int:
     # -- phase 12: runs over several processes on the one card ------------
     # the processes' launches of K1-K5 and K8-K11 count on the path too
     for name, n in check_multiprocess(modules, card).items():
+        launches[name] = launches.get(name, 0) + n
+
+    # -- phase 13: the framework and verification tools -------------------
+    # K1, K5-K11 run on its path (13.3's exchange check and window, 13.4's
+    # windows): their rows count its launches too
+    for name, n in check_verification(modules, card).items():
         launches[name] = launches.get(name, 0) + n
 
     rows = [{"name": name, "route": "cuda",
