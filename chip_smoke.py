@@ -251,9 +251,12 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    verification.pumode all (the tool's orders), 13.3 script.validate at
    200 steps (VALIDATION PASS: its exchange check's five combinations, each
    on its route by the launch counts, then the 128^3 deck at 16 per cell),
-   13.4 cbaseline.drift, 4 chunks of 50 steps with retune() between
-   (nothing lost or dropped, E(1) within 0.2% of the C reference's
-   7.66067e8, |total drift| <= 0.2%; the 10k-step run is the tool's own),
+   13.4 cbaseline.drift, 4 chunks of 50 steps with retune() between, on
+   the mega scan body (K5) and then on the in-step fused body
+   (tiles:mega=false: K2, K4), each on its route by its launches and held
+   to the same gates (nothing lost or dropped, E(1) within 0.2% of the C
+   reference's 7.66067e8, |total drift| <= 0.2%; the 10k-step run is the
+   tool's own),
    13.5 verification.sweep dt --inproc (every drift finite), 13.6
    script.framework.mg_optimizing on maxwellian.ini at 32^3 on one shard,
    one round (the best setting solved to the tolerance, its rms error
@@ -270,7 +273,7 @@ pic_step, efield_tiles and fold_global the headline scan window of phase
 5, plus phase 11.1's launches (both shards, run() and its two windows)
 for deposit, gather, gather_kick and the gather exchange's kernels, plus
 phase 12's (both processes: 12.1's run() and windows, 12.2, 12.4) for
-K1-K5 and K8-K11, plus phase 13's (13.3, 13.4) for K1, K5-K11, for the
+K1-K5 and K8-K11, plus phase 13's (13.3, 13.4) for K1, K2, K4-K11, for the
 kbench kernels (one row a mode) and the four
 primitives phase
 6's benchmark run; max error against the plain version; kernel and plain
@@ -4545,8 +4548,9 @@ DRIFT_TOTAL = 0.002         # |total drift| over 13.4's steps
 # 13.4's depth: the deck solves by multigrid (langmuirCold.ini's mgSolver),
 # which runs its 15-cycle cap every step, eager and host-bound: ~0.3 s a
 # step on the card, so the protocol's 10k steps (and 2,000) do not fit the
-# run's time; 13.4 takes 4 chunks of 50 with retune() between, and the
-# 10k-step run is the tool's own (python -m pinc_tpu_torch.cbaseline.drift)
+# run's time; 13.4 takes 4 chunks of 50 with retune() between on each of
+# the two scan bodies (64-87 s each), and the 10k-step run is the tool's
+# own (python -m pinc_tpu_torch.cbaseline.drift)
 DRIFT_STEPS = 200
 DRIFT_CHUNK = 50
 VALIDATE_STEPS = 200        # script/validate_tpu.py's default
@@ -4645,35 +4649,49 @@ def check_verification(modules, card: str) -> dict:
           f"{got} ({card})", flush=True)
     torch.cuda.empty_cache()
 
-    # 13.4: the drift protocol on the C reference's deck
-    p13_reset(modules)
-    t0 = time.monotonic()
-    sim = drift.make_sim(DRIFT_STEPS, device=dev)
-    setup = time.monotonic() - t0
-    res = drift.run_chunks(sim, DRIFT_STEPS, DRIFT_CHUNK,
-                           log=lambda text: None)
-    torch.cuda.synchronize()
-    got = p13_counts(modules, launches)
-    e1_rel = res["e1"] / C_E1 - 1.0
-    print(f"phase 13.4 drift ({DRIFT_STEPS} steps in chunks of "
-          f"{DRIFT_CHUNK}, retune between): E(1) {res['e1']:.6e} "
-          f"({e1_rel * 100:+.4f}% of the C reference's {C_E1:.5e}), total "
-          f"drift {res['total'] * 100:+.5f}%, plateau "
-          f"{res['plateau_per_1k'] * 100:+.5f}%/1k steps over the last "
-          f"{res['plateau_steps']}; particles {res['n0']:,} -> "
-          f"{res['n1']:,}, dropped {res['dropped']}; {res['wall']:.1f} s "
-          f"({res['psteps']:.4e} particle-steps/s; set-up {setup:.1f} s), "
-          f"cadences {sim.rebucket_every_s}; launches {got} ({card})",
-          flush=True)
-    check(res["n1"] == res["n0"] and res["dropped"] == 0,
-          "phase 13.4 drift: particles lost or dropped")
-    check(abs(e1_rel) <= DRIFT_E1_RTOL and abs(res["total"]) <= DRIFT_TOTAL
-          and np.isfinite(res["tot"]).all(),
-          f"phase 13.4 drift: E(1) off by {e1_rel:+.3e} (limit "
-          f"{DRIFT_E1_RTOL}) or total drift {res['total']:+.3e} (limit "
-          f"{DRIFT_TOTAL})")
-    del sim
-    torch.cuda.empty_cache()
+    # 13.4: the drift protocol on the C reference's deck, on the mega scan
+    # body (the tool's default: K5) and on the in-step fused body
+    # (tiles:mega=false: K2, K4), each held to the same gates; the mega
+    # body's E(1) is the initial state's energy, the in-step body's the
+    # first step's (the mega series is the in-step one a slot later)
+    for body, extra, kernels in (
+            ("mega", (), ("pic_step", "efield_tiles")),
+            ("in-step", ("tiles:mega=false",),
+             ("deposit_move", "gather_kick"))):
+        p13_reset(modules)
+        t0 = time.monotonic()
+        sim = drift.make_sim(DRIFT_STEPS, device=dev, extra=extra)
+        setup = time.monotonic() - t0
+        res = drift.run_chunks(sim, DRIFT_STEPS, DRIFT_CHUNK,
+                               log=lambda text: None)
+        torch.cuda.synchronize()
+        got = p13_counts(modules, launches)
+        e1_rel = res["e1"] / C_E1 - 1.0
+        print(f"phase 13.4 drift, {body} body ({DRIFT_STEPS} steps in "
+              f"chunks of {DRIFT_CHUNK}, retune between): E(1) "
+              f"{res['e1']:.6e} ({e1_rel * 100:+.4f}% of the C reference's "
+              f"{C_E1:.5e}), total drift {res['total'] * 100:+.5f}%, "
+              f"plateau {res['plateau_per_1k'] * 100:+.5f}%/1k steps over "
+              f"the last {res['plateau_steps']}; particles "
+              f"{res['n0']:,} -> {res['n1']:,}, dropped {res['dropped']}; "
+              f"{res['wall']:.1f} s ({res['psteps']:.4e} particle-steps/s; "
+              f"set-up {setup:.1f} s), cadences {sim.rebucket_every_s}; "
+              f"launches {got} ({card})", flush=True)
+        check(sim._use_mega == (body == "mega")
+              and all(got.get(k, 0) >= DRIFT_STEPS
+                      for k in kernels + ("extract", "merge")),
+              f"phase 13.4 drift, {body} body: not on its route, launches "
+              f"{got}")
+        check(res["n1"] == res["n0"] and res["dropped"] == 0,
+              f"phase 13.4 drift, {body} body: particles lost or dropped")
+        check(abs(e1_rel) <= DRIFT_E1_RTOL
+              and abs(res["total"]) <= DRIFT_TOTAL
+              and np.isfinite(res["tot"]).all(),
+              f"phase 13.4 drift, {body} body: E(1) off by {e1_rel:+.3e} "
+              f"(limit {DRIFT_E1_RTOL}) or total drift "
+              f"{res['total']:+.3e} (limit {DRIFT_TOTAL})")
+        del sim
+        torch.cuda.empty_cache()
 
     # 13.5: the energy sweep over timeStep, in process
     t0 = time.monotonic()
