@@ -1,0 +1,8 @@
+"""Device kernels of every kind in the traced window, per traced step.
+The run() cells' copy, which moves psteps_per_s.run."""
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.trace.steps:
+        return None
+    return ctx.trace.n_kernels / ctx.trace.steps
