@@ -56,6 +56,7 @@ import torch
 from .config import PincConfig
 from .population import Particles, SpeciesParams
 from .utils.logging import STATUS, msg
+from .utils.timer import span
 
 
 def find_interior(domain: np.ndarray, n_objects: int) -> np.ndarray:
@@ -192,8 +193,9 @@ def cosine_directions(n: torch.Tensor, u1: torch.Tensor,
 
 def _cell_of(x: torch.Tensor, L) -> torch.Tensor:
     """The wrapped, clipped cell (..., D) int64 of positions x."""
-    Lf = torch.tensor(L, dtype=x.dtype, device=x.device)
-    Li = torch.tensor(L, dtype=torch.int64, device=x.device)
+    with span("pinc.sync.cell_of"):
+        Lf = torch.tensor(L, dtype=x.dtype, device=x.device)
+        Li = torch.tensor(L, dtype=torch.int64, device=x.device)
     c = torch.floor(torch.remainder(x, Lf)).to(torch.int64)
     return torch.minimum(torch.clamp(c, min=0), Li - 1)
 
@@ -338,25 +340,26 @@ class ObjectSystem:
         for a in range(n_objects):
             interior_id[interior[a]] = a + 1
 
-        setup = {"solve_s": 0.0, "matrix_s": 0.0, "invert_s": 0.0,
-                 "cycles": []}
-        surface_idx, inv_cap, cap_sum = [], [], []
-        for a in range(n_objects):
-            idx = np.flatnonzero(surface[a].ravel())
-            ns = len(idx)
-            msg(STATUS, "object %d: %d interior nodes, %d surface nodes",
-                a, int(interior[a].sum()), ns)
-            if ns == 0:
-                raise ValueError(f"object {a} has no surface nodes")
-            A = cls._potential_matrix(idx, shape, solver, dtype, periodic,
-                                      batch, device=device, setup=setup)
-            t0 = time.monotonic()
-            C = np.linalg.inv(A.astype(np.float64))
-            setup["invert_s"] += time.monotonic() - t0
-            surface_idx.append(idx)
-            inv_cap.append(torch.as_tensor(C.astype(np.float32),
-                                           device=device))
-            cap_sum.append(1.0 / float(C.sum()))
+        with span("pinc.setup.objects"):
+            setup = {"solve_s": 0.0, "matrix_s": 0.0, "invert_s": 0.0,
+                     "cycles": []}
+            surface_idx, inv_cap, cap_sum = [], [], []
+            for a in range(n_objects):
+                idx = np.flatnonzero(surface[a].ravel())
+                ns = len(idx)
+                msg(STATUS, "object %d: %d interior nodes, %d surface nodes",
+                    a, int(interior[a].sum()), ns)
+                if ns == 0:
+                    raise ValueError(f"object {a} has no surface nodes")
+                A = cls._potential_matrix(idx, shape, solver, dtype, periodic,
+                                          batch, device=device, setup=setup)
+                t0 = time.monotonic()
+                C = np.linalg.inv(A.astype(np.float64))
+                setup["invert_s"] += time.monotonic() - t0
+                surface_idx.append(idx)
+                inv_cap.append(torch.as_tensor(C.astype(np.float32),
+                                               device=device))
+                cap_sum.append(1.0 / float(C.sum()))
         norm = (torch.as_tensor(surface_normals(interior_id > 0),
                                 device=device)
                 if any(m != "absorb" for m in collision_types) else None)

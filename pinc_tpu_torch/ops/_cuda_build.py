@@ -27,6 +27,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..utils.timer import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -182,10 +184,11 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     global _lib
     with _LOAD_LOCK:
         if _lib is None:
-            lib = ctypes.CDLL(str(build(verbose=verbose)))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            with span("pinc.setup.build"):
+                lib = ctypes.CDLL(str(build(verbose=verbose)))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _lib = lib
     return _lib

@@ -63,6 +63,7 @@ from ..simulation import Diagnostics
 from ..tiled_sim import TiledSimulation, TiledState, _stack_outs
 from ..utils import multihost as mh
 from ..utils.logging import STATUS, msg
+from ..utils.timer import count, span
 from .halo import shifted_tiles
 from .mesh import current_shard, make_mesh, subdomain_offset
 from .pic import _column, object_copies, solve_fields, solve_object_fields
@@ -382,9 +383,12 @@ class ShardedTiledSimulation(TiledSimulation):
 
     def _rebucket(self, st, species=None):
         species = range(len(self._charge)) if species is None else species
-        return st, int(self._rebucket_event(st, species))
+        d = self._rebucket_event(st, species)
+        with span("pinc.sync.drops"):
+            return st, int(d)
 
     def _rebucket_event(self, st, species) -> torch.Tensor:
+        count("pinc.rebuckets", len(species))
         res = self.ctx.shard_map(
             partial(self._local_rebucket, species=tuple(species)), st)
         return self.ctx.first(res)[1]

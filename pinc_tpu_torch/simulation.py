@@ -28,6 +28,7 @@ from .population import Particles, initialize_auto
 from .registry import ACCELERATORS, DISTRIBUTORS, MIGRATORS, RUN_MODES, SOLVERS
 from .units import Units, alloc_and_normalize
 from .utils.logging import ERROR, STATUS, TIMER, WARNING, msg
+from .utils.timer import span
 from .ops import pusher as _pusher_ops
 from .solvers import spectral as _spectral      # noqa: F401 (registry)
 from .solvers import multigrid as _multigrid    # noqa: F401 (registry)
@@ -190,9 +191,11 @@ class Simulation:
         """rho += rho_obj, solve, the capacitance correction, solve again
         (src/main.c:222-240).  Returns (rho, phi, E, phi_c per object)."""
         rho = rho + rho_obj
-        phi = self.solver(rho)
+        with span("pinc.solve"):
+            phi = self.solver(rho)
         rho, obj_phi = self.objects.apply_capacitance(rho, phi)
-        phi = self.solver(rho)          # 2nd solve (src/main.c:240)
+        with span("pinc.solve"):
+            phi = self.solver(rho)      # 2nd solve (src/main.c:240)
         return rho, phi, self._efield(phi), obj_phi
 
     def _step(self, particles: Particles,

@@ -92,6 +92,7 @@ from .ops import tiled_kernels as tk
 from .population import Particles
 from .simulation import Diagnostics, Simulation, StepOutput, _stack
 from .utils.logging import ERROR, STATUS, TIMER, WARNING, msg
+from .utils.timer import count, count_device, span, spanned
 
 
 @dataclass
@@ -295,6 +296,7 @@ class TiledSimulation(Simulation):
                 "exchange_rows": self._exchange_rows}
 
     # ------------------------------------------------------------- layout
+    @spanned("pinc.retune")
     def retune(self, st: Optional[TiledState] = None, drops: int = 0) -> bool:
         """Re-estimate the per-species velocity scales from the current
         state and refresh the re-bucket cadences and the exchange face cap
@@ -303,7 +305,8 @@ class TiledSimulation(Simulation):
         face cap 1.5x, and the per-row gate is evaluated again under the
         new cap.  Returns True if anything changed."""
         st = self.state if st is None else st
-        vel_np, alive_np = self._retune_sample(st)
+        with span("pinc.sync.retune_sample"):
+            vel_np, alive_np = self._retune_sample(st)
         S, D = vel_np.shape[:2]
         M = self.ts.M
         v_s = [0.0] * S
@@ -349,6 +352,8 @@ class TiledSimulation(Simulation):
                 msg(STATUS, "retune: per-row exchange %s",
                     "enabled" if rows else "disabled (cap outgrew rows)")
                 self._exchange_rows = rows
+        if changed:
+            count("pinc.retunes_changed")
         return changed
 
     def _retune_sample(self, st: TiledState):
@@ -382,6 +387,7 @@ class TiledSimulation(Simulation):
                           vel=torch.zeros((S, D, NT, B), **z),
                           alive=torch.zeros((S, NT, B), **z))
 
+    @spanned("pinc.setup.bucket")
     def _bucket_all(self, p: Particles) -> TiledState:
         """Initial bucketing of the flat particles, one species at a time
         into the preallocated state (in place, to bound the peak)."""
@@ -395,6 +401,7 @@ class TiledSimulation(Simulation):
             st.alive[s] = la.float()
         return st
 
+    @spanned("pinc.setup.bucket")
     def _bucket_all_generate(self, seed: int) -> TiledState:
         """Per-species generate -> bucket -> free on the device: the flat
         (S, cap, D) arrays never coexist with the tiled state, and only
@@ -419,6 +426,7 @@ class TiledSimulation(Simulation):
             del v, tid
         return st
 
+    @spanned("pinc.rebucket")
     def _rebucket_one(self, lpos_s, vel_s, alive_s, ntiles=None,
                       roll_fns=None) -> torch.Tensor:
         """Re-bucket one species in place: lpos_s, vel_s (D, NT, B) and
@@ -453,15 +461,18 @@ class TiledSimulation(Simulation):
                   species=None) -> Tuple[TiledState, int]:
         """Re-bucket the given species (default: all), in place."""
         species = range(st.lpos.shape[0]) if species is None else species
+        count("pinc.rebuckets", len(species))
         dropped = 0
         for s in species:
-            dropped += int(self._rebucket_one(st.lpos[s], st.vel[s],
-                                              st.alive[s]))
+            d = self._rebucket_one(st.lpos[s], st.vel[s], st.alive[s])
+            with span("pinc.sync.drops"):
+                dropped += int(d)
         return st, dropped
 
     def _rebucket_event(self, st: TiledState, species) -> torch.Tensor:
         """A window's re-bucket event: the listed species in place; the
         drops as a 0-d tensor on the device."""
+        count("pinc.rebuckets", len(species))
         dropped = torch.zeros((), dtype=torch.int64, device=self.device)
         for s in species:
             dropped = dropped + self._rebucket_one(st.lpos[s], st.vel[s],
@@ -510,9 +521,9 @@ class TiledSimulation(Simulation):
             return rho.to(self.spec.dtype)
         tiles = None
         for s in range(st.lpos.shape[0]):
-            value = torch.where(st.alive[s] != 0,
-                                torch.tensor(self._charge[s],
-                                             device=self.device),
+            with span("pinc.sync.charge"):
+                q = torch.tensor(self._charge[s], device=self.device)
+            value = torch.where(st.alive[s] != 0, q,
                                 torch.zeros((), device=self.device))
             t = tk.deposit(st.lpos[s], value, self.ts,
                            mxu_dtype=self._mxu_dtype, order=self._distr_order,
@@ -522,7 +533,8 @@ class TiledSimulation(Simulation):
 
     def _fields(self, st: TiledState):
         rho = self._deposit_rho(st)
-        phi = self.solver(rho)
+        with span("pinc.solve"):
+            phi = self.solver(rho)
         return rho, phi, self._efield(phi)
 
     def _field_tiles(self, E: torch.Tensor) -> torch.Tensor:
@@ -651,7 +663,8 @@ class TiledSimulation(Simulation):
             n_out = n_o if n_out is None else n_out + n_o
         rho = fk.fold_global(tiles, self.ts).to(self.spec.dtype)
         del tiles
-        phi = self.solver(rho)
+        with span("pinc.solve"):
+            phi = self.solver(rho)
         E = self._efield(phi)
         ep5 = self._field_tiles(E)
         vels, kes = [], []
@@ -711,8 +724,9 @@ class TiledSimulation(Simulation):
     def _global_planes(self, lp: torch.Tensor, origins: torch.Tensor):
         """Tile-local planes (D, NTo, B) -> wrapped global positions
         (NTo, B, D)."""
-        Lf = torch.tensor(self.ts.grid, dtype=torch.float32,
-                          device=lp.device)
+        with span("pinc.sync.global_planes"):
+            Lf = torch.tensor(self.ts.grid, dtype=torch.float32,
+                              device=lp.device)
         g = torch.remainder(lp + origins.T[:, :, None], Lf[:, None, None])
         return g.movedim(0, -1)
 
@@ -830,6 +844,7 @@ class TiledSimulation(Simulation):
                 torch.where(ok, oid, 0), ok.float())
         return lp_t[..., :B], vl_t[..., :B], al_t[..., :B], n_emit, n_over
 
+    @spanned("pinc.objects")
     def _absorb(self, st: TiledState, collide: bool = True):
         """_absorb_tiles on this layout's near-object tiles, the emitted
         and unplaced secondaries added to see_emitted and see_overflow.
@@ -984,43 +999,48 @@ class TiledSimulation(Simulation):
         debug = self.cfg.get_bool("methods:debug", False)
         max_vel = self.cfg.get_double("population:maxvel", 0.0)
         for n in range(self.start_step + 1, self.n_time_steps + 1):
-            t0 = time.monotonic()
-            if objects:
-                (st, rho, phi, E, diag, rho_obj,
-                 obj_phi) = self._tiled_step_obj(st, rho_obj)
-            else:
-                st, rho, phi, E, diag = self._tiled_step(st)
-            due = [s for s, R in enumerate(self.rebucket_every_s)
-                   if n % R == 0]
-            lost = int(diag.n_lost)
-            if lost:
-                msg(WARNING, "step %d: %d particle(s) reached the tile "
-                    "margin; re-bucketing early", n, lost)
-                due = list(range(len(self._charge)))
-                total_lost += lost
-            dropped = 0
-            if due:
-                st, dropped = self._rebucket(st, species=due)
-                if dropped:
-                    msg(WARNING, "step %d: %d particle(s) dropped by bucket "
-                        "overflow (raise tiles:slack)", n, dropped)
-                    total_dropped += dropped
-                if dropped or lost:
-                    self.retune(st, drops=dropped)
-            ke = diag.kin_energy.cpu().numpy()
-            pe = float(diag.pot_energy)
-            ke_hist.append(ke)
-            pe_hist.append(pe)
-            if writer is not None:
-                self._write(writer, n, st, (rho, phi, E), diag, ke, pe,
-                            rho_obj, obj_phi)
-            if debug:
-                self._assert_invariants_tiled(st, rho, n, max_vel)
-            if self.checkpoint_every and n % self.checkpoint_every == 0:
-                from . import checkpoint as _ckpt
-                _ckpt.save_tiled(self.cfg, n, self._flat_state(st),
-                                 self.tuning(), rho_obj)
-            step_seconds.append(time.monotonic() - t0)
+            with span("pinc.step"):
+                t0 = time.monotonic()
+                if objects:
+                    (st, rho, phi, E, diag, rho_obj,
+                     obj_phi) = self._tiled_step_obj(st, rho_obj)
+                else:
+                    st, rho, phi, E, diag = self._tiled_step(st)
+                due = [s for s, R in enumerate(self.rebucket_every_s)
+                       if n % R == 0]
+                with span("pinc.sync.margin"):
+                    lost = int(diag.n_lost)
+                if lost:
+                    count("pinc.margin_hits")
+                    msg(WARNING, "step %d: %d particle(s) reached the tile "
+                        "margin; re-bucketing early", n, lost)
+                    due = list(range(len(self._charge)))
+                    total_lost += lost
+                dropped = 0
+                if due:
+                    st, dropped = self._rebucket(st, species=due)
+                    if dropped:
+                        msg(WARNING, "step %d: %d particle(s) dropped by "
+                            "bucket overflow (raise tiles:slack)", n,
+                            dropped)
+                        total_dropped += dropped
+                    if dropped or lost:
+                        self.retune(st, drops=dropped)
+                with span("pinc.sync.energy"):
+                    ke = diag.kin_energy.cpu().numpy()
+                    pe = float(diag.pot_energy)
+                ke_hist.append(ke)
+                pe_hist.append(pe)
+                if writer is not None:
+                    self._write(writer, n, st, (rho, phi, E), diag, ke, pe,
+                                rho_obj, obj_phi)
+                if debug:
+                    self._assert_invariants_tiled(st, rho, n, max_vel)
+                if self.checkpoint_every and n % self.checkpoint_every == 0:
+                    from . import checkpoint as _ckpt
+                    _ckpt.save_tiled(self.cfg, n, self._flat_state(st),
+                                     self.tuning(), rho_obj)
+                step_seconds.append(time.monotonic() - t0)
             if progress_every and n % progress_every == 0:
                 msg(STATUS, "Computing time-step %i (KE=%g PE=%g)",
                     n, ke.sum(), pe)
@@ -1294,18 +1314,20 @@ class TiledSimulation(Simulation):
         plan = self._plan_sched(n) if use_sched else self._plan_generic(n)
 
         def solve(rho):
-            phi = self.solver(rho)
+            with span("pinc.solve"):
+                phi = self.solver(rho)
             return (fk.efield_tiles(phi, ts, out_dtype=self._mxu_dtype),
                     potential_energy(rho, phi))
 
         def body(carry, margins):
             st, e_tiles, pe_prev = carry
-            tiles, _, _, vdot, _ = tk.pic_step(
+            tiles, _, _, vdot, n_out = tk.pic_step(
                 e_tiles, st.lpos, st.vel, st.alive, self._charge, self._qm,
                 ts, mxu_dtype=self._mxu_dtype, order_acc=self._acc_order,
                 order_distr=self._distr_order, e_ext=self._e_ext,
                 boris_T=self._boris_T, boris_S=self._boris_S,
                 margins=margins, inplace=True)
+            count_device("pinc.past_margin", n_out)
             rho = fk.fold_global(tiles, ts).to(self.spec.dtype)
             return (st,) + solve(rho), (0.5 * mass * vdot, pe_prev)
 

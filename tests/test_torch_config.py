@@ -51,23 +51,6 @@ def test_timers():
         assert t.total == 0
 
 
-def test_profile_trace(tmp_path):
-    """profile_trace writes one torch.profiler trace of its block into
-    log_dir, and does nothing without one (pinc_tpu's jax.profiler
-    context)."""
-    import torch
-    from pinc_tpu_torch.utils.timer import profile_trace
-    with profile_trace(None):
-        torch.ones(8).sum()
-    with profile_trace(""):
-        pass
-    log_dir = tmp_path / "trace"
-    with profile_trace(str(log_dir)):
-        torch.ones(8).sum()
-    files = list(log_dir.iterdir())
-    assert len(files) == 1 and files[0].name.endswith(".pt.trace.json")
-    assert "aten::sum" in files[0].read_text()
-
 
 def test_getnp_cli(capsys):
     from pinc_tpu_torch.__main__ import main
