@@ -401,10 +401,10 @@ class ShardedTiledSimulation(TiledSimulation):
     # ---------------------------- the global views of the base class's run
     def _retune_sample(self, st):
         """retune()'s sample, every (NT // 64)-th tile of the global tile
-        grid, taken from the shards that hold those tiles (its host
-        percentiles see every shard; over several processes each fills
-        its shards' tiles and the samples are gathered, so every process
-        derives the same cadences)."""
+        grid, taken from the shards that hold those tiles into tensors on
+        the first local device (its percentiles see every shard; over
+        several processes each fills its shards' tiles and the samples
+        are gathered, so every process derives the same cadences)."""
         gnt, lnt = self.ts.ntiles, self.ts_local.ntiles
         gc = np.unravel_index(np.arange(0, self.ts.NT,
                                         max(1, self.ts.NT // 64)), gnt)
@@ -412,24 +412,28 @@ class ShardedTiledSimulation(TiledSimulation):
                                      self.ctx.n_subdomains)
         local = np.ravel_multi_index(tuple(c % n for c, n in zip(gc, lnt)),
                                      lnt)
-        S, D, _, B = self.ctx.first(st).vel.shape
-        vel = np.empty((S, D, len(local), B), np.float32)
-        alive = np.empty((S, len(local), B), np.float32)
+        first = self.ctx.first(st)
+        S, D, _, B = first.vel.shape
+        dev = first.vel.device
+        vel = torch.zeros((S, D, len(local), B), dtype=first.vel.dtype,
+                          device=dev)
+        alive = torch.zeros((S, len(local), B), dtype=first.alive.dtype,
+                            device=dev)
         for i in self.ctx.local:
             s = st[i]
             sel = np.flatnonzero(shard == i)
             if sel.size:
                 idx = torch.as_tensor(local[sel], device=s.vel.device)
-                vel[:, :, sel] = s.vel.index_select(2, idx).abs().cpu()
-                alive[:, sel] = s.alive.index_select(1, idx).cpu()
+                at = torch.as_tensor(sel, device=dev)
+                vel[:, :, at] = s.vel.index_select(2, idx).abs().to(dev)
+                alive[:, at] = s.alive.index_select(1, idx).to(dev)
         if self.ctx.world > 1:
             owner = np.asarray([self.ctx.owner(int(i)) for i in shard])
-            got = mh.all_gather([torch.from_numpy(vel),
-                                 torch.from_numpy(alive)])
+            got = mh.all_gather([vel, alive])
             for q, (v, a) in enumerate(got):
-                sel = np.flatnonzero(owner == q)
-                vel[:, :, sel] = v.numpy()[:, :, sel]
-                alive[:, sel] = a.numpy()[:, sel]
+                at = torch.as_tensor(np.flatnonzero(owner == q), device=dev)
+                vel[:, :, at] = v[:, :, at]
+                alive[:, at] = a[:, at]
         return vel, alive > 0.5
 
     def to_particles(self, st):

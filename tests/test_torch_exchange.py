@@ -13,6 +13,7 @@ Pallas compiles slowly; a jitted call then runs in well under a second),
 so the driver tests share one layout: 2x2x2 tiles of 4^3 cells, B = 2048.
 """
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -27,11 +28,13 @@ from pinc_tpu.ops import pallas_gather_exchange as pgx
 from pinc_tpu.ops.tiled import TileSpec as JTileSpec
 from pinc_tpu.ops.tiled import bucket as jbucket
 from pinc_tpu.tiled_sim import TiledSimulation as JTiledSimulation
+from pinc_tpu_torch import tiled_sim
 from pinc_tpu_torch.config import PincConfig
 from pinc_tpu_torch.ops import exchange as ex
 from pinc_tpu_torch.ops import gather_exchange as gx
 from pinc_tpu_torch.ops import onehot_exchange as ox
-from pinc_tpu_torch.tiled_sim import TiledSimulation
+from pinc_tpu_torch.tiled_sim import TiledSimulation, TiledState
+from pinc_tpu_torch.utils import timer
 
 GRID, T, B, K = (8, 8, 8), 4, 2048, 256
 NTILES = tuple(g // T for g in GRID)
@@ -392,25 +395,102 @@ tileSize = 4
 """
 
 
+def _host_percentiles(speeds, alive):
+    """retune()'s previous selection: the sample copied to the host and
+    np.percentile there."""
+    v, a = speeds.cpu().numpy(), alive.cpu().numpy()
+    out = []
+    for s in range(v.shape[0]):
+        vs = v[s].reshape(v.shape[1], -1)[:, a[s].reshape(-1)]
+        out.append(float(np.percentile(vs, 99.9)) if vs.size else None)
+    return out
+
+
+def _speed_case(name):
+    """(speeds (S, D, n, B), alive (S, n, B)) float32 and bool."""
+    rng = np.random.default_rng(11)
+    size, live = {"1": (1, 1.0), "2": (2, 1.0), "999": (999, 1.0),
+                  "1000": (1000, 1.0), "1001": (1001, 1.0),
+                  "100k": (100_003, 1.0), "tied": (20_000, 1.0),
+                  "equal": (5000, 1.0), "mostly_dead": (50_000, 0.03),
+                  "empty": (4096, 0.0), "nan": (3000, 1.0)}[name]
+    v = rng.gamma(2.0, 0.05, size).astype(np.float32)
+    if name == "tied":
+        v = np.round(v, 2).astype(np.float32)
+    if name == "equal":
+        v[:] = np.float32(0.3)
+    if name == "nan":
+        v[17] = np.nan
+    alive = rng.random(size) < live
+    if name == "100k":     # two species, D = 3, the second one empty
+        v = np.stack([v[:99_999].reshape(3, 1, -1), v[4:].reshape(3, 1, -1)])
+        alive = np.stack([alive[:33_333], np.zeros(33_333, bool)])[:, None]
+        return torch.from_numpy(v), torch.from_numpy(alive)
+    return (torch.from_numpy(v).reshape(1, 1, 1, size),
+            torch.from_numpy(alive).reshape(1, 1, size))
+
+
+@pytest.mark.parametrize("name", ["1", "2", "999", "1000", "1001", "100k",
+                                  "tied", "equal", "mostly_dead", "empty",
+                                  "nan"])
+def test_speed_percentiles_match_numpy(name):
+    """retune()'s velocity scale, selected on the device, is
+    np.percentile(vs, 99.9) of the alive speeds bit for bit (None where no
+    slot is alive)."""
+    speeds, alive = _speed_case(name)
+    got = tiled_sim.speed_percentiles(speeds, alive)
+    want = _host_percentiles(speeds, alive)
+    assert [repr(g) for g in got] == [repr(w) for w in want]
+
+
+# retune()'s states: (velocity scale, share of the particles killed)
+HEATED = [(1.0, 0.0), (2.5, 0.0), (0.375, 0.0), (6.0, 0.9), (1.0, 0.97)]
+
+
 @pytest.mark.parametrize("knobs", [
     "margin = 2\nslack = 2.0\n",
     "margin = 1\nslack = 2.0\n",
     "margin = 2\nslack = 4.0\nexchangeCap = 512\n",
 ], ids=["m2", "m1", "cap512"])
-def test_tiled_sim_exchange_sizing_matches_pinc_tpu(knobs):
+def test_tiled_sim_exchange_sizing_matches_pinc_tpu(monkeypatch, knobs):
     """The re-bucket mode, face cap, row gate and bucket size TiledSimulation
-    derives, and retune()'s escalation after drops, equal pinc_tpu's."""
+    derives equal pinc_tpu's; so do retune()'s decisions (cadences, face
+    cap, escalation after drops, row gate, return value) on heated and
+    thinned states, with and without drops, and those of the previous
+    host path (np.percentile on the copied sample); a retune copies at
+    most 64 bytes to the host."""
     deck = EXCHANGE_DECK + knobs
     jsim = JTiledSimulation(JConfig.from_string(deck), seed=3)
     sim = TiledSimulation(PincConfig.from_string(deck), seed=3, device="cpu")
+    host = TiledSimulation(PincConfig.from_string(deck), seed=3, device="cpu")
     keys = ("_rebucket_mode", "_exchange_cap", "_exchange_rows",
             "rebucket_every_s")
     assert sim.ts.B == jsim.ts.B and sim.ts.M == jsim.ts.M
     assert {k: getattr(sim, k) for k in keys} == {
         k: getattr(jsim, k) for k in keys}
     assert sim._rebucket_mode == "exchange"
-    for drops in (3, 0, 7):
-        assert sim.retune(sim.state, drops=drops) == jsim.retune(
-            jsim.state, drops=drops)
-        assert {k: getattr(sim, k) for k in keys} == {
-            k: getattr(jsim, k) for k in keys}
+    rng = np.random.default_rng(5)
+    calls = changed = 0
+    for heat, kill in HEATED:
+        keep = (rng.random(tuple(sim.state.alive.shape)) >= kill).astype(
+            np.float32)
+        st = TiledState(sim.state.lpos, sim.state.vel * heat,
+                        sim.state.alive * torch.from_numpy(keep))
+        jst = dataclasses.replace(jsim.state, vel=jsim.state.vel * heat,
+                                  alive=jsim.state.alive * jnp.asarray(keep))
+        for drops in (3, 0, 7, 0):
+            with timer.tracing(True):
+                timer.reset()
+                got = sim.retune(st, drops=drops)
+                rep = timer.report()
+            with monkeypatch.context() as m:
+                m.setattr(tiled_sim, "speed_percentiles", _host_percentiles)
+                assert host.retune(st, drops=drops) == got
+            assert jsim.retune(jst, drops=drops) == got
+            calls, changed = calls + 1, changed + got
+            assert rep["spans"]["pinc.retune"]["calls"] == 1
+            assert 0 < rep["counts"]["pinc.retune_host_bytes"] <= 64
+            want = {k: getattr(jsim, k) for k in keys + ("_cap_escalation",)}
+            for mine in (sim, host):
+                assert {k: getattr(mine, k) for k in want} == want
+    assert 0 < changed < calls
