@@ -15,11 +15,16 @@ the entry's warm-up); the measured window (``--seconds`` of the entry run
 back to back); with ``--trace 1`` a traced span of the entry after it;
 then, with the program's peak memory read, one more stretch of the same
 entry on the same object, whose steps, one re-bucket and the start are
-captured and judged by the plain reference (``check.py``).
+captured and judged by the plain reference (``check.py``).  A traced run
+turns the program's tracer on over set-up and over the traced span alone,
+and hands its reports to the per-layer readers (``ctx.program_setup``,
+``ctx.program``, ``ctx.program_pass``); the window and the capture run
+with it off, as every untraced run does throughout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib.util
 import json
@@ -36,6 +41,7 @@ import torch
 from . import check as chk
 from . import reference as ref
 from . import trace as tr
+from .program_pass import program_pass
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "pinc_tpu")
 
@@ -158,6 +164,15 @@ def make_sim(deck, pos, vel, seed: int, device, domain):
                       domain=domain)
     finally:
         given.clear()
+
+
+def _tracing(on: bool):
+    """The program's tracer (``pinc_tpu_torch.utils.timer``) on over the
+    block where ``on``; else nothing, the tracer left off."""
+    if not on:
+        return contextlib.nullcontext()
+    from pinc_tpu_torch.utils import timer
+    return timer.tracing(True)
 
 
 def sync(device):
@@ -496,7 +511,13 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
                  for s in range(pos.shape[0])]
     sync(dev)
     excluded += time.monotonic() - t0
-    sim = make_sim(deck, pos, vel, seed, dev, domain)
+    # a traced run keeps the program's tracer report of set-up; an
+    # untraced one leaves the tracer off throughout
+    if trace:
+        from pinc_tpu_torch.utils import timer
+        timer.reset()
+    with _tracing(trace):
+        sim = make_sim(deck, pos, vel, seed, dev, domain)
     del pos, vel
     t0 = time.monotonic()
     st = sim.state
@@ -512,11 +533,13 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
         f"{sim.rebucket_every_s}, face cap {sim._exchange_cap} (the mix "
         f"expects {expect})")
 
-    entry = ENTRIES[traffic["entry"]](sim, traffic)
-    entry.warmup()
+    with _tracing(trace):
+        entry = ENTRIES[traffic["entry"]](sim, traffic)
+        entry.warmup()
     sync(dev)
     gc.collect()
     setup_s = time.monotonic() - t_start - excluded
+    program_setup = timer.report() if trace else None
 
     # the measured window; the peak memory is the program's over it (the
     # benchmark's own copy of the initial particles is gone by now)
@@ -536,14 +559,19 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
     log(f"window: {steps} steps, {psteps:.0f} particle-steps, "
         f"{wall:.3f} s, {drops} dropped")
 
-    summary = None
+    summary = program = passed = None
     if trace:
         span_attrs = bench.spans()
         box = {}
-        with tr.spans(sim, span_attrs):
+        timer.reset()
+        with tr.spans(sim, span_attrs), _tracing(True):
             summary = tr.profile(lambda: box.setdefault("n", entry.traced()),
                                  list(span_attrs))
         summary.steps = box["n"]
+        program = timer.report()
+        timer.reset()
+        passed = program_pass(summary.events)
+        summary.events = None
 
     # the check: one more stretch of the entry, captured
     step_seconds = np.asarray(getattr(entry, "step_seconds", []) or [])
@@ -604,7 +632,8 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
         n_species=n_species, e_bytes=ref.weight_dtype(deck).itemsize,
         peaks=bench.peaks(kind), work=lambda n: bench.module("work", n),
         psteps=psteps, wall=wall, setup_s=setup_s, steps=steps,
-        range_ms_per_step=lambda name: _range_ms(summary, name))
+        range_ms_per_step=lambda name: _range_ms(summary, name),
+        program_setup=program_setup, program=program, program_pass=passed)
     section = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in bench.metrics(workload, section):
@@ -619,7 +648,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
         device["busy_s"] = summary.busy_s
         device["window_s"] = summary.window_s
         out["breakdown"] = {"device_ops": [list(x) for x in summary.ops],
-                            "idle_gaps": [list(x) for x in summary.gaps]}
+                            "idle_gaps": [list(x) for x in passed["gaps"]]}
     out["judged"] = judged
     out["check"] = verdict["table"]
     return out

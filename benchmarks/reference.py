@@ -202,9 +202,10 @@ def deposit(lpos: torch.Tensor, alive: torch.Tensor, charges: Sequence[float],
     return rho.reshape(tuple(grid))
 
 
-def solve(rho: torch.Tensor) -> torch.Tensor:
-    """grad^2 phi = -rho on the periodic grid, continuum k^2 (PINC's
-    sSolve), the mean mode zero; float64."""
+def _periodic_solve(rho: torch.Tensor, symbol) -> torch.Tensor:
+    """grad^2 phi = -rho on the periodic grid by the FFT, -grad^2's symbol
+    the sum over the axes of symbol(m, n) (m the wave numbers of an axis
+    of n nodes), the mean mode zero; float64."""
     shape = rho.shape
     k2 = torch.zeros((), dtype=torch.float64, device=rho.device)
     for d, n in enumerate(shape):
@@ -214,11 +215,47 @@ def solve(rho: torch.Tensor) -> torch.Tensor:
             m = m[: n // 2 + 1].abs()
         sh = [1] * len(shape)
         sh[d] = m.numel()
-        k2 = k2 + ((2.0 * math.pi / n) * m).reshape(sh) ** 2
+        k2 = k2 + symbol(m.reshape(sh), n)
     inv = torch.where(k2 > 0, 1.0 / torch.where(k2 > 0, k2, 1.0),
                       torch.zeros_like(k2))
     spec = torch.fft.rfftn(rho.double()) * inv
     return torch.fft.irfftn(spec, s=shape)
+
+
+def solve(rho: torch.Tensor) -> torch.Tensor:
+    """grad^2 phi = -rho on the periodic grid, continuum k^2 (PINC's
+    sSolve), the mean mode zero; float64."""
+    return _periodic_solve(rho, lambda m, n: ((2.0 * math.pi / n) * m) ** 2)
+
+
+def solve_fd(rho: torch.Tensor) -> torch.Tensor:
+    """grad^2 phi = -rho on the periodic grid for the 7-point stencil,
+    exactly: its own symbol sum_d 4 sin^2(pi m_d / n_d), the mean mode
+    zero; float64.  The equation PINC's mgSolver iterates toward (its
+    smoother's update phi = (sum of the neighbours + rho) / 2D, its
+    residual rho + the stencil's Laplacian)."""
+    return _periodic_solve(
+        rho, lambda m, n: 4.0 * torch.sin((math.pi / n) * m) ** 2)
+
+
+def fd_residual(phi: torch.Tensor, rho: torch.Tensor) -> float:
+    """rms(rho + grad^2 phi) / rms(rho) for the periodic 7-point stencil,
+    rho's mean taken out, in float64: the residual whose rms mgSolver's
+    tolerance bounds (mgSolveRaw's measure), relative to rho's."""
+    phi, rho = phi.double(), rho.double()
+    rho = rho - rho.mean()
+    lap = sum(torch.roll(phi, 1, d) + torch.roll(phi, -1, d)
+              for d in range(phi.ndim)) - 2.0 * phi.ndim * phi
+    den = float(rho.square().mean().sqrt())
+    return float((rho + lap).square().mean().sqrt()) / (den if den else 1.0)
+
+
+def mean_share(phi: torch.Tensor) -> float:
+    """|mean phi| / max |phi|, in float64: how far phi is from the neutral
+    one (mean zero) that the periodic solves return."""
+    phi = phi.double()
+    den = float(phi.abs().max())
+    return abs(float(phi.mean())) / (den if den else 1.0)
 
 
 def efield(phi: torch.Tensor) -> torch.Tensor:
@@ -301,16 +338,18 @@ def absorbed(lpos: torch.Tensor, alive: torch.Tensor, interior: torch.Tensor,
     return (alive > 0.5) & inside
 
 
-def capacitance(surface: torch.Tensor, grid: Sequence[int]) -> torch.Tensor:
+def capacitance(surface: torch.Tensor, grid: Sequence[int],
+                solver=solve) -> torch.Tensor:
     """The capacitance matrix C = A^-1 of an object's surface nodes (flat
     indices), float64: A[k, i] is the potential at surface node k of a unit
     charge at surface node i (PINC's oComputeCapacitanceMatrix), on the
-    periodic grid G((r_k - r_i) mod L) of one solve of a unit charge."""
+    periodic grid G((r_k - r_i) mod L) of one solve (``solver``, the
+    deck's method's) of a unit charge."""
     dev = surface.device
     V = math.prod(grid)
     delta = torch.zeros(V, dtype=torch.float64, device=dev)
     delta[0] = 1.0
-    G = solve(delta.reshape(tuple(grid))).reshape(-1)
+    G = solver(delta.reshape(tuple(grid))).reshape(-1)
     rest, flat = surface.long(), torch.zeros((), dtype=torch.int64,
                                              device=dev)
     coords = []
@@ -325,8 +364,8 @@ def capacitance(surface: torch.Tensor, grid: Sequence[int]) -> torch.Tensor:
 
 
 def corrected(rho: torch.Tensor, surface: torch.Tensor, C: torch.Tensor,
-              cdt: torch.dtype = torch.float64):
-    """PINC's oApplyCapacitanceMatrix on rho (float64): phi = solve(rho),
+              cdt: torch.dtype = torch.float64, solver=solve):
+    """PINC's oApplyCapacitanceMatrix on rho (float64): phi = solver(rho),
     the object's potential phi_c = sum_ij C_ji phi_j / sum_ij C_ij and
     rho += C^T (phi_c - phi) on the surface nodes, which leaves the surface
     an equipotential and adds no net charge.  cdt: the type C and the
@@ -335,7 +374,7 @@ def corrected(rho: torch.Tensor, surface: torch.Tensor, C: torch.Tensor,
     r = (lambda t: t) if cdt == torch.float64 else \
         (lambda t: t.to(cdt).double())
     Cr = r(C)
-    phi_s = r(solve(rho).reshape(-1)[surface])
+    phi_s = r(solver(rho).reshape(-1)[surface])
     phi_c = float(Cr.sum(dim=1) @ phi_s) / float(Cr.sum())
     out = rho.reshape(-1).clone()
     out.index_add_(0, surface.long(), r(Cr.T @ (phi_c - phi_s)))

@@ -23,6 +23,7 @@ TINY = {
     "tinysphere16.run": ("tinysphere16", "tiny_run"),
     "tiny16.escape.scan": ("tiny16", "tiny_escape_scan"),
     "tiny16.escape.run": ("tiny16", "tiny_escape_run"),
+    "tinymg16.run": ("tinymg16", "tiny_run"),
 }
 
 _EXACT = ("start_tiles_off", "layout_off", "window_drops", "window_nonfinite",
@@ -43,6 +44,11 @@ TINY_LIMITS = {
                              surface_rho_err=1e-5, total_charge_err=1e-2),
     "tiny16.escape.scan": _SCAN,
     "tiny16.escape.run": _RUN,
+    # the multigrid's phi by its residual (sound 1.5e-4 to 4.7e-4 of rms
+    # rho, the control 3.9e-3 and more) and its mean (sound 7e-9 of max
+    # |phi| at most, the control 2e-7 and more)
+    "tinymg16.run": dict({k: v for k, v in _RUN.items() if k != "phi_err"},
+                         phi_resid=2e-3, phi_mean=3e-8),
 }
 
 

@@ -66,18 +66,14 @@ def _program_ranges():
 def test_reduce_events_unchanged_by_program_ranges():
     """The benchmark's own reduction gives the same numbers with the
     program's ranges nested in and between its ranges: no device operation
-    leaves its bench.* range, and the idle time is the same."""
+    leaves its bench.* range, and the busy time is the same."""
     names = ["bench.rebucket", "bench.solve"]
     before = tr.reduce_events(_events(), names)
     after = tr.reduce_events(_events() + _program_ranges(), names)
     assert before.range_s == pytest.approx({"bench.rebucket": 40e-6,
                                             "bench.solve": 28e-6})
     for f in dataclasses.fields(tr.TraceSummary):
-        if f.name != "gaps":
-            assert getattr(after, f.name) == getattr(before, f.name), f.name
-    assert sum(s for _, s in after.gaps) == \
-        pytest.approx(sum(s for _, s in before.gaps)) == \
-        pytest.approx(112e-6)
+        assert getattr(after, f.name) == getattr(before, f.name), f.name
 
 
 def test_program_pass_counts_idle_inside_sync_ranges():
@@ -131,48 +127,28 @@ def test_reader_silent_without_the_program(tree, name):
     or program_pass), each reader returns nothing and does not raise."""
     summary = tr.TraceSummary(window_s=1.0, busy_s=0.5, device_s=0.5,
                               n_kernels=3, range_s={}, range_calls={},
-                              ops=[], gaps=[], steps=10)
+                              ops=[], steps=10)
     ctx = SimpleNamespace(trace=summary, step_seconds=[0.01] * 10,
                           steps=10, setup_s=1.0)
     assert h.Bench(tree).module("metrics", name).read(ctx) is None
 
 
 def _traced_cell(tree, cell, monkeypatch):
-    """A tiny cell as the harness runs it, the tracer on over make_sim and
-    the warm-up and again over the profiled span: the context the readers
-    take."""
-    from pinc_tpu_torch.utils import timer
-    bench = h.Bench(tree)
-    wl = bench.workload(cell)
-    config, traffic = bench.config(wl["config"]), bench.traffic(wl["traffic"])
-    deck = h.merged_deck(config, traffic)
-    dev = torch.device("cpu")
-    pos, vel = h.make_particles(deck, SEED, dev)
-    timer.reset()
-    with timer.tracing(True):
-        sim = h.make_sim(deck, pos, vel, SEED, dev, h.domain_of(config, deck))
-        entry = h.ENTRIES[traffic["entry"]](sim, traffic)
-        entry.warmup()
-    setup = timer.report()
-    timer.reset()
-    got = {}
-    reduce_events = tr.reduce_events
+    """A tiny cell run by run_cell with --trace 1: the context its readers
+    took (kept by a spy on the reader modules) and the result line."""
+    seen = []
+    module = h.Bench.module
 
-    def keep(events, names):
-        got["events"] = events
-        return reduce_events(events, names)
-    monkeypatch.setattr(tr, "reduce_events", keep)
-    try:
-        with timer.tracing(True):
-            summary = tr.profile(lambda: got.setdefault("n", entry.traced()),
-                                 [])
-        summary.steps = got["n"]
-        program = timer.report()
-    finally:
-        timer.reset()
-    return SimpleNamespace(trace=summary, program_setup=setup,
-                           program=program,
-                           program_pass=pt.program_pass(got["events"]))
+    def spied(self, kind, name):
+        mod = module(self, kind, name)
+        if kind == "metrics":
+            read = mod.read
+            mod.read = lambda ctx: (seen.append(ctx), read(ctx))[1]
+        return mod
+    monkeypatch.setattr(h.Bench, "module", spied)
+    out = h.run_cell(tree, cell, SEED, 0.2, True, device="cpu")
+    assert out["correct"], out["check"]
+    return seen[0], out
 
 
 @pytest.mark.parametrize("cell", ["tiny16.run", "tinysphere16.run",
@@ -180,12 +156,16 @@ def _traced_cell(tree, cell, monkeypatch):
 def test_readers_read_the_program(tree, cell, monkeypatch):
     """Each reader reads its span or counter in the cells whose layers
     have it, per traced step, and nothing in the others."""
-    ctx = _traced_cell(tree, cell, monkeypatch)
+    ctx, out = _traced_cell(tree, cell, monkeypatch)
     bench = h.Bench(tree)
     m = {k: bench.module("metrics", k).read(ctx) for k in PROGRAM}
     for name, where in PROGRAM.items():
         assert (m[name] is not None) == (where is not None and where in cell), \
             name
+        if name in out["metrics"]:
+            assert out["metrics"][name]["value"] == m[name], name
+    assert dict(out["breakdown"]["idle_gaps"]) == \
+        dict(ctx.program_pass["gaps"])
     counts, spans = ctx.program["counts"], ctx.program["spans"]
     assert m["setup_bucket_s"] == \
         ctx.program_setup["spans"]["pinc.setup.bucket"]["seconds"] > 0
@@ -209,3 +189,56 @@ def test_readers_read_the_program(tree, cell, monkeypatch):
         assert m["past_margin_per_step"] == \
             counts["pinc.past_margin"] / ctx.trace.steps
         assert spans["pinc.solve"]["calls"] >= ctx.trace.steps
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("cell", ["tiny16.run", "tiny16.scan"])
+def test_tracer_off_in_window_and_capture(tree, cell, trace, monkeypatch):
+    """Each solve of a run notes whether the program's tracer was on: off
+    all through an untraced run; in a traced one on over set-up and the
+    profiled span alone, off over the measured window and the capture."""
+    from pinc_tpu_torch.utils import timer
+    phase, seen = ["set-up"], []
+    make_sim, profile = h.make_sim, tr.profile
+
+    def spied_sim(*a, **k):
+        sim = make_sim(*a, **k)
+        solver = sim.solver
+
+        def solve(rho):
+            seen.append((phase[0], timer._on))
+            return solver(rho)
+        sim.solver = solve
+        return sim
+
+    def spied_profile(*a, **k):
+        phase[0] = "trace"
+        try:
+            return profile(*a, **k)
+        finally:
+            phase[0] = "after the trace"
+    monkeypatch.setattr(h, "make_sim", spied_sim)
+    monkeypatch.setattr(tr, "profile", spied_profile)
+    entry = h.ENTRIES[cell.rsplit(".", 1)[1]]
+    for name in ("warmup", "capture"):
+        method = getattr(entry, name)
+
+        def spied(self, *a, _method=method, _name=name, **k):
+            phase[0] = _name
+            try:
+                return _method(self, *a, **k)
+            finally:
+                phase[0] = "window" if _name == "warmup" else "done"
+        monkeypatch.setattr(entry, name, spied)
+    out = h.run_cell(tree, cell, SEED, 0.2, trace, device="cpu")
+    assert out["correct"], out["check"]
+    on = {}
+    for p, o in seen:
+        on.setdefault(p, set()).add(o)
+    assert {"warmup", "window", "capture"} <= set(on)
+    expect = {"warmup": {trace}, "window": {False}, "trace": {True},
+              "capture": {False}}
+    for p, o in on.items():
+        assert o == expect[p], p
+    assert ("trace" in on) == trace
+    assert not timer._on and timer.report() == {"spans": {}, "counts": {}}

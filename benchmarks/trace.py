@@ -1,7 +1,7 @@
 """The traced span: ``torch.profiler`` over a fixed number of steps with
 ``record_function`` ranges around the port's layer entries (``spans/``),
 and the reduction of its trace to device busy time, the device time of
-each range, the kernel count and the idle gaps.
+each range and the kernel count (``program_pass`` names the idle gaps).
 
 The trace is exported to a temporary file under ``TMPDIR``, read back and
 deleted.  Device operations are the trace's ``kernel``, ``gpu_memcpy`` and
@@ -17,8 +17,8 @@ import contextlib
 import json
 import os
 import tempfile
-from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "bench.window"
@@ -33,9 +33,8 @@ class TraceSummary:
     range_s: Dict[str, float]          # device seconds launched per range
     range_calls: Dict[str, int]        # times each range opened
     ops: List[Tuple[str, float]]       # device seconds by operation name
-    gaps: List[Tuple[str, float]]      # idle seconds by what the host did
     steps: int = 0
-    extra: dict = field(default_factory=dict)
+    events: Optional[list] = None      # the raw trace events (profile)
 
 
 @contextlib.contextmanager
@@ -65,7 +64,8 @@ def spans(sim, span_attrs: Dict[str, str]):
 def profile(body, range_names) -> TraceSummary:
     """Run body() under torch.profiler inside a WINDOW range, the device
     synchronised before the range closes, and reduce the trace (on a host
-    without a card: the host's operations alone)."""
+    without a card: the host's operations alone); the summary keeps the
+    trace's events for other passes over them."""
     import torch
     from torch.profiler import ProfilerActivity
     cuda = torch.cuda.is_available()
@@ -83,7 +83,9 @@ def profile(body, range_names) -> TraceSummary:
             events = json.load(f)["traceEvents"]
     finally:
         os.unlink(path)
-    return reduce_events(events, range_names)
+    summary = reduce_events(events, range_names)
+    summary.events = events
+    return summary
 
 
 def _merge(intervals):
@@ -147,35 +149,9 @@ def reduce_events(events, range_names) -> TraceSummary:
             range_s[ranges[tid][i][2]] += (b - a) * 1e-6
     merged = _merge(intervals)
     busy_us = sum(b - a for a, b in merged)
-    # idle gaps, named by the innermost host operation on the thread that
-    # opened the window that spans the gap's start
-    main = win[0].get("tid")
-    host_ops = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-                       e["name"]) for e in xs
-                      if e.get("tid") == main
-                      and e.get("cat") in ("cpu_op", "user_annotation",
-                                           "cuda_runtime", "cuda_driver",
-                                           "python_function")
-                      and e.get("name") != WINDOW)
-    host_starts = [h[0] for h in host_ops]
-    gaps: Dict[str, float] = {}
-    edges = [w0] + [x for ab in merged for x in ab] + [w1]
-    for a, b in zip(edges[0::2], edges[1::2]):
-        if b <= a:
-            continue
-        # the latest-starting host operation still open at the gap's start
-        # (looked for among the 256 operations that start before it)
-        name = "host (between operations)"
-        i = bisect.bisect_right(host_starts, a) - 1
-        for j in range(i, max(i - 256, -1), -1):
-            if host_ops[j][1] >= a:
-                name = host_ops[j][2]
-                break
-        gaps[name] = gaps.get(name, 0.0) + (b - a) * 1e-6
     return TraceSummary(
         window_s=(w1 - w0) * 1e-6, busy_s=busy_us * 1e-6,
         device_s=device_us * 1e-6, n_kernels=n_kernels, range_s=range_s,
         range_calls=range_calls,
         ops=sorted(((n, t * 1e-6) for n, t in ops.items()),
-                   key=lambda x: -x[1])[:10],
-        gaps=sorted(gaps.items(), key=lambda x: -x[1])[:10])
+                   key=lambda x: -x[1])[:10])
